@@ -1,0 +1,219 @@
+"""Hand-written CUDA kernels of the port: build, bind and launch.
+
+Each kernel source in `csrc/` is compiled by `nvcc` for `sm_90a` into a
+shared library with a plain C interface, on first use, into
+`build/kernels/` at the repository root, and bound with ctypes (pointers
+and the stream as `c_void_p`). The library name carries a hash of the
+source, so an edited source builds anew and concurrent builds never
+write the same file. Nothing is compiled or loaded at import: this module
+imports on hosts without CUDA, where the callers take the plain PyTorch
+versions for CPU tensors.
+
+Every wrapper checks device, dtype, shape and contiguity, allocates its
+outputs with `torch.empty`, launches on PyTorch's current stream, raises
+if the launch reports an error, and adds one to its kernel's `launches`
+count — there and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from dataclasses import dataclass
+
+import torch
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "build", "kernels",
+)
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+
+@dataclass
+class Kernel:
+    name: str
+    source: str  # file under csrc/
+    replaces: str  # the TPU kernel it ports, file:line
+    launches: int = 0
+    lib: ctypes.CDLL | None = None
+    build_log: str = ""
+
+
+STAGE1 = Kernel(
+    name="stage1",
+    source="stage1.cu",
+    replaces="nakama_tpu/matchmaker/device2.py:302",
+)
+KERNELS = [STAGE1]
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(home, "bin", "nvcc")
+
+
+def library_path(kernel: Kernel) -> str:
+    src = os.path.join(_CSRC, kernel.source)
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"lib{kernel.name}-{digest}.so")
+
+
+def build(kernel: Kernel) -> str:
+    """Compile `kernel` unless this version of its source is built;
+    returns the library path. `kernel.build_log` keeps ptxas's report
+    (registers, shared memory, spills)."""
+    path = library_path(kernel)
+    if os.path.exists(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [
+        _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+        "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
+        os.path.join(_CSRC, kernel.source),
+    ]
+    try:
+        done = subprocess.run(cmd, capture_output=True, text=True)
+        if done.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed for {kernel.source}:\n{done.stderr}"
+            )
+        kernel.build_log = done.stderr
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return path
+
+
+def _load(kernel: Kernel) -> ctypes.CDLL:
+    with _lock:
+        if kernel.lib is None:
+            lib = ctypes.CDLL(build(kernel))
+            _bind(kernel, lib)
+            kernel.lib = lib
+        return kernel.lib
+
+
+def _bind(kernel: Kernel, lib: ctypes.CDLL) -> None:
+    if kernel is STAGE1:
+        f = lib.stage1_launch
+        f.restype = ctypes.c_int
+        f.argtypes = (
+            [ctypes.c_void_p] * 11
+            + [ctypes.c_int] * 6
+            + [ctypes.c_float] * 2
+            + [ctypes.c_int] * 2
+            + [ctypes.c_void_p]
+        )
+
+
+def _check(x: torch.Tensor, name: str, dtype, device, shape) -> None:
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _padded(x: torch.Tensor, width: int) -> torch.Tensor:
+    """`x` with its columns zero-padded to `width` and rows 32-byte
+    aligned, as the kernel's fragment loads need."""
+    if x.shape[1] == width and x.data_ptr() % 32 == 0:
+        return x
+    out = torch.zeros((x.shape[0], width), dtype=x.dtype, device=x.device)
+    out[:, : x.shape[1]] = x
+    return out
+
+
+def _round16(d: int) -> int:
+    return -(-d // 16) * 16
+
+
+def stage1(
+    uq, vv, col_mix, col_gidx, row_mix, row_slot, *,
+    f_tot: float, m: int, bn: int, emb_scale: float,
+    ue=None, ve=None, uv=None, vq=None,
+) -> torch.Tensor:
+    """Launch the stage-1 kernel (csrc/stage1.cu) on CUDA tensors.
+
+    uq bf16 [A, D], vv bf16 [n, D]; col_mix/col_gidx i32 [n];
+    row_mix/row_slot i32 [A]; ue bf16 [A, E] with ve bf16 [n, E] when
+    embeddings score; uv bf16 [A, D] with vq bf16 [n, D] under mutual
+    matching. Returns i32 [A, (n // bn) * m]: per bn-column block, each
+    row's top-m packed words, descending, INT32_MIN-filled."""
+    dev = uq.device
+    if dev.type != "cuda":
+        raise ValueError(f"stage1 kernel needs CUDA tensors, got {dev}")
+    a_pad, d = uq.shape
+    n = vv.shape[0]
+    bf16, i32 = torch.bfloat16, torch.int32
+    _check(uq, "uq", bf16, dev, (a_pad, d))
+    _check(vv, "vv", bf16, dev, (n, d))
+    _check(col_mix, "col_mix", i32, dev, (n,))
+    _check(col_gidx, "col_gidx", i32, dev, (n,))
+    _check(row_mix, "row_mix", i32, dev, (a_pad,))
+    _check(row_slot, "row_slot", i32, dev, (a_pad,))
+    rev = uv is not None
+    with_emb = ue is not None
+    if rev != (vq is not None) or with_emb != (ve is not None):
+        raise ValueError("uv/vq and ue/ve come in pairs")
+    if rev:
+        _check(uv, "uv", bf16, dev, (a_pad, d))
+        _check(vq, "vq", bf16, dev, (n, d))
+    if with_emb:
+        e = ue.shape[1]
+        _check(ue, "ue", bf16, dev, (a_pad, e))
+        _check(ve, "ve", bf16, dev, (n, e))
+    if bn % 128 or bn > 1024 or n % bn or a_pad % 32 or m < 1:
+        raise ValueError(
+            f"stage1 kernel needs bn % 128 == 0, bn <= 1024, n % bn == 0, "
+            f"a_pad % 32 == 0, m >= 1 (bn={bn}, n={n}, a_pad={a_pad}, m={m})"
+        )
+    n_blocks = n // bn
+    out = torch.empty((a_pad, n_blocks * m), dtype=i32, device=dev)
+    if a_pad == 0:
+        return out
+    dp = _round16(d)
+    ops = {"uq": _padded(uq, dp), "vv": _padded(vv, dp)}
+    if rev:
+        ops["uv"], ops["vq"] = _padded(uv, dp), _padded(vq, dp)
+    de = 16
+    if with_emb:
+        de = _round16(ue.shape[1])
+        ops["ue"], ops["ve"] = _padded(ue, de), _padded(ve, de)
+
+    def ptr(name):
+        t = ops.get(name)
+        return None if t is None else t.data_ptr()
+
+    lib = _load(STAGE1)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.stage1_launch(
+            ptr("uq"), ptr("vv"), ptr("uv"), ptr("vq"), ptr("ue"), ptr("ve"),
+            col_mix.data_ptr(), col_gidx.data_ptr(), row_mix.data_ptr(),
+            row_slot.data_ptr(), out.data_ptr(),
+            a_pad, n, dp, de, bn, m, f_tot - 0.5, emb_scale,
+            int(rev), int(with_emb), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"stage1 kernel launch failed: CUDA error {rc}")
+    STAGE1.launches += 1
+    return out

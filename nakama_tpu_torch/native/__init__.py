@@ -1,0 +1,272 @@
+"""Native (C++) runtime components, loaded via ctypes.
+
+`load()` compiles `assembler.cpp` and `tickstore.cpp` with the host C++
+compiler on first use, into `build/native/` at the repository root (never
+into the source tree). The library name carries a hash of the sources, so
+an edited source builds a new library and concurrent first users (test
+workers) never write the same file: each builds into a private temporary
+name and renames it into place.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+import threading
+
+import numpy as np
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+_SOURCES = ("assembler.cpp", "tickstore.cpp")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build", "native")
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+class NativeUnavailable(RuntimeError):
+    pass
+
+
+def _source_digest(paths: list[str]) -> str:
+    h = hashlib.sha256()
+    for p in paths:
+        with open(p, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def build() -> str:
+    """Compile the native sources (if this version is not built yet) and
+    return the library path."""
+    srcs = [os.path.join(_DIR, s) for s in _SOURCES]
+    lib_path = os.path.join(
+        BUILD_DIR, f"libnakama_native-{_source_digest(srcs)}.so"
+    )
+    if os.path.exists(lib_path):
+        return lib_path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [
+        os.environ.get("CXX", "g++"), "-O2", "-std=c++17", "-fPIC",
+        "-shared", "-o", tmp, *srcs,
+    ]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True, text=True)
+        os.replace(tmp, lib_path)
+    except (subprocess.CalledProcessError, FileNotFoundError) as e:
+        detail = getattr(e, "stderr", "") or str(e)
+        raise NativeUnavailable(f"cannot build native library: {detail}") from e
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib_path
+
+
+def load() -> ctypes.CDLL:
+    """Load (building if needed) the native library."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        lib = ctypes.CDLL(build())
+        lib.mm_assemble.restype = ctypes.c_int32
+        lib.ts_create.restype = ctypes.c_void_p
+        lib.ts_create.argtypes = [ctypes.c_int32, ctypes.c_int32]
+        lib.ts_destroy.argtypes = [ctypes.c_void_p]
+        lib.ts_len.restype = ctypes.c_int64
+        lib.ts_len.argtypes = [ctypes.c_void_p]
+        lib.ts_add.restype = ctypes.c_int32
+        lib.ts_add.argtypes = [
+            ctypes.c_void_p, ctypes.c_int32, ctypes.c_uint64,
+            ctypes.c_void_p, ctypes.c_int32, ctypes.c_uint64,
+        ]
+        lib.ts_remove_slots.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
+        ]
+        for fn in (lib.ts_slot_of, lib.ts_session_count, lib.ts_party_count):
+            fn.restype = ctypes.c_int32
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_uint64]
+        for fn in (lib.ts_session_slots, lib.ts_party_slots):
+            fn.restype = ctypes.c_int32
+            fn.argtypes = [
+                ctypes.c_void_p, ctypes.c_uint64, ctypes.c_void_p,
+                ctypes.c_int32,
+            ]
+        _lib = lib
+        return lib
+
+
+class TickStore:
+    """Hash-keyed ticket registry (id/session/party -> slots) with bulk
+    slot-array removal — the native replacement for the per-entry Python
+    dict churn of matched-ticket unregistration (reference maintains these
+    maps in Go, server/matchmaker.go:171-214)."""
+
+    def __init__(self, capacity: int, stride: int = 8):
+        self._lib = load()
+        self._h = ctypes.c_void_p(self._lib.ts_create(capacity, stride))
+
+    def __del__(self):
+        h, self._h = self._h, None
+        if h and getattr(self, "_lib", None) is not None:
+            self._lib.ts_destroy(h)
+
+    def __len__(self) -> int:
+        return int(self._lib.ts_len(self._h))
+
+    def add(
+        self,
+        slot: int,
+        id_hash: int,
+        session_hashes: np.ndarray,  # u64 [n]
+        party_hash: int,
+    ):
+        rc = self._lib.ts_add(
+            self._h,
+            ctypes.c_int32(slot),
+            ctypes.c_uint64(id_hash),
+            _ptr(session_hashes, np.uint64),
+            ctypes.c_int32(len(session_hashes)),
+            ctypes.c_uint64(party_hash),
+        )
+        if rc == -1:
+            raise KeyError("duplicate ticket id hash")
+        if rc == -2:
+            raise RuntimeError(f"slot {slot} already occupied")
+
+    def remove_slots(self, slots: np.ndarray):
+        slots = np.ascontiguousarray(slots, dtype=np.int32)
+        self._lib.ts_remove_slots(
+            self._h, _ptr(slots, np.int32), ctypes.c_int32(len(slots))
+        )
+
+    def slot_of(self, id_hash: int) -> int | None:
+        slot = self._lib.ts_slot_of(self._h, ctypes.c_uint64(id_hash))
+        return None if slot < 0 else slot
+
+    def session_count(self, session_hash: int) -> int:
+        return self._lib.ts_session_count(
+            self._h, ctypes.c_uint64(session_hash)
+        )
+
+    def party_count(self, party_hash: int) -> int:
+        return self._lib.ts_party_count(
+            self._h, ctypes.c_uint64(party_hash)
+        )
+
+    def session_slots(self, session_hash: int, cap: int = 4096) -> np.ndarray:
+        out = np.empty(cap, dtype=np.int32)
+        n = self._lib.ts_session_slots(
+            self._h, ctypes.c_uint64(session_hash), _ptr(out, np.int32),
+            ctypes.c_int32(cap),
+        )
+        return out[:n]
+
+    def party_slots(self, party_hash: int, cap: int = 4096) -> np.ndarray:
+        out = np.empty(cap, dtype=np.int32)
+        n = self._lib.ts_party_slots(
+            self._h, ctypes.c_uint64(party_hash), _ptr(out, np.int32),
+            ctypes.c_int32(cap),
+        )
+        return out[:n]
+
+
+def _ptr(arr: np.ndarray, dtype) -> ctypes.c_void_p:
+    if arr.dtype != dtype or not arr.flags["C_CONTIGUOUS"]:
+        raise TypeError(
+            f"native call needs C-contiguous {np.dtype(dtype)}, got "
+            f"{arr.dtype} (contiguous={arr.flags['C_CONTIGUOUS']})"
+        )
+    return arr.ctypes.data_as(ctypes.c_void_p)
+
+
+def assemble_arrays(
+    active_slots: np.ndarray,  # i32 [A]
+    last_interval: np.ndarray,  # u8 [A]
+    cand: np.ndarray,  # i32 [A, K]
+    *,
+    min_count: np.ndarray,
+    max_count: np.ndarray,
+    count_multiple: np.ndarray,
+    count: np.ndarray,
+    intervals: np.ndarray,
+    created: np.ndarray,  # i64 [slots]
+    session_hashes: np.ndarray,  # u64 [slots, stride]
+    session_counts: np.ndarray,  # i32 [slots]
+    exact: dict,  # CudaBackend.exact mirror arrays (f64/i64/bool by slot)
+    rev: bool,
+) -> tuple[int, np.ndarray, np.ndarray, np.ndarray]:
+    """Greedy assembly with in-loop exact match validation; returns
+    (n_matches, offsets i32 [n+1], flat slot array, needs_host u8 [n]) —
+    needs_host marks matches containing members without exact query
+    mirrors under mutual validation (caller AST-validates those)."""
+    lib = load()
+    a = len(active_slots)
+    if a == 0:
+        return (
+            0,
+            np.zeros(1, dtype=np.int32),
+            np.zeros(0, dtype=np.int32),
+            np.zeros(0, dtype=np.uint8),
+        )
+    k = cand.shape[1] if cand.ndim == 2 else 0
+    n_slots = len(min_count)
+    stride = session_hashes.shape[1]
+    max_matches = a + 1
+    max_slots_out = int(np.sum(count[active_slots])) + int(cand.size) * 2 + 64
+    out_offsets = np.zeros(max_matches + 1, dtype=np.int32)
+    out_slots = np.zeros(max_slots_out, dtype=np.int32)
+    out_needs_host = np.zeros(max_matches, dtype=np.uint8)
+    fn = exact["v_num"].shape[1]
+    fs = exact["v_str"].shape[1]
+    n_should = exact["q_sh_op"].shape[1]
+
+    n = lib.mm_assemble(
+        ctypes.c_int32(a),
+        _ptr(active_slots, np.int32),
+        _ptr(last_interval, np.uint8),
+        _ptr(cand, np.int32),
+        ctypes.c_int32(k),
+        _ptr(min_count, np.int32),
+        _ptr(max_count, np.int32),
+        _ptr(count_multiple, np.int32),
+        _ptr(count, np.int32),
+        _ptr(intervals, np.int32),
+        _ptr(created, np.int64),
+        _ptr(session_hashes, np.uint64),
+        _ptr(session_counts, np.int32),
+        ctypes.c_int32(stride),
+        ctypes.c_int32(n_slots),
+        _ptr(exact["q_lo"], np.float64),
+        _ptr(exact["q_hi"], np.float64),
+        _ptr(exact["q_flo"], np.float64),
+        _ptr(exact["q_fhi"], np.float64),
+        _ptr(exact["v_num"], np.float64),
+        _ptr(exact["q_req"], np.int64),
+        _ptr(exact["q_forb"], np.int64),
+        _ptr(exact["v_str"], np.int64),
+        _ptr(exact["q_sh_op"], np.int32),
+        _ptr(exact["q_sh_fld"], np.int32),
+        _ptr(exact["q_sh_lo"], np.float64),
+        _ptr(exact["q_sh_hi"], np.float64),
+        _ptr(exact["q_sh_term"], np.int64),
+        _ptr(exact["q_has_must"].view(np.uint8), np.uint8),
+        _ptr(exact["q_has_should"].view(np.uint8), np.uint8),
+        _ptr(exact["q_exact_ok"].view(np.uint8), np.uint8),
+        ctypes.c_int32(fn),
+        ctypes.c_int32(fs),
+        ctypes.c_int32(n_should),
+        ctypes.c_int32(1 if rev else 0),
+        _ptr(out_offsets, np.int32),
+        ctypes.c_int32(max_matches),
+        _ptr(out_slots, np.int32),
+        ctypes.c_int32(max_slots_out),
+        _ptr(out_needs_host, np.uint8),
+    )
+    if n < 0:
+        raise RuntimeError("assembler output buffer overflow")
+    return n, out_offsets, out_slots, out_needs_host

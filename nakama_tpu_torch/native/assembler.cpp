@@ -1,0 +1,386 @@
+// Greedy match assembler — the sequential tail of the matchmaker interval.
+//
+// The device kernel reduces the O(N^2) pairwise search to per-active top-K
+// candidate lists; this native stage replays the reference's greedy combo
+// assembly over those lists with exact semantics (reference
+// server/matchmaker_process.go:112-325): in-order candidate placement into
+// combos, session-overlap rejection, exact-fit or last-interval-min
+// acceptance, count-multiple trimming via exact-size group search keeping
+// the youngest average (server/matchmaker.go:132-167), and final
+// cross-member min/max/multiple validation.
+//
+// Compiled to a shared library, driven through ctypes (native.py). All
+// inputs are flat arrays indexed by pool slot; strings never cross the
+// boundary (sessions/parties arrive as 64-bit hashes).
+
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <vector>
+
+namespace {
+
+// Should-clause ops — MUST mirror matchmaker/compile.py:52-55 (asserted
+// from the Python wrapper at load).
+constexpr int32_t SOP_UNUSED = 0;
+constexpr int32_t SOP_ALL = 1;
+constexpr int32_t SOP_NUM_RANGE = 2;
+constexpr int32_t SOP_STR_EQ = 3;
+
+// Exact (f64 / 63-bit-hash) query/value mirrors for in-assembly match
+// validation — the same per-pair predicate as the former host
+// _exact_accepts_vec (cuda.py), applied while combos form so a failed pair
+// rejects the CANDIDATE (assembly continues) instead of dropping the
+// whole formed match afterwards.
+struct Exact {
+    const double *q_lo, *q_hi, *q_flo, *q_fhi;  // [slots, fn]
+    const double* v_num;                        // [slots, fn]
+    const int64_t *q_req, *q_forb, *v_str;      // [slots, fs]
+    const int32_t *sh_op, *sh_fld;              // [slots, s]
+    const double *sh_lo, *sh_hi;                // [slots, s]
+    const int64_t* sh_term;                     // [slots, s]
+    const uint8_t *has_must, *has_should, *exact_ok;  // [slots]
+    int32_t fn, fs, s;
+    int32_t rev;  // mutual validation (all ordered pairs)
+
+    // query(q) accepts values(v)?
+    bool accepts(int32_t q, int32_t v) const {
+        const double* lo = q_lo + static_cast<int64_t>(q) * fn;
+        const double* hi = q_hi + static_cast<int64_t>(q) * fn;
+        const double* flo = q_flo + static_cast<int64_t>(q) * fn;
+        const double* fhi = q_fhi + static_cast<int64_t>(q) * fn;
+        const double* x = v_num + static_cast<int64_t>(v) * fn;
+        for (int32_t f = 0; f < fn; ++f) {
+            bool unconstrained = std::isinf(lo[f]) && lo[f] < 0 &&
+                                 std::isinf(hi[f]) && hi[f] > 0;
+            // NaN x (missing value) fails the range compare, matching the
+            // numpy predicate.
+            if (!unconstrained && !(x[f] >= lo[f] && x[f] <= hi[f]))
+                return false;
+            if (x[f] >= flo[f] && x[f] <= fhi[f]) return false;
+        }
+        const int64_t* req = q_req + static_cast<int64_t>(q) * fs;
+        const int64_t* forb = q_forb + static_cast<int64_t>(q) * fs;
+        const int64_t* sv = v_str + static_cast<int64_t>(v) * fs;
+        for (int32_t f = 0; f < fs; ++f) {
+            if (req[f] != 0 && sv[f] != req[f]) return false;
+            if (forb[f] != 0 && sv[f] == forb[f]) return false;
+        }
+        if (!has_must[q] && has_should[q]) {
+            // Pure-should query: at least one should clause must hit.
+            const int32_t* op = sh_op + static_cast<int64_t>(q) * s;
+            const int32_t* fld = sh_fld + static_cast<int64_t>(q) * s;
+            const double* slo = sh_lo + static_cast<int64_t>(q) * s;
+            const double* shi = sh_hi + static_cast<int64_t>(q) * s;
+            const int64_t* term = sh_term + static_cast<int64_t>(q) * s;
+            bool any = false;
+            for (int32_t c = 0; c < s && !any; ++c) {
+                switch (op[c]) {
+                    case SOP_NUM_RANGE: {
+                        int32_t f = fld[c] < fn ? fld[c] : fn - 1;
+                        double nv = x[f];
+                        any = nv >= slo[c] && nv <= shi[c];
+                        break;
+                    }
+                    case SOP_STR_EQ: {
+                        int32_t f = fld[c] < fs ? fld[c] : fs - 1;
+                        any = term[c] != 0 && sv[f] == term[c];
+                        break;
+                    }
+                    case SOP_ALL:
+                        any = true;
+                        break;
+                    default:
+                        break;
+                }
+            }
+            if (!any) return false;
+        }
+        return true;
+    }
+};
+
+struct TicketView {
+    int32_t min_count, max_count, count_multiple, count, intervals;
+    int64_t created;
+    const uint64_t* sessions;
+    int32_t n_sessions;
+};
+
+struct Pool {
+    const int32_t *min_count, *max_count, *count_multiple, *count, *intervals;
+    const int64_t* created;
+    const uint64_t* session_hashes;  // [n_slots, session_stride]
+    const int32_t* session_counts;   // [n_slots]
+    int32_t session_stride;
+
+    TicketView view(int32_t slot) const {
+        return TicketView{
+            min_count[slot],
+            max_count[slot],
+            count_multiple[slot],
+            count[slot],
+            intervals[slot],
+            created[slot],
+            session_hashes +
+                static_cast<int64_t>(slot) * session_stride,
+            session_counts[slot],
+        };
+    }
+};
+
+bool sessions_overlap(const TicketView& a, const TicketView& b) {
+    for (int32_t i = 0; i < a.n_sessions; ++i)
+        for (int32_t j = 0; j < b.n_sessions; ++j)
+            if (a.sessions[i] == b.sessions[j]) return true;
+    return false;
+}
+
+struct Group {
+    std::vector<int32_t> slots;
+    double avg_created;
+};
+
+// All subsets of `tickets` whose entry counts sum to exactly `required`
+// (reference groupIndexes, server/matchmaker.go:132-167).
+void group_tickets(const Pool& pool, const std::vector<int32_t>& tickets,
+                   size_t from, int32_t required, std::vector<int32_t>& cur,
+                   std::vector<Group>& out) {
+    if (required == 0) {
+        double sum = 0;
+        for (int32_t s : cur) sum += static_cast<double>(pool.created[s]);
+        out.push_back(Group{cur, cur.empty() ? 0.0 : sum / cur.size()});
+        return;
+    }
+    if (from >= tickets.size() || required < 0) return;
+    int32_t slot = tickets[from];
+    if (pool.count[slot] <= required) {
+        cur.push_back(slot);
+        group_tickets(pool, tickets, from + 1, required - pool.count[slot],
+                      cur, out);
+        cur.pop_back();
+    }
+    group_tickets(pool, tickets, from + 1, required, cur, out);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Returns the number of matches written. Outputs:
+//   out_offsets: [max_matches+1] CSR offsets into out_slots
+//   out_slots:   [max_slots_out] matched pool slots per match; the ACTIVE
+//                ticket is always the last slot of its match.
+//   out_needs_host: [max_matches] 1 where a match involved a ticket with
+//                no exact query mirror (host-only member under mutual
+//                validation) — the caller AST-validates those on host.
+// A return of -1 means the output buffers were too small.
+int32_t mm_assemble(
+    // Active rows, already ordered oldest-first.
+    int32_t n_active, const int32_t* active_slots,
+    const uint8_t* last_interval,  // [n_active]
+    // Candidates: [n_active, k] pool slots, -1 = none (ordered best-first).
+    const int32_t* cand, int32_t k,
+    // Pool arrays indexed by slot.
+    const int32_t* min_count, const int32_t* max_count,
+    const int32_t* count_multiple, const int32_t* count,
+    const int32_t* intervals, const int64_t* created,
+    const uint64_t* session_hashes, const int32_t* session_counts,
+    int32_t session_stride, int32_t n_slots,
+    // Exact query/value mirrors (validation; see struct Exact).
+    const double* q_lo, const double* q_hi, const double* q_flo,
+    const double* q_fhi, const double* v_num, const int64_t* q_req,
+    const int64_t* q_forb, const int64_t* v_str, const int32_t* sh_op,
+    const int32_t* sh_fld, const double* sh_lo, const double* sh_hi,
+    const int64_t* sh_term, const uint8_t* has_must,
+    const uint8_t* has_should, const uint8_t* exact_ok, int32_t fn,
+    int32_t fs, int32_t n_should, int32_t rev,
+    // Outputs.
+    int32_t* out_offsets, int32_t max_matches, int32_t* out_slots,
+    int32_t max_slots_out, uint8_t* out_needs_host) {
+    Pool pool{min_count,      max_count,      count_multiple, count,
+              intervals,      created,        session_hashes, session_counts,
+              session_stride};
+    Exact ex{q_lo,  q_hi,    q_flo,      q_fhi,     v_num,
+             q_req, q_forb,  v_str,      sh_op,     sh_fld,
+             sh_lo, sh_hi,   sh_term,    has_must,  has_should,
+             exact_ok, fn,   fs,         n_should,  rev};
+
+    std::vector<uint8_t> selected(static_cast<size_t>(n_slots), 0);
+    int32_t n_matches = 0;
+    int64_t slots_used = 0;
+    out_offsets[0] = 0;
+
+    // Scratch combo storage: combos of ticket slots (entry counts tracked).
+    std::vector<std::vector<int32_t>> combos;
+
+    bool overflow = false;
+
+    for (int32_t a = 0; a < n_active && !overflow; ++a) {
+        int32_t aslot = active_slots[a];
+        if (selected[aslot]) continue;
+        TicketView active = pool.view(aslot);
+
+        combos.clear();
+        const int32_t* row = cand + static_cast<int64_t>(a) * k;
+        bool a_exact = ex.exact_ok[aslot];
+        bool emitted = false;
+
+        // One attempt to accept combos[found_idx] as this active's match
+        // (trim to count_multiple, cross-member validation, emit).
+        auto try_accept = [&](size_t found_idx, bool underfill) -> bool {
+            // Trim operates on the combo IN PLACE (matching the oracle,
+            // process.py): if a post-trim check fails, later hits see the
+            // trimmed combo.
+            std::vector<int32_t>& match = combos[found_idx];
+            int32_t size = active.count;
+            for (int32_t s : match) size += pool.count[s];
+            if (underfill &&
+                !(size >= active.min_count && size <= active.max_count))
+                return false;
+            int32_t rem = size % active.count_multiple;
+            if (rem != 0) {
+                // Trim an exact-size group: drop the group with the
+                // smallest average created_at, matching the reference's
+                // observed behavior (ascending sort, remove index 0 —
+                // matchmaker_process.go:258-276).
+                std::vector<int32_t> eligible;
+                for (int32_t s : match)
+                    if (pool.count[s] <= rem) eligible.push_back(s);
+                std::vector<Group> groups;
+                std::vector<int32_t> cur;
+                group_tickets(pool, eligible, 0, rem, cur, groups);
+                if (groups.empty()) return false;
+                const Group* best = &groups[0];
+                for (const Group& g : groups)
+                    if (g.avg_created < best->avg_created) best = &g;
+                for (int32_t drop : best->slots) {
+                    for (size_t i = 0; i < match.size(); ++i)
+                        if (match[i] == drop) {
+                            match.erase(match.begin() + i);
+                            break;
+                        }
+                }
+                size = active.count;
+                for (int32_t s : match) size += pool.count[s];
+                if (size % active.count_multiple != 0) return false;
+                // Deliberate fix over the reference: a trim must not
+                // shrink the match below the active ticket's own
+                // min_count (the reference's final cross-check covers
+                // combo members only).
+                if (size < active.min_count || size > active.max_count)
+                    return false;
+            }
+
+            // Final cross-member validation.
+            for (int32_t s : match) {
+                if (pool.min_count[s] > size || pool.max_count[s] < size ||
+                    size % pool.count_multiple[s] != 0)
+                    return false;
+            }
+
+            // Emit: combo slots then the active slot.
+            if (n_matches >= max_matches ||
+                slots_used + static_cast<int64_t>(match.size()) + 1 >
+                    max_slots_out) {
+                overflow = true;
+                return false;
+            }
+            // Any member without an exact mirror could not be query-
+            // validated here; under mutual validation the caller must
+            // AST-check the match on host.
+            bool needs_host = !a_exact;
+            for (int32_t s : match) {
+                out_slots[slots_used++] = s;
+                selected[s] = 1;
+                if (ex.rev && !ex.exact_ok[s]) needs_host = true;
+            }
+            out_slots[slots_used++] = aslot;
+            selected[aslot] = 1;
+            out_needs_host[n_matches] = needs_host;
+            ++n_matches;
+            out_offsets[n_matches] = static_cast<int32_t>(slots_used);
+            combos.erase(combos.begin() + found_idx);
+            return true;
+        };
+
+        // Single lazy walk over the candidate row. Exact query validation
+        // happens here, only for hits actually reached: the reference's
+        // index search never returns non-matching hits, so a hit the
+        // device kernel admitted through f32/31-bit-hash imprecision must
+        // behave as if it was never returned. Self/selected hits behave
+        // the same (the reference prunes them before assembly,
+        // matchmaker_process.go:112-126).
+        //
+        // The reference's "accept an under-filled match at the LAST hit"
+        // rule is restated loop-exit-side: track the combo that received
+        // the most recent valid hit; if the walk ends without an exact
+        // fill and that hit didn't already consume its one acceptance
+        // attempt (size==max_count), try it as the under-fill match.
+        int32_t tail_combo = -1;
+        bool tail_placed = false;
+        bool tail_attempted = false;
+        for (int32_t h = 0; h < k && !emitted && !overflow; ++h) {
+            int32_t hslot = row[h];
+            if (hslot < 0) break;
+            if (selected[hslot] || hslot == aslot) continue;
+            if (a_exact && !ex.accepts(aslot, hslot)) continue;
+            if (ex.rev && a_exact && ex.exact_ok[hslot] &&
+                !ex.accepts(hslot, aslot))
+                continue;
+            TicketView hit = pool.view(hslot);
+            if (sessions_overlap(active, hit)) {
+                tail_placed = false;
+                continue;
+            }
+
+            // Place into the first combo with room and no session (or,
+            // under mutual validation, pairwise-query) conflict. Combos
+            // only ever accumulate pairwise-valid members, so the formed
+            // match needs no all-pairs recheck (validity is monotone
+            // under the trim's removals).
+            std::vector<int32_t>* found = nullptr;
+            size_t found_idx = 0;
+            bool h_exact = ex.exact_ok[hslot];
+            for (size_t c = 0; c < combos.size(); ++c) {
+                int32_t combo_entries = 0;
+                bool conflict = false;
+                for (int32_t s : combos[c]) {
+                    combo_entries += pool.count[s];
+                    if (sessions_overlap(pool.view(s), hit)) conflict = true;
+                    if (!conflict && ex.rev && h_exact && ex.exact_ok[s] &&
+                        (!ex.accepts(s, hslot) || !ex.accepts(hslot, s)))
+                        conflict = true;
+                }
+                if (conflict) continue;
+                if (combo_entries + hit.count + active.count >
+                    active.max_count)
+                    continue;
+                combos[c].push_back(hslot);
+                found = &combos[c];
+                found_idx = c;
+                break;
+            }
+            if (!found) {
+                combos.push_back({hslot});
+                found = &combos.back();
+                found_idx = combos.size() - 1;
+            }
+            tail_combo = static_cast<int32_t>(found_idx);
+            tail_placed = true;
+            tail_attempted = false;
+
+            int32_t size = active.count;
+            for (int32_t s : *found) size += pool.count[s];
+            if (size == active.max_count) {
+                tail_attempted = true;
+                emitted = try_accept(found_idx, false);
+            }
+        }
+        if (!emitted && !overflow && last_interval[a] && tail_placed &&
+            !tail_attempted)
+            try_accept(static_cast<size_t>(tail_combo), true);
+    }
+    return overflow ? -1 : n_matches;
+}
+}

@@ -1,0 +1,117 @@
+"""The stage-1 CUDA kernel of the PyTorch/CUDA port against its plain
+version, on the card.
+
+This file imports no JAX, so it runs on a machine with a CUDA device and
+PyTorch alone: `python -m pytest tests/test_torch_kernels_cuda.py`. On a
+host without CUDA its card test skips. The numpy input generator here is
+shared with `test_torch_stage1.py`, which holds the plain version against
+the JAX package's Pallas kernel.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from nakama_tpu_torch.matchmaker import device2 as td2
+
+COL_BITS = 18
+
+
+def stage1_inputs(seed, n, with_emb, rev, rows=64, fn=8, fs=8):
+    """0/1 operands shaped like the encoders' output (one-hot values per
+    field plane, interval masks per query plane) so a good share of pairs
+    is eligible; jitter hashes and embeddings from the same seed."""
+    rng = np.random.default_rng(seed)
+    planes = [16] * fn + [8] * fs + [8]
+    d = sum(planes)
+
+    def values(count):
+        v = np.zeros((count, d), np.float32)
+        off = 0
+        for w in planes:
+            v[np.arange(count), off + rng.integers(0, w, count)] = 1
+            off += w
+        return v
+
+    def queries(count):
+        u = np.zeros((count, d), np.float32)
+        off = 0
+        idx = np.arange(max(planes))
+        for w in planes:
+            lo = rng.integers(0, 2, count)[:, None]
+            hi = w - 1 - rng.integers(0, 2, count)[:, None]
+            u[:, off : off + w] = (idx[:w] >= lo) & (idx[:w] <= hi)
+            off += w
+        return u
+
+    inp = {
+        "uq": queries(rows),
+        "vv": values(n),
+        "col_mix": rng.integers(-(2**31), 2**31, n).astype(np.int32),
+        "col_gidx": np.arange(n, dtype=np.int32),
+        "row_mix": rng.integers(-(2**31), 2**31, rows).astype(np.int32),
+        # Rows are pool slots too, so self-exclusion bites.
+        "row_slot": rng.permutation(n)[:rows].astype(np.int32),
+    }
+    inp["uq"][rows - 4 :] = 0  # padding rows
+    if with_emb:
+        inp["ue"] = (rng.standard_normal((rows, 16)) * 0.5).astype(np.float32)
+        inp["ve"] = (rng.standard_normal((n, 16)) * 0.5).astype(np.float32)
+    if rev:
+        inp["uv"] = inp["vv"][inp["row_slot"]]
+        inp["vq"] = queries(n)
+    return inp
+
+
+def torch_args(inp, device="cpu"):
+    out = {}
+    for key, v in inp.items():
+        t = torch.from_numpy(v)
+        out[key] = (t.to(torch.bfloat16) if v.dtype == np.float32 else t).to(device)
+    return out
+
+
+def assert_winners_match(got, want, with_emb):
+    """Identical words without embeddings; with embeddings the same empty
+    lanes and priorities within 1. Returns the number of differing words."""
+    if not with_emb:
+        np.testing.assert_array_equal(got, want)
+        return 0
+    none = np.int32(td2.PACKED_NONE)
+    np.testing.assert_array_equal(got == none, want == none)
+    live = got != none
+    dprio = np.abs((got[live] >> COL_BITS) - (want[live] >> COL_BITS))
+    assert dprio.max(initial=0) <= 1, dprio.max()
+    return int((got != want).sum())
+
+
+@pytest.mark.cuda
+def test_stage1_kernel_matches_plain_on_card():
+    """The hand-written kernel against its plain version on the card, in
+    the three winners-per-block regimes and all four flag combinations,
+    at the kernel's 1024-column selection block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from nakama_tpu_torch import kernels
+
+    k, bn, fn, fs = 64, 1024, 24, 16
+    before = kernels.STAGE1.launches
+    for n_blocks in (128, 112, 1):
+        m = td2.winners_per_block(k, n_blocks)
+        for with_emb in (False, True):
+            for rev in (False, True):
+                inp = stage1_inputs(
+                    n_blocks + 2 * with_emb + rev, n_blocks * bn, with_emb,
+                    rev, rows=256, fn=fn, fs=fs,
+                )
+                kw = dict(
+                    fn=fn, fs=fs, m=m, bn=bn, emb_scale=256.0,
+                    **torch_args(inp, "cuda"),
+                )
+                got = td2.stage1(**kw)
+                want = td2.stage1_plain(**kw)
+                torch.cuda.synchronize()
+                assert_winners_match(
+                    got.cpu().numpy(), want.cpu().numpy(), with_emb
+                )
+    assert kernels.STAGE1.launches == before + 12

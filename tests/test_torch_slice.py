@@ -1,0 +1,247 @@
+"""The PyTorch/CUDA port's matchmaker interval held against the JAX package.
+
+The same numpy-seeded ticket sequence (explicit ids and creation times)
+goes through the JAX package's `LocalMatchmaker` + `TpuBackend` and the
+port's `LocalMatchmaker` + `CudaBackend(device="cpu")`, interval by
+interval, with new tickets and cancellations between intervals. The
+matched groups, by session id and in delivery order, must be identical on
+each device path: the 1v1 device-pairing path, the two-stage path with
+the native assembler, and the small-pool exact path — synchronously, and
+drained through the pipelined queue. A subprocess checks that the port
+runs without JAX or the JAX package in the interpreter.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+from nakama_tpu.config import MatchmakerConfig as JaxConfig
+from nakama_tpu.logger import test_logger as jax_quiet_logger
+from nakama_tpu.matchmaker import LocalMatchmaker as JaxLocal
+from nakama_tpu.matchmaker import MatchmakerPresence as JaxPresence
+from nakama_tpu.matchmaker.tpu import TpuBackend
+from nakama_tpu_torch.config import MatchmakerConfig
+from nakama_tpu_torch.logger import test_logger as quiet_logger
+from nakama_tpu_torch.matchmaker import LocalMatchmaker, MatchmakerPresence
+from nakama_tpu_torch.matchmaker.cuda import CudaBackend
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PATHS = {
+    # 1v1 pool on the two-stage path: device pairing forms the pairs.
+    "pairs": dict(
+        cfg=dict(
+            pool_capacity=2048, candidates_per_ticket=32,
+            big_pool_threshold=64,
+        ),
+        blocks=dict(big_row_block=64, big_col_block=64),
+        shape="1v1",
+    ),
+    # Squads, parties and count multiples on the two-stage path: the
+    # native greedy assembler forms the matches; embeddings score.
+    "assembler": dict(
+        cfg=dict(
+            pool_capacity=2048, candidates_per_ticket=32,
+            big_pool_threshold=64,
+        ),
+        blocks=dict(big_row_block=64, big_col_block=64),
+        shape="mixed",
+    ),
+    # Below the big-pool threshold: the exact blockwise scan.
+    "small": dict(
+        cfg=dict(pool_capacity=256, candidates_per_ticket=64),
+        blocks=dict(row_block=8, col_block=64),
+        shape="mixed",
+    ),
+}
+
+
+def ticket_stream(rng, n, shape, start):
+    """Ticket specs: id, query, counts, properties, party, embedding."""
+    out = []
+    for j in range(n):
+        i = start + j
+        mode = int(rng.integers(0, 3))
+        rank = int(rng.integers(0, 100))
+        spec = dict(
+            i=i,
+            query=(
+                f"+properties.mode:m{mode} +properties.rank:>={rank - 30}"
+                f" +properties.rank:<={rank + 30}"
+            ),
+            strs={"mode": f"m{mode}", "tier": ("gold", "none")[i % 2]},
+            nums={"rank": float(rank)},
+            mn=2, mx=2, mult=1, party="", members=1, emb=None,
+        )
+        if shape == "mixed":
+            if i % 4 == 0:
+                spec["query"] += " properties.tier:gold^2"
+            if i % 13 == 0:
+                # A regex clause: host-only, served by the CPU oracle
+                # inside the device backend's interval.
+                spec["query"] = f"+properties.mode:/m[{mode}{(mode + 1) % 3}]/"
+            if i % 6 == 0:
+                spec.update(mn=2, mx=4, mult=2, party=f"party{i}", members=2)
+            elif i % 3 == 0:
+                spec.update(mn=3, mx=3)
+            if i % 5 == 0:
+                # Multiples of 1/64: every similarity is exact in fp32.
+                spec["emb"] = (rng.integers(-32, 33, 16) / 64).astype(
+                    np.float32
+                )
+        out.append(spec)
+    return out
+
+
+def add_ticket(mm, spec, presence_cls):
+    i = spec["i"]
+    ps = [
+        presence_cls(user_id=f"u{i}.{m}", session_id=f"s{i}.{m}")
+        for m in range(spec["members"])
+    ]
+    mm.add(
+        ps, ps[0].session_id if spec["members"] == 1 else "", spec["party"],
+        spec["query"], spec["mn"], spec["mx"], spec["mult"], spec["strs"],
+        spec["nums"], embedding=spec["emb"], ticket_id=f"t{i}",
+        created_at=1000.0 + i,
+    )
+
+
+def make_pair(path, **overrides):
+    spec = PATHS[path]
+    common = dict(
+        numeric_fields=8, string_fields=8, max_constraints=8,
+        max_intervals=3, interval_pipelining=False, **spec["cfg"],
+    )
+    common.update(overrides)
+    jcfg = JaxConfig(**common)
+    tcfg = MatchmakerConfig(**common)
+    jmm = JaxLocal(
+        jax_quiet_logger(), jcfg,
+        backend=TpuBackend(jcfg, jax_quiet_logger(), **spec["blocks"]),
+    )
+    tmm = LocalMatchmaker(
+        quiet_logger(), tcfg,
+        backend=CudaBackend(tcfg, quiet_logger(), device="cpu", **spec["blocks"]),
+    )
+    return jmm, tmm
+
+
+def groups(batches):
+    return [
+        tuple(sorted(e.presence.session_id for e in entry_set))
+        for batch in batches
+        for entry_set in batch
+    ]
+
+
+def run_intervals(jmm, tmm, shape, seed, waves, *, drain=False):
+    """Feed both matchmakers the same waves of tickets, one process()
+    per wave; returns the per-interval groups of each."""
+    rng = np.random.default_rng(seed)
+    got, want = [], []
+    start = 0
+    for n in waves:
+        for spec in ticket_stream(rng, n, shape, start):
+            # Interleaved adds keep both packages' creation sequences in
+            # step.
+            add_ticket(jmm, spec, JaxPresence)
+            add_ticket(tmm, spec, MatchmakerPresence)
+        # Cancellations between intervals: pooled and just-added tickets.
+        cancel = [f"t{i}" for i in range(start % 17, start + n, 17)]
+        jmm.remove(cancel)
+        tmm.remove(cancel)
+        start += n
+        if drain:
+            # Every queued cohort finished: collection is deterministic.
+            jmm.backend.wait_idle(60)
+            tmm.backend.wait_idle(60)
+        want.append(groups([jmm.process()]))
+        got.append(groups([tmm.process()]))
+    return got, want
+
+
+@pytest.mark.parametrize("path", ["pairs", "assembler", "small"])
+@pytest.mark.parametrize("rev", [False, True])
+def test_interval_matches_jax(path, rev):
+    jmm, tmm = make_pair(path, rev_precision=rev)
+    waves = [180, 60, 40] if path != "small" else [90, 30, 20]
+    got, want = run_intervals(
+        jmm, tmm, PATHS[path]["shape"], seed=3 + rev, waves=waves
+    )
+    assert sum(len(g) for g in want) > waves[0] // 4  # matches really formed
+    assert got == want
+    if path != "small":
+        assert tmm.backend._use_pairs() == (path == "pairs")
+
+
+def test_pipelined_drain_matches_jax():
+    jmm, tmm = make_pair("assembler", interval_pipelining=True)
+    got, want = run_intervals(
+        jmm, tmm, "mixed", seed=9, waves=[180, 60, 0, 0], drain=True
+    )
+    # The first interval delivers only the host oracle's matches; its
+    # device cohort is still queued and lands with the next collection.
+    assert len(got[0]) < len(got[1])
+    assert sum(len(g) for g in want) > 40
+    assert got == want
+    # Drain the tail mid-gap, as the interval loop does between intervals.
+    jmm.backend.wait_idle(60)
+    tmm.backend.wait_idle(60)
+    assert groups([tmm.collect_pipelined() or []]) == groups(
+        [jmm.collect_pipelined() or []]
+    )
+    assert tmm.backend.pipeline_depth() == 0
+    tmm.stop()
+    jmm.stop()
+
+
+HYGIENE = textwrap.dedent(
+    """
+    import sys
+    import numpy as np
+    from nakama_tpu_torch.config import MatchmakerConfig
+    from nakama_tpu_torch.logger import test_logger
+    from nakama_tpu_torch.matchmaker import LocalMatchmaker, MatchmakerPresence
+    from nakama_tpu_torch.matchmaker.cuda import CudaBackend
+
+    cfg = MatchmakerConfig(
+        pool_capacity=256, numeric_fields=8, string_fields=8,
+        max_constraints=8, big_pool_threshold=64, interval_pipelining=False,
+    )
+    backend = CudaBackend(
+        cfg, test_logger(), device="cpu", col_block=64, big_row_block=64,
+        big_col_block=64,
+    )
+    got = []
+    mm = LocalMatchmaker(test_logger(), cfg, backend=backend, on_matched=got.append)
+    rng = np.random.default_rng(0)
+    for i in range(100):
+        p = MatchmakerPresence(user_id=f"u{i}", session_id=f"s{i}")
+        r = float(rng.integers(0, 100))
+        mm.add([p], p.session_id, "", f"+properties.rank:>={r - 30}"
+               f" +properties.rank:<={r + 30}", 2, 2, 1, {}, {"rank": r})
+    mm.process()
+    assert sum(len(b) for b in got) > 30, got
+    bad = sorted(
+        m for m in sys.modules
+        if m == "jax" or m.startswith("jax.")
+        or m == "nakama_tpu" or m.startswith("nakama_tpu.")
+    )
+    assert not bad, bad
+    print("ok")
+    """
+)
+
+
+def test_port_runs_without_jax_or_the_jax_package():
+    done = subprocess.run(
+        [sys.executable, "-c", HYGIENE], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert done.returncode == 0, done.stderr[-3000:]
+    assert done.stdout.strip().endswith("ok")

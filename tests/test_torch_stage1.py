@@ -1,0 +1,170 @@
+"""Stage-1 prefilter of the PyTorch/CUDA port held against the JAX package.
+
+The same numpy-seeded inputs go through the JAX Pallas kernel (interpret
+mode on the CPU, as the JAX package's own tests run it) and through the
+port's plain version `stage1_plain` — the function the CUDA kernel in
+`nakama_tpu_torch/csrc/stage1.cu` is held against on the card. Without
+embeddings the packed winners must be identical; with embeddings a word
+may differ only where the float embedding bump rounds across an integer
+(priority within 1), since the two frameworks sum the 16-term dot product
+in different orders.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from nakama_tpu.matchmaker import device2 as jd2
+from nakama_tpu.matchmaker.compile import CLAMP, FULL_HI, FULL_LO, MISSING
+from nakama_tpu_torch import kernels
+from nakama_tpu_torch.config import MatchmakerConfig
+from nakama_tpu_torch.logger import test_logger as quiet_logger
+from nakama_tpu_torch.matchmaker import device2 as td2
+from nakama_tpu_torch.matchmaker.cuda import CudaBackend
+
+from test_torch_kernels_cuda import (
+    assert_winners_match,
+    stage1_inputs,
+    torch_args,
+)
+
+FN = FS = 8
+K = 8  # candidates per ticket: 2k = 16 winners across all blocks
+BN = 64
+A = 64
+
+
+def jax_stage1(inp, m, with_emb, rev):
+    bf = jnp.bfloat16
+    n = inp["vv"].shape[0]
+    a = inp["uq"].shape[0]
+
+    def opt(key, count):
+        if key in inp:
+            return jnp.asarray(inp[key], bf)
+        return jnp.zeros((count, 8), bf)
+
+    out = jd2._stage1_call(
+        jnp.asarray(inp["uq"], bf),
+        jnp.asarray(inp["vv"], bf),
+        jnp.asarray(inp["col_mix"])[None],
+        jnp.asarray(inp["col_gidx"])[None],
+        jnp.asarray(inp["row_mix"])[:, None],
+        jnp.asarray(inp["row_slot"])[:, None],
+        opt("ue", a), opt("ve", n), opt("uv", a), opt("vq", n),
+        fn=FN, fs=FS, m=m, bm=a, bn=BN, with_embedding=with_emb, rev=rev,
+        emb_scale=256.0, interpret=True,
+    )
+    return np.asarray(out)[:, : (n // BN) * m]
+
+
+# m = ceil(2k / n_blocks): 1 at 16 blocks, 2 at 8 blocks, 2k at one block.
+@pytest.mark.parametrize("n_blocks,m", [(16, 1), (8, 2), (1, 2 * K)])
+@pytest.mark.parametrize("with_emb", [False, True])
+@pytest.mark.parametrize("rev", [False, True])
+def test_stage1_plain_matches_pallas(n_blocks, m, with_emb, rev):
+    assert td2.winners_per_block(K, n_blocks) == m
+    n = n_blocks * BN
+    inp = stage1_inputs(n_blocks * 4 + with_emb * 2 + rev, n, with_emb, rev)
+    want = jax_stage1(inp, m, with_emb, rev)
+    got = td2.stage1_plain(
+        fn=FN, fs=FS, m=m, bn=BN, emb_scale=256.0, **torch_args(inp)
+    ).numpy()
+    assert got.shape == want.shape
+    assert (got != jd2.PACKED_NONE).any()  # eligibility really occurred
+    assert_winners_match(got, want, with_emb)
+
+
+def test_stage1_wrapper_takes_plain_version_for_cpu_tensors():
+    inp = stage1_inputs(3, 8 * BN, True, True)
+    before = kernels.STAGE1.launches
+    kw = dict(fn=FN, fs=FS, m=2, bn=BN, emb_scale=256.0, **torch_args(inp))
+    got = td2.stage1(**kw)
+    torch.testing.assert_close(got, td2.stage1_plain(**kw), rtol=0, atol=0)
+    assert kernels.STAGE1.launches == before  # no kernel launched
+    with pytest.raises(ValueError):
+        kernels.stage1(
+            **{k: v for k, v in kw.items() if k not in ("fn", "fs")},
+            f_tot=float(FN + FS + 1),
+        )
+
+
+def test_mix_matches_jax_int32_wraparound():
+    x = np.array([0, 1, 7919, 2**31 - 1, -(2**31), -5, 123456789], np.int32)
+    want = np.asarray(jd2._mix(jnp.asarray(x)))
+    got = td2._mix(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def _edge_pool(rng, n, fn, fs):
+    """Pool columns with the encoders' edge values: the full-range query
+    bounds, the missing sentinel, the clamp, and empty forbidden ranges."""
+    num = rng.uniform(-50, 150, (n, fn)).astype(np.float32)
+    num[::5, 2] = MISSING
+    num[1::7, 3] = CLAMP
+    num[2::7, 4] = -CLAMP
+    n_lo = np.full((n, fn), FULL_LO, np.float32)
+    n_hi = np.full((n, fn), FULL_HI, np.float32)
+    n_lo[:, 5] = rng.uniform(-60, 60, n)
+    n_hi[:, 5] = n_lo[:, 5] + rng.uniform(0, 100, n)
+    n_lo[::3, 6] = -CLAMP
+    n_hi[::4, 6] = CLAMP
+    n_flo = np.ones((n, fn), np.float32)
+    n_fhi = np.full((n, fn), -1.0, np.float32)
+    n_flo[::2, 7] = 10.0
+    n_fhi[::2, 7] = 90.0
+    s_req = np.where(rng.random((n, fs)) < 0.3, rng.integers(1, 99, (n, fs)), 0)
+    return {
+        "num": num,
+        "str": rng.integers(0, 2**31 - 1, (n, fs)).astype(np.int32),
+        "pool_id": rng.integers(0, 20, n).astype(np.int32),
+        "flags": rng.choice([0, 1, 9], n).astype(np.int32),
+        "n_lo": n_lo,
+        "n_hi": n_hi,
+        "n_flo": n_flo,
+        "n_fhi": n_fhi,
+        "s_req": s_req.astype(np.int32),
+        "min_count": rng.integers(1, 4, n).astype(np.int32),
+        "max_count": rng.integers(2, 8, n).astype(np.int32),
+    }
+
+
+@pytest.mark.parametrize("with_counts", [True, False])
+def test_encoders_match_jax_at_edge_values(with_counts):
+    rng = np.random.default_rng(5)
+    n = 96
+    pool = _edge_pool(rng, n, FN, FS)
+    grid_lo = rng.uniform(-60, 0, FN).astype(np.float32)
+    grid_inv = (1.0 / rng.uniform(1, 200, FN)).astype(np.float32)
+    grid_inv[0] = np.float32(1e30)  # a degenerate (zero-width) field
+    jp = {k: jnp.asarray(v) for k, v in pool.items()}
+    tp = {k: torch.from_numpy(v) for k, v in pool.items()}
+    jg = (jnp.asarray(grid_lo), jnp.asarray(grid_inv))
+    tg = (torch.from_numpy(grid_lo), torch.from_numpy(grid_inv))
+
+    np.testing.assert_array_equal(
+        td2._bucket_of(tp["num"], *tg).numpy(),
+        np.asarray(jd2._bucket_of(jp["num"], *jg)),
+    )
+    np.testing.assert_array_equal(
+        td2._value_vectors(tp, n, FN, FS, *tg).float().numpy(),
+        np.asarray(jd2._value_vectors(jp, n, FN, FS, *jg), np.float32),
+    )
+    np.testing.assert_array_equal(
+        td2._query_vectors(tp, FN, FS, *tg, with_counts=with_counts)
+        .float().numpy(),
+        np.asarray(
+            jd2._query_vectors(jp, FN, FS, *jg, with_counts=with_counts),
+            np.float32,
+        ),
+    )
+
+
+def test_cuda_backend_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = MatchmakerConfig(pool_capacity=256, numeric_fields=8, string_fields=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CudaBackend(cfg, quiet_logger())
+    assert CudaBackend(cfg, quiet_logger(), device="cpu").device.type == "cpu"
