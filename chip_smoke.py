@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py
 
-Builds the port's hand-written kernel and native library from the sources
-in this checkout, holds the kernel against its plain PyTorch version on
-the card, runs the port's device self-check, then drives the matchmaker's
+Builds the port's hand-written kernels and native library from the
+sources in this checkout, holds both stage-1 kernels against their plain
+PyTorch version on the card and times them in turns at the main path's
+shapes, runs the port's device self-check, then drives the matchmaker's
 main path through its public entry point (`LocalMatchmaker` with the
 default `backend="cuda"`) at the default widths: 100,000 1v1 tickets
 (the device-pairing path) and 100,000 embedding-scored 5v5 tickets (the
@@ -19,6 +20,7 @@ JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -32,6 +34,7 @@ N_TICKETS = 100_000
 BN = 1024
 K = 64
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core peak
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
 
@@ -106,15 +109,32 @@ def phase_build() -> None:
         j.join()
     if errors:
         raise errors[0]
-    ptxas = {
-        k.name: [
-            line.split("info    :")[-1].strip()
-            for line in k.build_log.splitlines()
-            if "registers" in line or "spill" in line
-        ]
-        for k in kernels.KERNELS
-    }
-    emit({"phase": "build", "seconds": seconds, "ptxas": ptxas})
+    emit({
+        "phase": "build", "seconds": seconds,
+        "ptxas": {k.name: ptxas_report(k.build_log) for k in kernels.KERNELS},
+    })
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spills of every compiled kernel instantiation in an
+    `nvcc -Xptxas -v` log, keyed by entry name (template arguments of
+    stage1_wgmma_kernel shown as m=, rev=, emb=)."""
+    report: dict[str, list[str]] = {}
+    name = "?"
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+            t = re.search(r"ILi(\d+)ELb([01])ELb([01])E", name)
+            if t:
+                name = f"stage1_wgmma_kernel<m={t[1]},rev={t[2]},emb={t[3]}>"
+            report[name] = []
+        elif "arning" in line or re.search(r"\(C\d+\)", line):
+            code = re.search(r"\((C\d+)\)", line)
+            key = f"warning {code[1] if code else line.strip()[:80]}"
+            report[key] = report.get(key, 0) + 1
+        elif "registers" in line or "spill" in line:
+            report.setdefault(name, []).append(line.split("info    :")[-1].strip())
+    return report
 
 
 def bench_pool(n: int, fn: int, fs: int, s: int, d: int, seed: int, dev):
@@ -175,7 +195,7 @@ def stage1_case(pool, grid, n_cols, rows, active, rev, emb):
     )
 
 
-def compare_winners(got: torch.Tensor, want: torch.Tensor, emb: bool) -> dict:
+def compare_winners(got: torch.Tensor, want: torch.Tensor, emb: bool, name: str) -> dict:
     """Identical words without embeddings; with them the same empty lanes
     and priorities within 1 (the bump's truncation boundary)."""
     from nakama_tpu_torch.matchmaker.device2 import COL_BITS, PACKED_NONE
@@ -189,10 +209,15 @@ def compare_winners(got: torch.Tensor, want: torch.Tensor, emb: bool) -> dict:
     )
     ok = differ == 0 if not emb else (empty_same and dprio <= 1)
     if not ok:
+        rows, lanes = np.nonzero(got != want)
+        first = [
+            (int(r), int(c), int(got[r, c]), int(want[r, c]))
+            for r, c in zip(rows[:5], lanes[:5])
+        ]
         raise AssertionError(
-            f"stage1 kernel disagrees with its plain version: {differ} words"
+            f"{name} kernel disagrees with its plain version: {differ} words"
             f" differ, max priority difference {dprio}, empty lanes same:"
-            f" {empty_same}"
+            f" {empty_same}; first (row, lane, got, want): {first}"
         )
     return {
         "differing_words": differ,
@@ -201,82 +226,166 @@ def compare_winners(got: torch.Tensor, want: torch.Tensor, emb: bool) -> dict:
     }
 
 
-def stage1_bound_ms(args: dict, out_words: int) -> tuple[float, str]:
-    """Least time for the stage-1 function on this card: the larger of
-    its operations at the bf16 tensor-core peak and its bytes (each input
-    read once, the output written once) at the memory peak."""
+def stage1_work(args: dict, out_words: int) -> tuple[float, float, float]:
+    """Operations of the stage-1 function on these inputs (the 0/1
+    products, then the bf16 embedding product) and the bytes it must move
+    (each input read once, the output written once)."""
     a, d = args["uq"].shape
     n = args["vv"].shape[0]
-    flops = 2.0 * a * n * d
-    nbytes = out_words * 4
-    for t in args.values():
-        nbytes += t.numel() * t.element_size()
-    if "uv" in args:
-        flops += 2.0 * a * n * d
-    if "ue" in args:
-        flops += 2.0 * a * n * args["ue"].shape[1]
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    ops01 = 2.0 * a * n * d * (2 if "uv" in args else 1)
+    ops_emb = 2.0 * a * n * args["ue"].shape[1] if "ue" in args else 0.0
+    nbytes = out_words * 4 + sum(t.numel() * t.element_size() for t in args.values())
+    return ops01, ops_emb, nbytes
+
+
+def stage1_bound_ms(args: dict, out_words: int, peak_01: float) -> tuple[float, str]:
+    """Least time for the stage-1 function on this card: the larger of its
+    operations (the 0/1 products at `peak_01`, the embedding product at
+    the bf16 peak) and its bytes at the memory peak."""
+    ops01, ops_emb, nbytes = stage1_work(args, out_words)
+    t_ops = (ops01 / peak_01 + ops_emb / PEAK_BF16_FLOPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_kernels(dev) -> dict:
+def hold_kernels(pool, grid, cases, max_err: dict) -> None:
+    """Every case through each B1 kernel that takes it, against the plain
+    version on the same inputs. A case is (rows, active, n_cols, bn)."""
+    from nakama_tpu_torch import kernels
     from nakama_tpu_torch.matchmaker import device2 as td2
 
-    pool, grid_lo, grid_inv = bench_pool(131_072, 24, 16, 16, 16, 7, dev)
-    grid = (grid_lo, grid_inv)
-    max_err = 0
-    # The three winners-per-block regimes at k = 64, bn = 1024: m = 2 at
-    # the north-star extent (112 blocks), m = 1 at 128 blocks, m = 2k on a
-    # one-block pool; a few thousand rows, all columns, every flag pair.
-    for n_cols in (114_688, 131_072, 1024):
-        m = td2.winners_per_block(K, n_cols // BN)
-        active = torch.arange(min(4000, n_cols), dtype=torch.int32, device=dev)
+    dev = pool["num"].device
+    failures: list[str] = []
+    for rows, n_active, n_cols, bn in cases:
+        m = td2.winners_per_block(K, n_cols // bn)
+        active = torch.arange(n_active, dtype=torch.int32, device=dev)
         for rev in (False, True):
             for emb in (False, True):
-                args = stage1_case(pool, grid, n_cols, 4096, active, rev, emb)
-                kw = dict(fn=24, fs=16, m=m, bn=BN, emb_scale=256.0, **args)
-                got = td2.stage1(**kw)
-                want = td2.stage1_plain(**kw)
-                res = compare_winners(got, want, emb)
-                max_err = max(max_err, res["max_prio_diff"])
-                emit({
-                    "phase": "kernels", "kernel": "stage1", "rows": 4096,
-                    "cols": n_cols, "m": m, "rev": rev, "with_embedding": emb,
-                    **res,
-                })
+                args = stage1_case(pool, grid, n_cols, rows, active, rev, emb)
+                kw = dict(f_tot=41.0, m=m, bn=bn, emb_scale=256.0, **args)
+                want = td2.stage1_plain(fn=24, fs=16, m=m, bn=bn, emb_scale=256.0, **args)
+                launches = [kernels.stage1]
+                if td2.stage1_route(m, args["uq"].shape[1], 16 if emb else 0) is (
+                    kernels.STAGE1_WGMMA
+                ):
+                    launches.append(kernels.stage1_wgmma)
+                for launch in launches:
+                    name = launch.__name__
+                    got = launch(**kw)
+                    torch.cuda.synchronize()
+                    try:
+                        res = compare_winners(got, want, emb, name)
+                    except AssertionError as e:
+                        # Report every failing case before the phase fails.
+                        failures.append(str(e))
+                        emit({"phase": "kernels", "kernel": name, "rows": rows,
+                              "cols": n_cols, "bn": bn, "m": m, "rev": rev,
+                              "with_embedding": emb, "error": str(e)})
+                        continue
+                    max_err[name] = max(max_err[name], res["max_prio_diff"])
+                    emit({
+                        "phase": "kernels", "kernel": name, "rows": rows,
+                        "cols": n_cols, "bn": bn, "m": m, "rev": rev,
+                        "with_embedding": emb, **res,
+                    })
                 del args, kw, got, want
+    if failures:
+        raise AssertionError(f"{len(failures)} kernel cases failed: {failures[0]}")
 
-    # The main path's own shape: the first north-star interval dispatches
-    # 100,000 actives padded to 131,072 rows against 114,688 columns.
-    rows, n_cols = 131_072, 114_688
+
+def time_stage1(pool, grid, rows, n_cols, emb, max_err: dict) -> dict:
+    """Both B1 kernels at one main-path shape, held against the plain
+    version and timed in turns (first, new, new, first), beside the
+    bounds and the library products."""
+    from nakama_tpu_torch import kernels
+    from nakama_tpu_torch.matchmaker import device2 as td2
+
+    dev = pool["num"].device
     m = td2.winners_per_block(K, n_cols // BN)
     active = torch.arange(N_TICKETS, dtype=torch.int32, device=dev)
-    args = stage1_case(pool, grid, n_cols, rows, active, False, False)
-    kw = dict(fn=24, fs=16, m=m, bn=BN, emb_scale=256.0, **args)
-    got = td2.stage1(**kw)
-    res = compare_winners(got, td2.stage1_plain(**kw), False)
-    kernel_ms = cuda_time_ms(lambda: td2.stage1(**kw), 5)
-    plain_ms = cuda_time_ms(lambda: td2.stage1_plain(**kw), 2)
-    bound_ms, bound_by = stage1_bound_ms(args, got.numel())
-    del got
+    args = stage1_case(pool, grid, n_cols, rows, active, False, emb)
+    kw = dict(f_tot=41.0, m=m, bn=BN, emb_scale=256.0, **args)
+    want = td2.stage1_plain(fn=24, fs=16, m=m, bn=BN, emb_scale=256.0, **args)
+    checks = {}
+    for launch in (kernels.stage1_wgmma, kernels.stage1):
+        got = launch(**kw)
+        torch.cuda.synchronize()
+        res = compare_winners(got, want, emb, launch.__name__)
+        max_err[launch.__name__] = max(max_err[launch.__name__], res["max_prio_diff"])
+        checks[launch.__name__] = res
+        del got
+    out_words = want.numel()
+    del want
+    first = [cuda_time_ms(lambda: kernels.stage1(**kw), 3)]
+    new = [cuda_time_ms(lambda: kernels.stage1_wgmma(**kw), 5)]
+    new.append(cuda_time_ms(lambda: kernels.stage1_wgmma(**kw), 5))
+    first.append(cuda_time_ms(lambda: kernels.stage1(**kw), 3))
+    plain_ms = cuda_time_ms(
+        lambda: td2.stage1_plain(fn=24, fs=16, m=m, bn=BN, emb_scale=256.0, **args), 2
+    )
+    bound_int8, by_int8 = stage1_bound_ms(args, out_words, PEAK_INT8_OPS)
+    bound_bf16, by_bf16 = stage1_bound_ms(args, out_words, PEAK_BF16_FLOPS)
     uq, vv = args["uq"], args["vv"]
-    library_ms = cuda_time_ms(lambda: torch.matmul(uq, vv.T), 3)
-    timing = {
-        "rows": rows, "cols": n_cols, "m": m, "kernel_ms": kernel_ms,
-        "plain_ms": plain_ms, "library_ms": library_ms,
-        "library_call": "torch.matmul(uq, vv.T) in bf16 (the product alone)",
-        "bound_ms": bound_ms, "bound_by": bound_by, **res,
-    }
-    emit({"phase": "kernels", "kernel": "stage1", "timing": timing})
-    del args, kw, uq, vv
+    matmul_ms = cuda_time_ms(lambda: torch.matmul(uq, vv.T), 3)
     torch.cuda.empty_cache()
-    phase_layers(pool, grid, rows, n_cols, active, kernel_ms)
+    # torch._int_mm's full int32 output would be rows * n_cols * 4 bytes
+    # (60 GB at the north-star shape): time a quarter of the rows, x4.
+    part = rows // 4
+    uq8 = kernels.int8_operand(uq[:part], -(-uq.shape[1] // 16) * 16)
+    vv8 = kernels.int8_operand(vv, uq8.shape[1])
+    int_mm_ms = 4 * cuda_time_ms(lambda: torch._int_mm(uq8, vv8.T), 3)
+    del uq8, vv8, uq, vv
+    ops01, ops_emb, nbytes = stage1_work(args, out_words)
+    del args, kw
+    torch.cuda.empty_cache()
+    timing = {
+        "rows": rows, "cols": n_cols, "m": m, "with_embedding": emb,
+        "ops_01": ops01, "ops_emb": ops_emb, "bytes": nbytes,
+        "stage1_wgmma_ms": new, "stage1_ms": first,
+        "wgmma_ms": statistics.median(new), "first_ms": statistics.median(first),
+        "speedup": statistics.median(first) / statistics.median(new),
+        "plain_ms": plain_ms,
+        "bound_int8_ms": bound_int8, "bound_int8_by": by_int8,
+        "bound_bf16_ms": bound_bf16, "bound_bf16_by": by_bf16,
+        "wgmma_share_of_int8_bound": bound_int8 / statistics.median(new),
+        "matmul_bf16_ms": matmul_ms,
+        "matmul_call": "torch.matmul(uq, vv.T) in bf16 (the product alone)",
+        "int_mm_ms": int_mm_ms,
+        "int_mm_call": (
+            f"torch._int_mm on int8 operands, timed on {part} rows and "
+            "scaled x4 (the full int32 output would not fit)"
+        ),
+        "checks": checks,
+    }
+    emit({"phase": "kernels", "timing": timing})
+    return timing
+
+
+def phase_kernels(dev) -> dict:
+    pool, grid_lo, grid_inv = bench_pool(131_072, 24, 16, 16, 16, 7, dev)
+    grid = (grid_lo, grid_inv)
+    max_err = {"stage1": 0, "stage1_wgmma": 0}
+    # At k = 64, bn = 1024: m = 2 at the north-star extent (112 blocks),
+    # m = 1 at 128 blocks, m = 2k on a one-block pool (first kernel only);
+    # at bn = 256: m = 4 at 32 blocks and m = 3 at 43, on 4,000 rows (not a
+    # multiple of either row tile). Every flag pair.
+    hold_kernels(pool, grid, [
+        (4096, 4000, 114_688, BN), (4096, 4000, 131_072, BN),
+        (4096, 1024, 1024, BN), (4000, 4000, 32 * 256, 256),
+        (4000, 4000, 43 * 256, 256),
+    ], max_err)
+
+    # The main path's shapes: the first interval dispatches 100,000
+    # actives padded to 131,072 rows against 114,688 columns; the
+    # north-star pool without embeddings, the assembler's with them.
+    rows, n_cols = 131_072, 114_688
+    north = time_stage1(pool, grid, rows, n_cols, False, max_err)
+    asm = time_stage1(pool, grid, rows, n_cols, True, max_err)
+    active = torch.arange(N_TICKETS, dtype=torch.int32, device=dev)
+    phase_layers(pool, grid, rows, n_cols, active, north["wgmma_ms"])
     del pool
     torch.cuda.empty_cache()
-    return {"max_abs_err": max_err, **timing}
-
-
+    return {"max_err": max_err, "north_star": north, "assembler": asm}
 def phase_layers(pool, grid, rows, n_cols, active, stage1_ms) -> None:
     """Device-timeline time of each layer of the two-stage dispatch at the
     first north-star interval's shape (CUDA events around each call, so a
@@ -439,7 +548,7 @@ def run_intervals(mm, rng, kind, size, n_sync, n_pipe):
         mm.backend.pool.flush()
         torch.cuda.synchronize()
         flush_ms = (time.perf_counter() - t0) * 1e3
-        before = kernels.STAGE1.launches
+        before = {k.name: k.launches for k in kernels.KERNELS}
         t0 = time.perf_counter()
         batch = mm.process()
         if not pipelined:
@@ -453,7 +562,7 @@ def run_intervals(mm, rng, kind, size, n_sync, n_pipe):
             "interval": step, "pipelined": pipelined, "process_ms": dt,
             "flush_ms": flush_ms,
             "matched_entries": batch.entry_count, "refill_s": fill_s,
-            "stage1_launches": kernels.STAGE1.launches - before,
+            "launches": {k.name: k.launches - before[k.name] for k in kernels.KERNELS},
             "pool": len(mm),
         })
     mm.backend.wait_idle(120)
@@ -480,8 +589,7 @@ def phase_north_star(stage1_ms: float) -> int:
     launches = {k.name: k.launches for k in kernels.KERNELS}
     mm.stop()
     first = records[0]["matched_entries"]
-    if launches["stage1"] <= 0:
-        raise AssertionError("the main path never launched the stage-1 kernel")
+    check_routing(launches, "north star")
     if first < 0.8 * N_TICKETS:
         raise AssertionError(f"first interval matched {first} < 80% of pool")
     sync = [r["process_ms"] for r in records if not r["pipelined"]]
@@ -494,10 +602,22 @@ def phase_north_star(stage1_ms: float) -> int:
         "stage1_share_of_sync_interval": stage1_ms / statistics.median(sync),
         "launches": launches,
     })
-    return launches["stage1"]
+    return launches
 
 
-def phase_assembler() -> None:
+def check_routing(launches: dict, path: str) -> None:
+    """The main path's stage 1 goes through the Hopper kernel only: its
+    calls all have m <= 4, which the routing never sends to the first."""
+    if launches["stage1_wgmma"] <= 0:
+        raise AssertionError(f"the {path} path never launched stage1_wgmma")
+    if launches["stage1"] != 0:
+        raise AssertionError(
+            f"the {path} path launched the first stage-1 kernel "
+            f"{launches['stage1']} times"
+        )
+
+
+def phase_assembler() -> dict:
     from nakama_tpu_torch import kernels
     from nakama_tpu_torch.config import MatchmakerConfig
     from nakama_tpu_torch.matchmaker import LocalMatchmaker
@@ -511,8 +631,9 @@ def phase_assembler() -> None:
     launches = {k.name: k.launches for k in kernels.KERNELS}
     uses_assembler = not mm.backend._use_pairs()
     mm.stop()
-    if launches["stage1"] <= 0 or not uses_assembler:
-        raise AssertionError("assembler path did not run through stage 1")
+    check_routing(launches, "assembler")
+    if not uses_assembler:
+        raise AssertionError("assembler path did not take the native assembler")
     if records[0]["matched_entries"] <= 0:
         raise AssertionError("assembler path formed no matches")
     emit({
@@ -520,6 +641,24 @@ def phase_assembler() -> None:
         "interval": ms_stats([r["process_ms"] for r in records]),
         "matched_entries_validated": valid, "launches": launches,
     })
+    return launches
+
+
+def kernel_line(kernel, launches: int, err: int, timing: dict, ms_key: str,
+                bound_key: str) -> dict:
+    return {
+        "name": kernel.name,
+        "route": "cuda",
+        "source": "nakama_tpu_torch/csrc/" + kernel.source,
+        "replaces": kernel.replaces,
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": timing[ms_key],
+        "plain_ms": timing["plain_ms"],
+        "bound_ms": timing[bound_key + "_ms"],
+        "bound_by": timing[bound_key + "_by"],
+        "library_ms": timing["matmul_bf16_ms"],
+    }
 
 
 def main() -> int:
@@ -534,22 +673,19 @@ def main() -> int:
     dev = torch.device("cuda:0")
     timing = phase_kernels(dev)
     phase_selfcheck()
-    launches = phase_north_star(timing["kernel_ms"])
-    phase_assembler()
+    north = timing["north_star"]
+    launches = phase_north_star(north["wgmma_ms"])
+    asm_launches = phase_assembler()
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 1)})
-    emit({"kernels": [{
-        "name": kernels.STAGE1.name,
-        "route": "cuda",
-        "source": "nakama_tpu_torch/csrc/" + kernels.STAGE1.source,
-        "replaces": kernels.STAGE1.replaces,
-        "launches": launches,
-        "max_abs_err": timing["max_abs_err"],
-        "ms": timing["kernel_ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"],
-    }]})
+    # Launches on the main path: both phases, counted from 0 before each.
+    total = {k.name: launches[k.name] + asm_launches[k.name] for k in kernels.KERNELS}
+    err = timing["max_err"]
+    emit({"kernels": [
+        kernel_line(kernels.STAGE1, total["stage1"], err["stage1"], north,
+                    "first_ms", "bound_bf16"),
+        kernel_line(kernels.STAGE1_WGMMA, total["stage1_wgmma"],
+                    err["stage1_wgmma"], north, "wgmma_ms", "bound_int8"),
+    ]})
     print(info["nvidia_smi"])
     emit({"ok": True, "device": {
         "platform": "gpu",

@@ -1,0 +1,700 @@
+// Stage-1 prefilter of the two-stage matchmaker scan, redesigned for Hopper
+// (sm_90a): int8 wgmma from TMA-staged shared memory, epilogue in registers.
+//
+// Replaces the Pallas TPU kernel nakama_tpu/matchmaker/device2.py:302
+// (`_stage1_call`, body `_stage1_kernel` at :175), as csrc/stage1.cu does;
+// this kernel takes the calls with m <= 4 winners per selection block
+// (every call of the main path at the default widths), the first kernel
+// the rest.
+//
+// What it computes, for every row i < a and pool column j (the same
+// function as csrc/stage1.cu and device2.stage1_plain):
+//   eligible  = uq_i . vv_j >= F   (and uv_i . vq_j >= F under rev)
+//   prio      = 4096 - ((row_mix_i ^ col_mix_j) & 255)
+//               [+ trunc(clip(ue_i . ve_j * emb_scale, +-4095)), clipped to
+//                [0, 8191], when embeddings score]
+//   word      = eligible && col_gidx_j != row_slot_i
+//               ? (prio << 18) | col_gidx_j : INT32_MIN
+// and, per row and per `bn`-column selection block, the block's top-m words
+// in descending order, written to out[i, b*m .. b*m+m).
+//
+// Bound: the eligibility product is 2*A*N*D operations. The operands hold
+// only 0 and 1 and the counts are <= F (41 at the default widths), so int8
+// operands with int32 accumulation are exact, at the card's int8 rate
+// (1,979 TOP/s): ~7.9 ms at the north-star shape, against ~0.1 ms for the
+// bytes. So it is bound by operations. The epilogue adds ~8 integer
+// operations per (row, column) pair, 1.5e10 pairs at that shape, which is
+// comparable work on the integer pipes.
+//
+// Design:
+// - Operands are int8 [rows, dp] (dp = D rounded up to 16), K-major. TMA
+//   loads them in 128-byte K chunks with the 128-byte swizzle that the
+//   wgmma descriptors name; D = 520 takes 5 chunks, and the last chunk
+//   runs only the k32 steps that hold data (544 of 640 columns of work).
+//   TMA fills the part of a box past the tensor's edge with zeros, so rows
+//   need no padding.
+// - One block per SM (a persistent grid) of two consumer warpgroups and a
+//   producer warpgroup whose one thread issues every TMA load; setmaxnreg
+//   moves the producer's registers to the consumers (232 each), which
+//   keeps the 128 accumulator registers and the epilogue from spilling. A
+//   work item is one row tile (BM rows) and a range of selection blocks.
+//   The row operand of the tile stays in shared memory for the whole item
+//   (160 KB at D = 520), and the column operand streams through a ring of
+//   3-4 stages with full/empty mbarriers. Each column chunk is read once
+//   per 256-row tile (128 under rev): 512 operations per byte of column
+//   operand, against 32 for the first kernel. Items are dealt round-robin,
+//   so the blocks in flight walk the same column block at the same time
+//   and it stays in L2.
+// - Each consumer warpgroup owns 64 rows per slab (two slabs without rev)
+//   and issues m64nTNk32 s8 wgmmas; the embedding product is one bf16
+//   m64nTNk16 wgmma into an fp32 accumulator. The next chunk's wgmmas are
+//   in flight while the previous stage is released (wait_group 1).
+// - Epilogue in registers, no word buffer: each thread turns its counts
+//   into packed words (word = 2^30 + col - (r8 ^ c8) without embeddings)
+//   and folds them into a running top-m per row it holds (m a template
+//   parameter, 1-4). At the end of a selection block the four threads that
+//   share a row merge by shuffles and one writes m words.
+// - The epilogue does not overlap the products: on the card, the time of
+//   the whole kernel is the sum of its products-only and epilogue-only
+//   builds (profile_stage1.py), and neither double-buffered accumulators
+//   nor ping-ponged consumer warpgroups changed that (PERF.md).
+// - Register budget: the accumulators take 128 registers a thread in every
+//   instantiation (TN = 128 without flags, 64 with rev or embeddings; rev
+//   halves the row tile because both row operands stay resident).
+
+#include <climits>
+#include <cstdint>
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+
+// Measurement builds only (profile_stage1.py): 1 leaves out the epilogue,
+// 2 leaves out the products; 0, the default, is the kernel.
+#ifndef STAGE1_EXP
+#define STAGE1_EXP 0
+#endif
+
+namespace {
+
+constexpr int NCW = 2;                 // consumer warpgroups
+constexpr int NT = (NCW + 1) * 128;    // + a producer warpgroup (one warp issues)
+constexpr int KC = 128;                // K chunk: 128 int8 = one 128-byte swizzle span
+constexpr int KCH_MAX = 5;             // D <= 640
+constexpr int EW = 16;                 // embedding width: one bf16 k16 step, 32 bytes
+constexpr int COL_BITS = 18;
+constexpr int PRIO_MAX = 8191;
+constexpr int SMEM_MAX = 232448;       // dynamic shared memory a block may use
+
+template <bool REV, bool EMB>
+struct Shape {
+    static constexpr int SLABS = REV ? 1 : 2;          // 64-row slabs per warpgroup
+    static constexpr int BM = NCW * 64 * SLABS;        // rows per tile
+    static constexpr int TN = (REV || EMB) ? 64 : 128; // columns per product tile
+    static constexpr int STAGES = (REV && EMB) ? 3 : 4;
+    static constexpr int NACC = TN / 2;                // accumulators per slab
+};
+
+struct Layout {
+    int uv, ue, stages, stage_bytes, ve, bars, total;
+};
+
+__host__ __device__ constexpr int round_up(int x, int to) { return (x + to - 1) / to * to; }
+
+// Shared memory, from a 1024-byte aligned base: the resident row operands
+// (uq, then uv under rev: kch chunks of [BM][128] each; then ue [BM][16]
+// bf16), the ring's stages (vv chunk [TN][128], vq chunk, ve [TN][16]
+// bf16), then the mbarriers.
+template <bool REV, bool EMB>
+__host__ __device__ Layout layout(int kch) {
+    using S = Shape<REV, EMB>;
+    Layout L{};
+    const int a_op = kch * S::BM * KC;
+    L.uv = a_op;
+    L.ue = a_op * (REV ? 2 : 1);
+    L.stages = round_up(L.ue + (EMB ? S::BM * EW * 2 : 0), 1024);
+    L.ve = S::TN * KC * (REV ? 2 : 1);
+    L.stage_bytes = round_up(L.ve + (EMB ? S::TN * EW * 2 : 0), 1024);
+    L.bars = L.stages + S::STAGES * L.stage_bytes;
+    L.total = L.bars + (2 * S::STAGES + 2) * 8 + 1024;  // + slack to align the base
+    return L;
+}
+
+struct Params {
+    CUtensorMap tm_uq, tm_vv, tm_uv, tm_vq, tm_ue, tm_ve;
+    const int32_t* col_mix;
+    const int32_t* col_gidx;
+    const int32_t* row_mix;
+    const int32_t* row_slot;
+    int32_t* out;
+    int a;          // rows
+    int n_blocks;   // selection blocks (n / bn)
+    int bn;         // selection block width
+    int kch;        // K chunks
+    int last_ks;    // k32 steps in the last chunk
+    int f_int;      // F: a pair is eligible when its count is >= F
+    int rt_count;   // row tiles
+    int splits;     // selection-block ranges per row tile
+    int items;      // rt_count * splits
+    float emb_scale;
+};
+
+// ------------------------------------------------------------- primitives
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ uint32_t mbar_try_wait(uint32_t bar, int parity) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    return done;
+}
+
+// Returns once the barrier's phase of parity `parity` has completed. A
+// wait of more than ~2^34 cycles (several seconds) can only be a broken
+// pipeline: trap, so the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+    if (mbar_try_wait(bar, parity)) return;
+    const long long t0 = clock64();
+    while (!mbar_try_wait(bar, parity))
+        if (clock64() - t0 > (1ll << 34)) __trap();
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int x, int y) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%3, %4}], [%2];\n"
+        :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x), "r"(y)
+        : "memory");
+}
+
+// wgmma shared-memory descriptors, K-major. 128-byte swizzle: rows of 128
+// bytes, 8-row groups 1024 bytes apart. 32-byte swizzle: rows of 32 bytes,
+// 8-row groups 256 bytes apart. The leading offset is unused for swizzled
+// K-major operands. A k32 step inside a 128-byte row adds 32 bytes (2 in
+// the address field).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16)
+         | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ uint64_t desc_sw32(uint32_t addr) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16)
+         | ((uint64_t)(256 >> 4) << 32) | ((uint64_t)3 << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// wgmma from shared memory into registers: s8 x s8 -> s32 (m64n128k32,
+// m64n64k32) and bf16 x bf16 -> f32 (m64n64k16). scale_d = 0 overwrites
+// the accumulators, 1 adds to them. Overloaded on the accumulator size.
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+          "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+          "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_s8(int (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// Descending running top-M: insert w, drop the smallest.
+template <int M>
+__device__ __forceinline__ void insert(int (&b)[M], int w) {
+#pragma unroll
+    for (int t = 0; t < M; ++t) {
+        const int hi = max(b[t], w);
+        w = min(b[t], w);
+        b[t] = hi;
+    }
+}
+
+// Shared-memory addresses of one chunk's products for one warpgroup: its
+// first row slab in the resident operands, the stage, the embedding rows.
+struct ChunkAddr {
+    uint32_t a, uv_off, st, vq_off, ue, ve;
+    int kc;
+};
+
+// NKS k32 steps of a chunk, and the embedding product when WITH_EMB, as
+// straight-line code, so that the chunk is a single commit group: a branch
+// between wgmmas makes the compiler close the group and fence (C7519).
+template <int NKS, bool WITH_EMB, bool REV, int S, int N, int RS, int RN, int ES, int EN>
+__device__ __forceinline__ void issue_chunk(const ChunkAddr& ad, int (&acc)[S][N],
+                                            int (&accr)[RS][RN], float (&acce)[ES][EN]) {
+    wg_fence();
+    if (STAGE1_EXP != 2) {
+#pragma unroll
+        for (int ks = 0; ks < NKS; ++ks) {
+            const int scale = (ad.kc | ks) != 0;
+            const uint64_t db = desc_sw128(ad.st + ks * 32);
+#pragma unroll
+            for (int s = 0; s < S; ++s) {
+                const uint32_t a_addr = ad.a + s * 64 * KC + ks * 32;
+                wgmma_s8(acc[s], desc_sw128(a_addr), db, scale);
+                if constexpr (REV)
+                    wgmma_s8(accr[s], desc_sw128(a_addr + ad.uv_off),
+                             desc_sw128(ad.st + ad.vq_off + ks * 32), scale);
+            }
+        }
+        if constexpr (WITH_EMB) {
+#pragma unroll
+            for (int s = 0; s < ES; ++s)
+                wgmma_bf16(acce[s], desc_sw32(ad.ue + s * 64 * EW * 2), desc_sw32(ad.ve), 0);
+        }
+    }
+    wg_commit();
+}
+
+template <bool WITH_EMB, bool REV, int S, int N, int RS, int RN, int ES, int EN>
+__device__ __forceinline__ void issue_n(int nks, const ChunkAddr& ad, int (&acc)[S][N],
+                                        int (&accr)[RS][RN], float (&acce)[ES][EN]) {
+    switch (nks) {
+        case 4: issue_chunk<4, WITH_EMB, REV>(ad, acc, accr, acce); break;
+        case 3: issue_chunk<3, WITH_EMB, REV>(ad, acc, accr, acce); break;
+        case 2: issue_chunk<2, WITH_EMB, REV>(ad, acc, accr, acce); break;
+        default: issue_chunk<1, WITH_EMB, REV>(ad, acc, accr, acce); break;
+    }
+}
+
+// ----------------------------------------------------------------- kernel
+
+template <int M, bool REV, bool EMB>
+__global__ void __launch_bounds__(NT, 1) stage1_wgmma_kernel(const __grid_constant__ Params p) {
+    using S = Shape<REV, EMB>;
+    constexpr int SLABS = S::SLABS, BM = S::BM, TN = S::TN, STAGES = S::STAGES;
+    constexpr int NACC = S::NACC;
+    extern __shared__ uint8_t smem_raw[];
+    const Layout L = layout<REV, EMB>(p.kch);
+    const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+    const uint32_t full0 = base + L.bars;             // full[s]  at full0 + 8 s
+    const uint32_t empty0 = full0 + 8 * STAGES;       // empty[s] at empty0 + 8 s
+    const uint32_t a_full = empty0 + 8 * STAGES;
+    const uint32_t a_empty = a_full + 8;
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(full0 + 8 * s, 1);
+            mbar_init(empty0 + 8 * s, NCW * 4);
+        }
+        mbar_init(a_full, 1);
+        mbar_init(a_empty, NCW * 4);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    const int a_chunk = BM * KC;
+    const int col_tiles = p.bn / TN;
+
+    if (warp >= NCW * 4) {
+        // ------------------------------------------- producer warpgroup
+        // Registers go to the consumers; one thread issues every load.
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+        if (warp != NCW * 4 || lane != 0) return;
+        const uint32_t a_tx = (REV ? 2 : 1) * p.kch * a_chunk + (EMB ? BM * EW * 2 : 0);
+        const uint32_t b_tx = TN * KC * (REV ? 2 : 1);
+        const uint32_t b_tx0 = b_tx + (EMB ? TN * EW * 2 : 0);
+        int stage = 0, phase = 0, n_a = 0;
+        for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
+            const int rt = item % p.rt_count;
+            const int sp = item / p.rt_count;
+            const int j0 = sp * p.n_blocks / p.splits;
+            const int j1 = (sp + 1) * p.n_blocks / p.splits;
+            if (n_a > 0) mbar_wait(a_empty, (n_a - 1) & 1);
+            ++n_a;
+            mbar_expect_tx(a_full, a_tx);
+            for (int kc = 0; kc < p.kch; ++kc) {
+                tma_load_2d(base + kc * a_chunk, &p.tm_uq, a_full, kc * KC, rt * BM);
+                if (REV) tma_load_2d(base + L.uv + kc * a_chunk, &p.tm_uv, a_full, kc * KC, rt * BM);
+            }
+            if (EMB) tma_load_2d(base + L.ue, &p.tm_ue, a_full, 0, rt * BM);
+            for (int j = j0; j < j1; ++j) {
+                for (int c = 0; c < col_tiles; ++c) {
+                    const int col0 = j * p.bn + c * TN;
+                    for (int kc = 0; kc < p.kch; ++kc) {
+                        const uint32_t st = base + L.stages + stage * L.stage_bytes;
+                        const uint32_t full = full0 + 8 * stage;
+                        mbar_wait(empty0 + 8 * stage, phase ^ 1);
+                        mbar_expect_tx(full, kc == 0 ? b_tx0 : b_tx);
+                        tma_load_2d(st, &p.tm_vv, full, kc * KC, col0);
+                        if (REV) tma_load_2d(st + TN * KC, &p.tm_vq, full, kc * KC, col0);
+                        if (EMB && kc == 0) tma_load_2d(st + L.ve, &p.tm_ve, full, 0, col0);
+                        if (++stage == STAGES) { stage = 0; phase ^= 1; }
+                    }
+                }
+            }
+        }
+        return;
+    }
+
+    // ------------------------------------------- consumer warpgroups
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int wg = threadIdx.x / 128;
+    const int q = lane % 4;
+    // Row (within the tile) of this thread's first accumulator row, slab 0.
+    const int rbase = wg * 64 * SLABS + (warp % 4) * 16 + lane / 4;
+    const int out_w = p.n_blocks * M;
+
+    int acc[SLABS][NACC];
+    int accr[REV ? SLABS : 1][REV ? NACC : 1];
+    float acce[EMB ? SLABS : 1][EMB ? NACC : 1];
+#pragma unroll
+    for (int s = 0; s < SLABS; ++s)
+#pragma unroll
+        for (int i = 0; i < NACC; ++i) acc[s][i] = 0;
+    if constexpr (REV) {
+#pragma unroll
+        for (int s = 0; s < SLABS; ++s)
+#pragma unroll
+            for (int i = 0; i < NACC; ++i) accr[s][i] = 0;
+    }
+    if constexpr (EMB) {
+#pragma unroll
+        for (int s = 0; s < SLABS; ++s)
+#pragma unroll
+            for (int i = 0; i < NACC; ++i) acce[s][i] = 0.0f;
+    }
+
+    int stage = 0, phase = 0, a_phase = 0;
+    for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
+        const int rt = item % p.rt_count;
+        const int sp = item / p.rt_count;
+        const int j0 = sp * p.n_blocks / p.splits;
+        const int j1 = (sp + 1) * p.n_blocks / p.splits;
+        const int row0 = rt * BM;
+
+        // Per-row constants. Without embeddings the word is built in the
+        // shifted domain: rkey = (row_mix & 255) << 18, rslot = slot + 2^30.
+        int rkey[SLABS][2], rslot[SLABS][2];
+#pragma unroll
+        for (int s = 0; s < SLABS; ++s)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int row = row0 + rbase + s * 64 + 8 * h;
+                const int rm = row < p.a ? p.row_mix[row] : 0;
+                const int sl = row < p.a ? p.row_slot[row] : 0;
+                rkey[s][h] = EMB ? (rm & 255) : (rm & 255) << COL_BITS;
+                rslot[s][h] = EMB ? sl : (int)((uint32_t)sl + (1u << 30));
+            }
+
+        mbar_wait(a_full, a_phase);
+        a_phase ^= 1;
+
+        for (int j = j0; j < j1; ++j) {
+            int best[SLABS][2][M];
+#pragma unroll
+            for (int s = 0; s < SLABS; ++s)
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+#pragma unroll
+                    for (int t = 0; t < M; ++t) best[s][h][t] = INT_MIN;
+
+            for (int c = 0; c < col_tiles; ++c) {
+                const int col0 = j * p.bn + c * TN;
+                int prev = 0;
+                for (int kc = 0; kc < p.kch; ++kc) {
+                    const uint32_t st = base + L.stages + stage * L.stage_bytes;
+                    mbar_wait(full0 + 8 * stage, phase);
+                    const int nks = kc + 1 < p.kch ? KC / 32 : p.last_ks;
+                    const ChunkAddr ad{base + kc * a_chunk + wg * SLABS * 64 * KC, (uint32_t)L.uv,
+                                       st, (uint32_t)(TN * KC),
+                                       base + L.ue + wg * SLABS * 64 * EW * 2, st + L.ve, kc};
+                    if (EMB && kc == 0)
+                        issue_n<EMB, REV>(nks, ad, acc, accr, acce);
+                    else
+                        issue_n<false, REV>(nks, ad, acc, accr, acce);
+                    if (kc > 0) {
+                        wg_wait<1>();  // the previous chunk's wgmmas are done
+                        if (lane == 0) mbar_arrive(empty0 + 8 * prev);
+                    }
+                    prev = stage;
+                    if (++stage == STAGES) { stage = 0; phase ^= 1; }
+                }
+                wg_wait<0>();
+                if (lane == 0) mbar_arrive(empty0 + 8 * prev);
+#pragma unroll
+                for (int s = 0; s < SLABS; ++s) {
+                    fence_regs(acc[s]);
+                    if constexpr (REV) fence_regs(accr[s]);
+                    if constexpr (EMB) fence_regs(acce[s]);
+                }
+
+                // Epilogue: accumulator i of a slab is row r + 8 * ((i / 2) % 2),
+                // column 8 * (i / 4) + 2 * q + i % 2.
+#pragma unroll
+                for (int j8 = 0; j8 < (STAGE1_EXP == 1 ? 0 : TN / 8); ++j8) {
+                    const int gc = col0 + 8 * j8 + 2 * q;
+                    int cg[2], ck[2];
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        const int g = __ldg(p.col_gidx + gc + e);
+                        const int k = __ldg(p.col_mix + gc + e) & 255;
+                        cg[e] = EMB ? g : g + (1 << 30);
+                        ck[e] = EMB ? k : k << COL_BITS;
+                    }
+#pragma unroll
+                    for (int s = 0; s < SLABS; ++s)
+#pragma unroll
+                        for (int h = 0; h < 2; ++h)
+#pragma unroll
+                            for (int e = 0; e < 2; ++e) {
+                                const int i = 4 * j8 + 2 * h + e;
+                                bool ok = acc[s][i] >= p.f_int && cg[e] != rslot[s][h];
+                                if constexpr (REV) ok = ok && accr[s][i] >= p.f_int;
+                                int w;
+                                if constexpr (EMB) {
+                                    float v = acce[s][i] * p.emb_scale;
+                                    v = fminf(fmaxf(v, -4095.0f), 4095.0f);
+                                    int prio = 4096 - (rkey[s][h] ^ ck[e]) + (int)v;  // toward zero
+                                    prio = min(max(prio, 0), PRIO_MAX);
+                                    w = (prio << COL_BITS) | cg[e];
+                                } else {
+                                    // (4096 - x) << 18 | col == 2^30 + col - (x << 18)
+                                    w = cg[e] - (rkey[s][h] ^ ck[e]);
+                                }
+                                insert<M>(best[s][h], ok ? w : INT_MIN);
+                            }
+                }
+            }
+
+            // The four threads of a row hold disjoint columns: merge, write.
+#pragma unroll
+            for (int s = 0; s < SLABS; ++s)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+#pragma unroll
+                    for (int o = 1; o <= 2; o <<= 1) {
+                        int other[M];
+#pragma unroll
+                        for (int t = 0; t < M; ++t)
+                            other[t] = __shfl_xor_sync(0xffffffffu, best[s][h][t], o);
+#pragma unroll
+                        for (int t = 0; t < M; ++t) insert<M>(best[s][h], other[t]);
+                    }
+                    const int row = row0 + rbase + s * 64 + 8 * h;
+                    if (q == 0 && row < p.a) {
+                        int32_t* dst = p.out + (size_t)row * out_w + (size_t)j * M;
+#pragma unroll
+                        for (int t = 0; t < M; ++t) dst[t] = best[s][h][t];
+                    }
+                }
+        }
+        // This warp is done reading the item's row operands.
+        if (lane == 0) mbar_arrive(a_empty);
+    }
+}
+
+// ------------------------------------------------------------------- host
+
+typedef CUresult (*EncodeTiledFn)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+    CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+    static EncodeTiledFn fn = nullptr;
+    if (fn == nullptr) {
+        void* ptr = nullptr;
+        cudaDriverEntryPointQueryResult status;
+        if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
+                                    &status) == cudaSuccess &&
+            status == cudaDriverEntryPointSuccess)
+            fn = reinterpret_cast<EncodeTiledFn>(ptr);
+    }
+    return fn;
+}
+
+// A 2-D tensor map over a row-major [rows, inner] array (row stride
+// `stride` elements), loading boxes of [box_rows][box_inner].
+bool make_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType dtype, int elem,
+              int inner, int rows, int stride, int box_inner, int box_rows,
+              CUtensorMapSwizzle swizzle) {
+    EncodeTiledFn encode = encode_tiled();
+    if (encode == nullptr) return false;
+    cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)rows};
+    cuuint64_t strides[1] = {(cuuint64_t)stride * elem};
+    cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_rows};
+    cuuint32_t estr[2] = {1, 1};
+    return encode(map, dtype, 2, const_cast<void*>(ptr), dims, strides, box, estr,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+constexpr int ERR_TENSOR_MAP = 100001;
+constexpr int ERR_SHAPE = 100002;
+
+struct Operands {
+    const void *uq, *vv, *uv, *vq, *ue, *ve;
+    int a, n, dp;
+};
+
+template <int M, bool REV, bool EMB>
+int launch(Params& p, const Operands& o, cudaStream_t stream) {
+    using S = Shape<REV, EMB>;
+    const CUtensorMapDataType u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+    const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    const CUtensorMapSwizzle sw128 = CU_TENSOR_MAP_SWIZZLE_128B;
+    const CUtensorMapSwizzle sw32 = CU_TENSOR_MAP_SWIZZLE_32B;
+    bool ok = make_map(&p.tm_uq, o.uq, u8, 1, o.dp, o.a, o.dp, KC, S::BM, sw128) &&
+              make_map(&p.tm_vv, o.vv, u8, 1, o.dp, o.n, o.dp, KC, S::TN, sw128);
+    if (REV)
+        ok = ok && make_map(&p.tm_uv, o.uv, u8, 1, o.dp, o.a, o.dp, KC, S::BM, sw128) &&
+             make_map(&p.tm_vq, o.vq, u8, 1, o.dp, o.n, o.dp, KC, S::TN, sw128);
+    if (EMB)
+        ok = ok && make_map(&p.tm_ue, o.ue, bf, 2, EW, o.a, EW, EW, S::BM, sw32) &&
+             make_map(&p.tm_ve, o.ve, bf, 2, EW, o.n, EW, EW, S::TN, sw32);
+    if (!ok) return ERR_TENSOR_MAP;
+    if (p.bn % S::TN != 0) return ERR_SHAPE;
+    const Layout L = layout<REV, EMB>(p.kch);
+    if (L.total > SMEM_MAX) return ERR_SHAPE;
+
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    p.rt_count = (p.a + S::BM - 1) / S::BM;
+    // Fewer row tiles than SMs: split each tile's selection blocks.
+    p.splits = p.rt_count >= sms ? 1 : max(1, min(p.n_blocks, sms / p.rt_count));
+    p.items = p.rt_count * p.splits;
+    const int grid = min(sms, p.items);
+
+    auto kernel = stage1_wgmma_kernel<M, REV, EMB>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, NT, L.total, stream>>>(p);
+    return (int)cudaGetLastError();
+}
+
+template <bool REV, bool EMB>
+int launch_m(int m, Params& p, const Operands& o, cudaStream_t stream) {
+    switch (m) {
+        case 1: return launch<1, REV, EMB>(p, o, stream);
+        case 2: return launch<2, REV, EMB>(p, o, stream);
+        case 3: return launch<3, REV, EMB>(p, o, stream);
+        case 4: return launch<4, REV, EMB>(p, o, stream);
+        default: return ERR_SHAPE;
+    }
+}
+
+}  // namespace
+
+// Launch on `stream`; returns 0, a CUDA error code, or ERR_* above.
+// Shapes: uq8/uv8 [a, dp], vv8/vq8 [n, dp] int8 holding 0/1, zero past
+// column d (dp = d rounded up to 16, d <= 640); ue [a, 16], ve [n, 16]
+// bf16; col_mix/col_gidx [n], row_mix/row_slot [a] int32, col_gidx in
+// [0, 2^18); out [a, (n / bn) * m] int32. Requires 1 <= m <= 4, n % bn == 0,
+// bn % 128 == 0; base pointers 16-byte aligned.
+extern "C" int stage1_wgmma_launch(
+    const void* uq8, const void* vv8, const void* uv8, const void* vq8,
+    const void* ue, const void* ve, const void* col_mix, const void* col_gidx,
+    const void* row_mix, const void* row_slot, void* out, int a, int n, int dp,
+    int d, int bn, int m, int f_int, float emb_scale, int rev, int with_emb,
+    void* stream) {
+    if (a <= 0 || n <= 0 || d <= 0 || d > KCH_MAX * KC || dp % 16 != 0 || dp < d ||
+        bn <= 0 || bn % 128 != 0 || n % bn != 0)
+        return ERR_SHAPE;
+    Params p;
+    p.col_mix = static_cast<const int32_t*>(col_mix);
+    p.col_gidx = static_cast<const int32_t*>(col_gidx);
+    p.row_mix = static_cast<const int32_t*>(row_mix);
+    p.row_slot = static_cast<const int32_t*>(row_slot);
+    p.out = static_cast<int32_t*>(out);
+    p.a = a;
+    p.n_blocks = n / bn;
+    p.bn = bn;
+    p.kch = (d + KC - 1) / KC;
+    p.last_ks = (d - (p.kch - 1) * KC + 31) / 32;
+    p.f_int = f_int;
+    p.emb_scale = emb_scale;
+    const Operands o{uq8, vv8, uv8, vq8, ue, ve, a, n, dp};
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (rev && with_emb) return launch_m<true, true>(m, p, o, s);
+    if (rev) return launch_m<true, false>(m, p, o, s);
+    if (with_emb) return launch_m<false, true>(m, p, o, s);
+    return launch_m<false, false>(m, p, o, s);
+}

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -51,7 +52,17 @@ STAGE1 = Kernel(
     source="stage1.cu",
     replaces="nakama_tpu/matchmaker/device2.py:302",
 )
-KERNELS = [STAGE1]
+STAGE1_WGMMA = Kernel(
+    name="stage1_wgmma",
+    source="stage1_wgmma.cu",
+    replaces="nakama_tpu/matchmaker/device2.py:302",
+)
+KERNELS = [STAGE1, STAGE1_WGMMA]
+# What stage1_wgmma.cu takes: winners per block, operand width (resident
+# row tile of 5 128-byte chunks), embedding width (one bf16 k16 step).
+WGMMA_MAX_M = 4
+WGMMA_MAX_D = 640
+WGMMA_MAX_E = 16
 _lock = threading.Lock()
 
 
@@ -63,18 +74,19 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
-def library_path(kernel: Kernel) -> str:
+def library_path(kernel: Kernel, defines: tuple[str, ...] = ()) -> str:
     src = os.path.join(_CSRC, kernel.source)
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+        digest = hashlib.sha256(f.read() + repr(defines).encode()).hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"lib{kernel.name}-{digest}.so")
 
 
-def build(kernel: Kernel) -> str:
-    """Compile `kernel` unless this version of its source is built;
-    returns the library path. `kernel.build_log` keeps ptxas's report
-    (registers, shared memory, spills)."""
-    path = library_path(kernel)
+def build(kernel: Kernel, defines: tuple[str, ...] = ()) -> str:
+    """Compile `kernel` (with `-D` for each of `defines`, for measurement
+    builds) unless this version of its source is built; returns the
+    library path. `kernel.build_log` keeps ptxas's report (registers,
+    shared memory, spills)."""
+    path = library_path(kernel, defines)
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -82,8 +94,8 @@ def build(kernel: Kernel) -> str:
     os.close(fd)
     cmd = [
         _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-        "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
-        os.path.join(_CSRC, kernel.source),
+        "-Xcompiler", "-fPIC", "-Xptxas", "-v", *(f"-D{d}" for d in defines),
+        "-o", tmp, os.path.join(_CSRC, kernel.source),
     ]
     try:
         done = subprocess.run(cmd, capture_output=True, text=True)
@@ -102,10 +114,17 @@ def build(kernel: Kernel) -> str:
 def _load(kernel: Kernel) -> ctypes.CDLL:
     with _lock:
         if kernel.lib is None:
-            lib = ctypes.CDLL(build(kernel))
-            _bind(kernel, lib)
-            kernel.lib = lib
+            kernel.lib = load_library(kernel)
         return kernel.lib
+
+
+def load_library(kernel: Kernel, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Build (if needed) and bind one library of `kernel`. A wrapper
+    launches whatever `kernel.lib` holds, so a measurement build can be
+    swapped in there."""
+    lib = ctypes.CDLL(build(kernel, defines))
+    _bind(kernel, lib)
+    return lib
 
 
 def _bind(kernel: Kernel, lib: ctypes.CDLL) -> None:
@@ -116,6 +135,16 @@ def _bind(kernel: Kernel, lib: ctypes.CDLL) -> None:
             [ctypes.c_void_p] * 11
             + [ctypes.c_int] * 6
             + [ctypes.c_float] * 2
+            + [ctypes.c_int] * 2
+            + [ctypes.c_void_p]
+        )
+    elif kernel is STAGE1_WGMMA:
+        f = lib.stage1_wgmma_launch
+        f.restype = ctypes.c_int
+        f.argtypes = (
+            [ctypes.c_void_p] * 11
+            + [ctypes.c_int] * 7
+            + [ctypes.c_float]
             + [ctypes.c_int] * 2
             + [ctypes.c_void_p]
         )
@@ -146,18 +175,9 @@ def _round16(d: int) -> int:
     return -(-d // 16) * 16
 
 
-def stage1(
-    uq, vv, col_mix, col_gidx, row_mix, row_slot, *,
-    f_tot: float, m: int, bn: int, emb_scale: float,
-    ue=None, ve=None, uv=None, vq=None,
-) -> torch.Tensor:
-    """Launch the stage-1 kernel (csrc/stage1.cu) on CUDA tensors.
-
-    uq bf16 [A, D], vv bf16 [n, D]; col_mix/col_gidx i32 [n];
-    row_mix/row_slot i32 [A]; ue bf16 [A, E] with ve bf16 [n, E] when
-    embeddings score; uv bf16 [A, D] with vq bf16 [n, D] under mutual
-    matching. Returns i32 [A, (n // bn) * m]: per bn-column block, each
-    row's top-m packed words, descending, INT32_MIN-filled."""
+def _check_stage1(uq, vv, col_mix, col_gidx, row_mix, row_slot, ue, ve, uv, vq):
+    """Checks the stage-1 arguments shared by both kernels; returns
+    (a_pad, n, d, rev, with_emb)."""
     dev = uq.device
     if dev.type != "cuda":
         raise ValueError(f"stage1 kernel needs CUDA tensors, got {dev}")
@@ -181,6 +201,25 @@ def stage1(
         e = ue.shape[1]
         _check(ue, "ue", bf16, dev, (a_pad, e))
         _check(ve, "ve", bf16, dev, (n, e))
+    return a_pad, n, d, rev, with_emb
+
+
+def stage1(
+    uq, vv, col_mix, col_gidx, row_mix, row_slot, *,
+    f_tot: float, m: int, bn: int, emb_scale: float,
+    ue=None, ve=None, uv=None, vq=None,
+) -> torch.Tensor:
+    """Launch the first stage-1 kernel (csrc/stage1.cu) on CUDA tensors.
+
+    uq bf16 [A, D], vv bf16 [n, D]; col_mix/col_gidx i32 [n];
+    row_mix/row_slot i32 [A]; ue bf16 [A, E] with ve bf16 [n, E] when
+    embeddings score; uv bf16 [A, D] with vq bf16 [n, D] under mutual
+    matching. Returns i32 [A, (n // bn) * m]: per bn-column block, each
+    row's top-m packed words, descending, INT32_MIN-filled."""
+    a_pad, n, d, rev, with_emb = _check_stage1(
+        uq, vv, col_mix, col_gidx, row_mix, row_slot, ue, ve, uv, vq
+    )
+    dev, i32 = uq.device, torch.int32
     if bn % 128 or bn > 1024 or n % bn or a_pad % 32 or m < 1:
         raise ValueError(
             f"stage1 kernel needs bn % 128 == 0, bn <= 1024, n % bn == 0, "
@@ -216,4 +255,68 @@ def stage1(
     if rc != 0:
         raise RuntimeError(f"stage1 kernel launch failed: CUDA error {rc}")
     STAGE1.launches += 1
+    return out
+
+
+def int8_operand(x: torch.Tensor, width: int) -> torch.Tensor:
+    """A 0/1 operand as int8 [rows, width], zero past its own columns, in
+    one pass (rows start 16-byte aligned when `width` % 16 == 0, as TMA
+    needs). Exact: every value is 0 or 1."""
+    out = torch.empty((x.shape[0], width), dtype=torch.int8, device=x.device)
+    out[:, : x.shape[1]].copy_(x)
+    out[:, x.shape[1]:].zero_()
+    return out
+
+
+def stage1_wgmma(
+    uq, vv, col_mix, col_gidx, row_mix, row_slot, *,
+    f_tot: float, m: int, bn: int, emb_scale: float,
+    ue=None, ve=None, uv=None, vq=None,
+) -> torch.Tensor:
+    """Launch the Hopper stage-1 kernel (csrc/stage1_wgmma.cu) on CUDA
+    tensors. Same arguments and result as `stage1`; the 0/1 operands are
+    converted to int8 here (inside the call's time). Takes 1 <= m <= 4,
+    D <= 640, E <= 16, bn % 128 == 0, n % bn == 0, any row count, and
+    col_gidx in [0, 2^18)."""
+    a_pad, n, d, rev, with_emb = _check_stage1(
+        uq, vv, col_mix, col_gidx, row_mix, row_slot, ue, ve, uv, vq
+    )
+    e = ue.shape[1] if with_emb else 0
+    if (
+        not 1 <= m <= WGMMA_MAX_M or d > WGMMA_MAX_D or e > WGMMA_MAX_E
+        or bn % 128 or n % bn or d < 1
+    ):
+        raise ValueError(
+            f"stage1_wgmma kernel needs 1 <= m <= {WGMMA_MAX_M}, "
+            f"1 <= D <= {WGMMA_MAX_D}, E <= {WGMMA_MAX_E}, bn % 128 == 0, "
+            f"n % bn == 0 (m={m}, D={d}, E={e}, bn={bn}, n={n})"
+        )
+    dev = uq.device
+    out = torch.empty((a_pad, (n // bn) * m), dtype=torch.int32, device=dev)
+    if a_pad == 0 or n == 0:
+        return out
+    dp = _round16(d)
+    ops = {"uq": int8_operand(uq, dp), "vv": int8_operand(vv, dp)}
+    if rev:
+        ops["uv"], ops["vq"] = int8_operand(uv, dp), int8_operand(vq, dp)
+    if with_emb:
+        ops["ue"], ops["ve"] = _padded(ue, WGMMA_MAX_E), _padded(ve, WGMMA_MAX_E)
+
+    def ptr(name):
+        t = ops.get(name)
+        return None if t is None else t.data_ptr()
+
+    lib = _load(STAGE1_WGMMA)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.stage1_wgmma_launch(
+            ptr("uq"), ptr("vv"), ptr("uv"), ptr("vq"), ptr("ue"), ptr("ve"),
+            col_mix.data_ptr(), col_gidx.data_ptr(), row_mix.data_ptr(),
+            row_slot.data_ptr(), out.data_ptr(),
+            a_pad, n, dp, d, bn, m, math.ceil(f_tot - 0.5), emb_scale,
+            int(rev), int(with_emb), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"stage1_wgmma kernel launch failed: error {rc}")
+    STAGE1_WGMMA.launches += 1
     return out

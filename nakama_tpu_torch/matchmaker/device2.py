@@ -3,7 +3,8 @@
 Port of the JAX package's `matchmaker/device2.py` (reference hot loop
 replaced: server/matchmaker_process.go:27-334).
 
-Stage 1 (`stage1`, a hand-written CUDA kernel: csrc/stage1.cu): eligibility
+Stage 1 (`stage1`, hand-written CUDA kernels: csrc/stage1_wgmma.cu for
+m <= 4 winners per block, csrc/stage1.cu for the rest): eligibility
 as a matrix product. Every ticket's properties are encoded into a bucketed
 0/1 vector v (one-hot value buckets per numeric field from a per-field
 grid, hashed buckets per string field, a pool-id plane); every query into
@@ -201,19 +202,38 @@ def stage1_plain(
     return out
 
 
+def stage1_route(m: int, d: int, e: int = 0) -> kernels.Kernel:
+    """The CUDA kernel that takes a stage-1 call with m winners per block,
+    operand width d and embedding width e (0 without embeddings):
+    csrc/stage1_wgmma.cu when m <= 4, d <= 640 and e <= 16 — every call of
+    the main path at the default widths (D = 520, E = 16, and >= 32
+    selection blocks give m <= 4); csrc/stage1.cu otherwise (small pools
+    with few blocks, where m = ceil(2k / n_blocks) is large)."""
+    if (
+        m <= kernels.WGMMA_MAX_M and d <= kernels.WGMMA_MAX_D
+        and e <= kernels.WGMMA_MAX_E
+    ):
+        return kernels.STAGE1_WGMMA
+    return kernels.STAGE1
+
+
 def stage1(
     uq, vv, col_mix, col_gidx, row_mix, row_slot, *,
     fn: int, fs: int, m: int, bn: int, emb_scale: float,
     ue=None, ve=None, uv=None, vq=None,
 ):
-    """Stage-1 prefilter: launches the CUDA kernel for CUDA tensors, runs
-    `stage1_plain` for CPU tensors. Same contract as `stage1_plain`."""
+    """Stage-1 prefilter: runs `stage1_plain` for CPU tensors; for CUDA
+    tensors launches the kernel `stage1_route` names (by shape: m <= 4,
+    D <= 640, E <= 16 → the Hopper wgmma kernel, else the first kernel),
+    with no fallback. Same contract as `stage1_plain`."""
     if uq.device.type == "cpu":
         return stage1_plain(
             uq, vv, col_mix, col_gidx, row_mix, row_slot, fn=fn, fs=fs,
             m=m, bn=bn, emb_scale=emb_scale, ue=ue, ve=ve, uv=uv, vq=vq,
         )
-    return kernels.stage1(
+    route = stage1_route(m, uq.shape[1], 0 if ue is None else ue.shape[1])
+    launch = kernels.stage1_wgmma if route is kernels.STAGE1_WGMMA else kernels.stage1
+    return launch(
         uq, vv, col_mix, col_gidx, row_mix, row_slot,
         f_tot=float(fn + fs + 1), m=m, bn=bn, emb_scale=emb_scale,
         ue=ue, ve=ve, uv=uv, vq=vq,

@@ -1,4 +1,4 @@
-"""The stage-1 CUDA kernel of the PyTorch/CUDA port against its plain
+"""The stage-1 CUDA kernels of the PyTorch/CUDA port against their plain
 version, on the card.
 
 This file imports no JAX, so it runs on a machine with a CUDA device and
@@ -85,33 +85,69 @@ def assert_winners_match(got, want, with_emb):
     return int((got != want).sum())
 
 
-@pytest.mark.cuda
-def test_stage1_kernel_matches_plain_on_card():
-    """The hand-written kernel against its plain version on the card, in
-    the three winners-per-block regimes and all four flag combinations,
-    at the kernel's 1024-column selection block."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    from nakama_tpu_torch import kernels
-
-    k, bn, fn, fs = 64, 1024, 24, 16
-    before = kernels.STAGE1.launches
-    for n_blocks in (128, 112, 1):
+def _hold_on_card(launch, cases, fn=24, fs=16, k=64):
+    """Each (n_blocks, bn, rows) case, every flag pair, through `launch`
+    against the plain version on the card. Returns the cases run."""
+    runs = 0
+    for n_blocks, bn, rows in cases:
         m = td2.winners_per_block(k, n_blocks)
         for with_emb in (False, True):
             for rev in (False, True):
                 inp = stage1_inputs(
                     n_blocks + 2 * with_emb + rev, n_blocks * bn, with_emb,
-                    rev, rows=256, fn=fn, fs=fs,
+                    rev, rows=rows, fn=fn, fs=fs,
                 )
-                kw = dict(
-                    fn=fn, fs=fs, m=m, bn=bn, emb_scale=256.0,
-                    **torch_args(inp, "cuda"),
+                args = torch_args(inp, "cuda")
+                want = td2.stage1_plain(
+                    fn=fn, fs=fs, m=m, bn=bn, emb_scale=256.0, **args
                 )
-                got = td2.stage1(**kw)
-                want = td2.stage1_plain(**kw)
+                got = launch(
+                    f_tot=float(fn + fs + 1), m=m, bn=bn, emb_scale=256.0, **args
+                )
                 torch.cuda.synchronize()
                 assert_winners_match(
                     got.cpu().numpy(), want.cpu().numpy(), with_emb
                 )
-    assert kernels.STAGE1.launches == before + 12
+                runs += 1
+    return runs
+
+
+@pytest.mark.cuda
+def test_stage1_kernel_matches_plain_on_card():
+    """The first hand-written kernel (csrc/stage1.cu) against its plain
+    version on the card, in the three winners-per-block regimes and all
+    four flag combinations, at the kernel's 1024-column selection block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from nakama_tpu_torch import kernels
+
+    before = kernels.STAGE1.launches
+    runs = _hold_on_card(
+        kernels.stage1, [(128, 1024, 256), (112, 1024, 256), (1, 1024, 256)]
+    )
+    assert kernels.STAGE1.launches == before + runs == before + 12
+
+
+@pytest.mark.cuda
+def test_stage1_wgmma_kernel_matches_plain_on_card():
+    """The Hopper kernel (csrc/stage1_wgmma.cu) against the plain version
+    on the card, through the routing of device2.stage1: m = 1 and 2 at
+    bn = 1024, m = 4 and 3 at bn = 256 (32 and 43 blocks) on a row count
+    that is not a multiple of its row tile; m = 2k on one block goes to
+    the first kernel. Every flag pair; launch counts of each kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from nakama_tpu_torch import kernels
+
+    def routed(f_tot, **kw):
+        fn = 24
+        return td2.stage1(fn=fn, fs=int(f_tot) - fn - 1, **kw)
+
+    before = {k.name: k.launches for k in kernels.KERNELS}
+    runs = _hold_on_card(
+        routed, [(128, 1024, 256), (112, 1024, 256), (32, 256, 200), (43, 256, 200)]
+    )
+    runs_first = _hold_on_card(routed, [(1, 1024, 256)])
+    after = {k.name: k.launches for k in kernels.KERNELS}
+    assert after["stage1_wgmma"] - before["stage1_wgmma"] == runs == 16
+    assert after["stage1"] - before["stage1"] == runs_first == 4

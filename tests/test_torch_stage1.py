@@ -79,16 +79,86 @@ def test_stage1_plain_matches_pallas(n_blocks, m, with_emb, rev):
 
 def test_stage1_wrapper_takes_plain_version_for_cpu_tensors():
     inp = stage1_inputs(3, 8 * BN, True, True)
-    before = kernels.STAGE1.launches
+    before = [k.launches for k in kernels.KERNELS]
     kw = dict(fn=FN, fs=FS, m=2, bn=BN, emb_scale=256.0, **torch_args(inp))
     got = td2.stage1(**kw)
     torch.testing.assert_close(got, td2.stage1_plain(**kw), rtol=0, atol=0)
-    assert kernels.STAGE1.launches == before  # no kernel launched
-    with pytest.raises(ValueError):
-        kernels.stage1(
-            **{k: v for k, v in kw.items() if k not in ("fn", "fs")},
-            f_tot=float(FN + FS + 1),
-        )
+    assert [k.launches for k in kernels.KERNELS] == before  # none launched
+    for launch in (kernels.stage1, kernels.stage1_wgmma):
+        with pytest.raises(ValueError):
+            launch(
+                **{k: v for k, v in kw.items() if k not in ("fn", "fs")},
+                f_tot=float(FN + FS + 1),
+            )
+
+
+@pytest.mark.parametrize("d", [200, 520, 528])
+def test_int8_operand_is_exact_zero_padded_and_aligned(d):
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy((rng.random((37, d)) < 0.3).astype(np.float32))
+    x = x.to(torch.bfloat16)
+    width = -(-d // 16) * 16
+    y = kernels.int8_operand(x, width)
+    assert y.dtype == torch.int8 and tuple(y.shape) == (37, width)
+    assert y.is_contiguous() and (width % 16, y.data_ptr() % 16) == (0, 0)
+    np.testing.assert_array_equal(y[:, :d].numpy(), x.float().numpy())
+    assert not y[:, d:].any()
+
+
+@pytest.mark.parametrize("with_emb", [False, True])
+@pytest.mark.parametrize("rev", [False, True])
+def test_stage1_plain_on_int8_operands_gives_identical_words(with_emb, rev):
+    """The operands exactly as the Hopper kernel receives them (int8,
+    zero-padded to 16 columns; embeddings padded to 16) give the same
+    words as the encoders' bf16 operands."""
+    inp = stage1_inputs(11 + rev + 2 * with_emb, 4 * BN, with_emb, rev)
+    args = torch_args(inp)
+    kw = dict(fn=FN, fs=FS, m=3, bn=BN, emb_scale=256.0)
+    want = td2.stage1_plain(**kw, **args)
+    width = -(-args["uq"].shape[1] // 16) * 16
+    prepared = dict(args)
+    for key in ("uq", "vv", "uv", "vq"):
+        if key in args:
+            prepared[key] = kernels.int8_operand(args[key], width)
+    if with_emb:
+        for key in ("ue", "ve"):
+            pad = torch.zeros((args[key].shape[0], 16), dtype=torch.bfloat16)
+            pad[:, : args[key].shape[1]] = args[key]
+            prepared[key] = pad
+    got = td2.stage1_plain(**kw, **prepared)
+    assert (want != td2.PACKED_NONE).any()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_stage1_routes_m_up_to_4_to_the_hopper_kernel(monkeypatch):
+    """The rule (m <= 4, D <= 640, E <= 16 → stage1_wgmma.cu, else
+    stage1.cu), and that device2.stage1 launches what it names for a
+    tensor off the CPU (meta tensors: nothing runs)."""
+    for m in (1, 2, 3, 4):
+        assert td2.stage1_route(m, 520, 16) is kernels.STAGE1_WGMMA
+        assert td2.stage1_route(m, 520) is kernels.STAGE1_WGMMA
+    for m in (5, 16, 128):
+        assert td2.stage1_route(m, 520, 16) is kernels.STAGE1
+    assert td2.stage1_route(2, 641) is kernels.STAGE1
+    assert td2.stage1_route(2, 520, 32) is kernels.STAGE1
+    # Main path at the default widths: >= 32 selection blocks of 1024.
+    cfg = MatchmakerConfig()
+    m_max = td2.winners_per_block(64, cfg.big_pool_threshold // 1024)
+    assert m_max == 4
+    assert td2.stage1_route(m_max, td2.encoding_dims(24, 16), 16) is (
+        kernels.STAGE1_WGMMA
+    )
+
+    called = []
+    monkeypatch.setattr(kernels, "stage1", lambda *a, **k: called.append("stage1"))
+    monkeypatch.setattr(
+        kernels, "stage1_wgmma", lambda *a, **k: called.append("stage1_wgmma")
+    )
+    inp = torch_args(stage1_inputs(2, 4 * BN, False, False))
+    meta = {k: torch.empty_like(v, device="meta") for k, v in inp.items()}
+    for m in (2, 4, 5, 32):
+        td2.stage1(fn=FN, fs=FS, m=m, bn=BN, emb_scale=256.0, **meta)
+    assert called == ["stage1_wgmma", "stage1_wgmma", "stage1", "stage1"]
 
 
 def test_mix_matches_jax_int32_wraparound():
