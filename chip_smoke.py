@@ -8,10 +8,18 @@ PyTorch version on the card and times them in turns at the main path's
 shapes, runs the port's device self-check, then drives the matchmaker's
 main path through its public entry point (`LocalMatchmaker` with the
 default `backend="cuda"`) at the default widths: 100,000 1v1 tickets
-(the device-pairing path) and 100,000 embedding-scored 5v5 tickets (the
-native-assembler path). Every phase prints one JSON line; any failure
-raises and the script exits non-zero without a result line. The last line
-is the device summary.
+(the device-pairing path; each synchronous interval split into its
+breadcrumb stages, kernel clocks and HBM ledger) and 100,000
+embedding-scored 5v5 tickets (the native-assembler path). Then the
+service surface: the 100,000-ticket pool's snapshot restored into a
+fresh matchmaker (same groups as the original's interval), restored
+again into one that runs `start()`'s interval loop and delivery stage
+under a trickle of adds (one interval captured with the profiler for
+the card's busy share), and a 32,768-ticket pool driven through the
+breaker ladder with armed faults. Every phase but the fault phase
+asserts that the breaker stayed closed with no backend failure. Every
+phase prints one JSON line; any failure raises and the script exits
+non-zero without a result line. The last line is the device summary.
 
 Needs a CUDA device (exits non-zero without one) and imports nothing of
 JAX or of the JAX package.
@@ -19,7 +27,12 @@ JAX or of the JAX package.
 
 from __future__ import annotations
 
+import asyncio
+import collections
+import gc
 import json
+import os
+import pickle
 import re
 import statistics
 import subprocess
@@ -31,11 +44,18 @@ import numpy as np
 import torch
 
 N_TICKETS = 100_000
+# The fault phase's pool: half of it is the big-pool threshold, and its
+# 32 column blocks keep stage 1 at m = 4 winners per block, on
+# stage1_wgmma.
+FAULT_POOL = 32_768
+DEVICE = torch.device("cuda:0")
 BN = 1024
 K = 64
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core peak
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+# Profiler traces of the service phase (git ignores build/).
+OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 
 
 def emit(obj) -> None:
@@ -455,6 +475,49 @@ class StrictLogger:
         raise RuntimeError(f"matchmaker logged an error: {msg} {kv}")
 
 
+class CountingMetrics:
+    """A metrics sink for the smoke run under the JAX package's metric
+    names (the port has no registry of its own): counts every increment
+    by name and labels; gauges and histograms are accepted and dropped."""
+
+    def __init__(self):
+        self.counts = collections.Counter()
+
+    def __getattr__(self, name):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        return _Series(self, (name,))
+
+    def counter_add(self, name, n):
+        self.counts[(name,)] += n
+
+    def count(self, name: str) -> float:
+        return sum(v for k, v in self.counts.items() if k[0] == name)
+
+    def by_label(self, name: str) -> dict:
+        return {
+            ",".join(f"{a}={b}" for a, b in k[1:]): v
+            for k, v in self.counts.items() if k[0] == name
+        }
+
+
+class _Series:
+    def __init__(self, sink, key):
+        self.sink, self.key = sink, key
+
+    def labels(self, **kw):
+        return _Series(self.sink, self.key + tuple(sorted(kw.items())))
+
+    def inc(self, n=1):
+        self.sink.counts[self.key] += n
+
+    def set(self, v):
+        pass
+
+    def observe(self, v):
+        pass
+
+
 def north_star_ticket(rng) -> tuple[str, dict, dict]:
     """The JAX package's north-star ticket (bench.py `build_ticket`):
     1v1, one of 8 mode terms, rank window +-100."""
@@ -476,14 +539,16 @@ def assembler_ticket(rng) -> tuple[str, dict, dict, np.ndarray]:
     return "*", {}, {}, emb
 
 
-def refill(mm, rng, target: int, counter: list, kind: str) -> float:
+def refill(mm, rng, target: int, counter: list, kind: str, prefix: str = "") -> float:
     from nakama_tpu_torch.matchmaker import MatchmakerPresence
 
     t0 = time.perf_counter()
     while len(mm) < target:
         i = counter[0]
         counter[0] += 1
-        p = MatchmakerPresence(user_id=f"u{i}", session_id=f"s{i}")
+        p = MatchmakerPresence(
+            user_id=f"{prefix}u{i}", session_id=f"{prefix}s{i}"
+        )
         if kind == "1v1":
             q, strs, nums = north_star_ticket(rng)
             mm.add([p], p.session_id, "", q, 2, 2, 1, strs, nums)
@@ -527,9 +592,58 @@ def ms_stats(samples: list[float]) -> dict:
     }
 
 
-def run_intervals(mm, rng, kind, size, n_sync, n_pipe):
+def interval_split(mm, process_ms: float, t0_wall: float, t1_wall: float) -> dict:
+    """A synchronous interval split by stage: the breadcrumb's host stage
+    times (the JAX package's crumb keys), the cohort's fetch and
+    validation from its worker's stamps, the rest unattributed; the
+    kernel clocks (host and CUDA-event ms) of the interval's device
+    calls; and the HBM ledger beside the allocator's peak."""
+    from nakama_tpu_torch.devobs import DEVOBS
+
+    DEVOBS.resolve()  # every event of a finished interval has completed
+    crumb = dict(mm.backend.tracing.breadcrumbs[-1])
+    fetch = crumb.get("cohort_fetch_lag_ms", [0.0])[0]
+    ready = crumb.get("cohort_ready_lag_ms", [0.0])[0]
+
+    def ms(key):
+        return 1e3 * crumb.get(key, 0.0)
+
+    stages = {
+        "pre_backend_ms": ms("pre_backend_s"),
+        "flush_ms": ms("flush_s"),
+        "dispatch_ms": ms("dispatch_s"),
+        # From the last launch to the fetched partner vector: the device
+        # pass's tail plus the D2H copy (worker thread).
+        "fetch_ms": fetch,
+        # The worker's exact f64 re-validation of the device's pairs.
+        "validation_ms": ready - fetch,
+        "accept_ms": ms("accept_s"),
+        "removal_ms": ms("remove_s"),
+        "publish_ms": ms("callback_s"),
+    }
+    stages["rest_ms"] = process_ms - sum(stages.values())
+    clocks: dict = {}
+    for ev in DEVOBS.timeline_between(t0_wall, t1_wall):
+        c = clocks.setdefault(ev["kernel"], {"calls": 0, "host_ms": 0.0, "device_ms": 0.0})
+        c["calls"] += 1
+        c["host_ms"] += ev["ms"]
+        if ev["device_ms"] is not None:
+            c["device_ms"] += ev["device_ms"]
+    return {
+        "stages_ms": stages,
+        "crumb": {k: v for k, v in crumb.items() if k != "ts"},
+        "kernel_clocks": clocks,
+        "hbm_ledger_bytes": DEVOBS.memory_by_owner(),
+        "hbm_ledger_high_water_bytes": DEVOBS.memory_high_water,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+    }
+
+
+def run_intervals(mm, rng, kind, size, n_sync, n_pipe, before_first=None):
     """Refill to N_TICKETS before every interval (the gap's work), then
-    one timed process(). Returns per-interval records."""
+    one timed process(). `before_first(mm)` runs once, just before the
+    first interval. Returns per-interval records, the batches, the
+    re-validated entry count."""
     from nakama_tpu_torch import kernels
 
     counter = [0]
@@ -548,7 +662,11 @@ def run_intervals(mm, rng, kind, size, n_sync, n_pipe):
         mm.backend.pool.flush()
         torch.cuda.synchronize()
         flush_ms = (time.perf_counter() - t0) * 1e3
+        if step == 0 and before_first is not None:
+            before_first(mm)
         before = {k.name: k.launches for k in kernels.KERNELS}
+        torch.cuda.reset_peak_memory_stats()
+        t0_wall = time.time()
         t0 = time.perf_counter()
         batch = mm.process()
         if not pipelined:
@@ -558,13 +676,16 @@ def run_intervals(mm, rng, kind, size, n_sync, n_pipe):
             torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) * 1e3
         batches.append(batch)
-        records.append({
+        record = {
             "interval": step, "pipelined": pipelined, "process_ms": dt,
             "flush_ms": flush_ms,
             "matched_entries": batch.entry_count, "refill_s": fill_s,
             "launches": {k.name: k.launches - before[k.name] for k in kernels.KERNELS},
             "pool": len(mm),
-        })
+        }
+        if not pipelined:
+            record["split"] = interval_split(mm, dt, t0_wall, time.time())
+        records.append(record)
     mm.backend.wait_idle(120)
     tail = mm.collect_pipelined()
     if tail is not None:
@@ -573,20 +694,52 @@ def run_intervals(mm, rng, kind, size, n_sync, n_pipe):
     return records, batches, valid
 
 
-def phase_north_star(stage1_ms: float) -> int:
+def match_groups(batch) -> list:
+    """The formed matches as sets of ticket ids, in delivery order."""
+    return [
+        frozenset(t.ticket for t in batch.tickets(i)) for i in range(len(batch))
+    ]
+
+
+def check_backend_clean(mm, path: str) -> None:
+    """The degradation ladder must never hide the card: outside the
+    fault phase the breaker stays closed with no backend failure."""
+    br = mm.backend.breaker
+    if br.state != "closed" or br.failures or br.opens:
+        raise AssertionError(
+            f"the {path} path's breaker: {br.state}, {br.failures} failures,"
+            f" {br.opens} opens"
+        )
+
+
+def phase_north_star(stage1_ms: float) -> tuple[dict, dict, list]:
     from nakama_tpu_torch import kernels
     from nakama_tpu_torch.config import MatchmakerConfig
     from nakama_tpu_torch.matchmaker import LocalMatchmaker
 
     cfg = MatchmakerConfig(interval_pipelining=False)  # default widths
     mm = LocalMatchmaker(StrictLogger(), cfg)
-    if mm.backend.device != torch.device("cuda:0"):
+    if mm.backend.device != DEVICE:
         raise AssertionError(f"backend on {mm.backend.device}")
     rng = np.random.default_rng(2024)
+    snap: dict = {}
+
+    def take_snapshot(m):
+        t0 = time.perf_counter()
+        snap["state"] = m.snapshot_state()
+        snap["snapshot_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        snap["bytes"] = len(pickle.dumps(snap["state"], protocol=pickle.HIGHEST_PROTOCOL))
+        snap["pickle_s"] = time.perf_counter() - t0
+        snap["tickets"] = len(m)
+
     for k in kernels.KERNELS:
         k.launches = 0
-    records, batches, valid = run_intervals(mm, rng, "1v1", 2, 3, 3)
+    records, batches, valid = run_intervals(
+        mm, rng, "1v1", 2, 3, 3, before_first=take_snapshot
+    )
     launches = {k.name: k.launches for k in kernels.KERNELS}
+    check_backend_clean(mm, "north star")
     mm.stop()
     first = records[0]["matched_entries"]
     check_routing(launches, "north star")
@@ -601,6 +754,394 @@ def phase_north_star(stage1_ms: float) -> int:
         "matched_entries_validated": valid,
         "stage1_share_of_sync_interval": stage1_ms / statistics.median(sync),
         "launches": launches,
+    })
+    return launches, snap, match_groups(batches[0])
+
+
+def restored(snap_state: dict, metrics=None, **overrides):
+    """A fresh matchmaker + CudaBackend on the card, restored from a
+    snapshot; returns it and the restore seconds."""
+    from nakama_tpu_torch.config import MatchmakerConfig
+    from nakama_tpu_torch.matchmaker import LocalMatchmaker
+    from nakama_tpu_torch.matchmaker.cuda import CudaBackend
+
+    cfg = MatchmakerConfig(**overrides)
+    backend = CudaBackend(cfg, StrictLogger(), metrics)
+    mm = LocalMatchmaker(StrictLogger(), cfg, metrics=metrics, backend=backend)
+    t0 = time.perf_counter()
+    mm.restore_state(snap_state)
+    torch.cuda.synchronize()
+    return mm, time.perf_counter() - t0
+
+
+def phase_snapshot(snap: dict, want_groups: list) -> dict:
+    """The north star's 100,000-ticket pool, snapshot just before its first
+    interval, restored into a fresh matchmaker on the card: one
+    synchronous interval there forms the same matches as the original's
+    first interval did."""
+    from nakama_tpu_torch import kernels
+
+    mm, restore_s = restored(snap["state"], interval_pipelining=False)
+    if len(mm) != snap["tickets"]:
+        raise AssertionError(f"restored {len(mm)} of {snap['tickets']} tickets")
+    for k in kernels.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    batch = mm.process()
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) * 1e3
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    check_routing(launches, "snapshot")
+    check_backend_clean(mm, "snapshot")
+    got = match_groups(batch)
+    if got != want_groups:
+        diff = len(set(got) ^ set(want_groups))
+        raise AssertionError(
+            f"restored interval formed {len(got)} matches against the"
+            f" original's {len(want_groups)}; {diff} groups differ"
+        )
+    valid = validate(batch, 2)
+    mm.stop()
+    out = {
+        "phase": "snapshot", "tickets": snap["tickets"],
+        "snapshot_bytes": snap["bytes"], "snapshot_s": snap["snapshot_s"],
+        "pickle_s": snap["pickle_s"], "restore_s": restore_s,
+        "interval_ms": dt, "matches": len(got), "identical_groups": True,
+        "matched_entries_validated": valid, "launches": launches,
+    }
+    emit(out)
+    return launches
+
+
+def phase_service(snap: dict) -> dict:
+    """The snapshot restored into another matchmaker that runs as a
+    service (the last use of the snapshot, which it drops): `start()`'s interval loop (1 s, pipelined) and its
+    event-driven delivery stage on an asyncio loop, a trickle of ~2,000
+    north-star adds per interval, at least 4 intervals from the full
+    100,000. One interval is captured with the profiler: the card's busy
+    share over that window."""
+    from nakama_tpu_torch import kernels
+    from nakama_tpu_torch.devobs import DEVOBS
+    from nakama_tpu_torch.tracing import busy_share
+
+    metrics = CountingMetrics()
+    mm, restore_s = restored(
+        snap.pop("state"), metrics, interval_pipelining=True,
+        interval_sec=1.0, pipeline_deadline_guard_sec=0.25,
+    )
+    # The snapshot's 100,000 frozen rows are garbage now: collect them
+    # before the loop, so its gap collections see the server's heap.
+    gc.collect()
+    batches = []
+    mm.on_matched = batches.append
+    backend = mm.backend
+    rng = np.random.default_rng(7)
+    counter = [0]
+    per_interval = 2000
+    add_s = [0.0]  # loop-thread seconds spent in mm.add
+    capture = {}
+    trace_dir = os.path.join(OUT_DIR, "chip_smoke")
+
+    async def trickle():
+        """~per_interval adds a second, in small bursts that catch up
+        after the loop was busy."""
+        from nakama_tpu_torch.matchmaker import MatchmakerPresence
+
+        t_start = time.perf_counter()
+        while True:
+            due = int((time.perf_counter() - t_start) * per_interval)
+            t0 = time.perf_counter()
+            for _ in range(min(due - counter[0], per_interval // 4)):
+                i = counter[0]
+                counter[0] += 1
+                p = MatchmakerPresence(user_id=f"svc-u{i}", session_id=f"svc-s{i}")
+                q, strs, nums = north_star_ticket(rng)
+                mm.add([p], p.session_id, "", q, 2, 2, 1, strs, nums)
+            add_s[0] += time.perf_counter() - t0
+            await asyncio.sleep(0.05)
+
+    async def until(cond, timeout):
+        t_end = time.perf_counter() + timeout
+        while not cond():
+            if mm.error is not None:
+                raise mm.error  # a loop task ended on an error
+            if time.perf_counter() > t_end:
+                raise TimeoutError("service phase stalled")
+            await asyncio.sleep(0.01)
+
+    async def serve():
+        mm.start()
+        adder = asyncio.get_running_loop().create_task(trickle())
+        try:
+            await until(lambda: backend._dispatch_counter >= 2, 30)
+            # One interval, profiled: the capture opens just after the
+            # second dispatch and spans one interval_sec. Opening and
+            # closing it (trace export) hold the loop; both are timed.
+            t0 = time.perf_counter()
+            with backend.tracing.device_trace(trace_dir, name="service_interval"):
+                capture["open_s"] = time.perf_counter() - t0
+                await asyncio.sleep(1.0)
+                t0 = time.perf_counter()
+            capture["close_s"] = time.perf_counter() - t0
+            capture["path"] = backend.tracing.last_device_trace
+            await until(lambda: backend._dispatch_counter >= 5, 60)
+        finally:
+            adder.cancel()
+            try:
+                await adder
+            except asyncio.CancelledError:
+                pass
+        # Every dispatched cohort delivered by the delivery stage.
+        await until(
+            lambda: backend.pipeline_depth() == 0
+            and backend.tracing.deliveries_total >= backend._dispatch_counter,
+            60,
+        )
+        mm.stop()
+
+    # Load and initialise the profiler (CUPTI) before the service starts,
+    # so the capture inside the loop does not pay it.
+    with backend.tracing.device_trace(trace_dir, name="profiler_warmup"):
+        torch.ones(8, device=DEVICE).sum()
+    os.unlink(backend.tracing.last_device_trace)
+    for k in kernels.KERNELS:
+        k.launches = 0
+    t0_wall = time.time()
+    t0 = time.perf_counter()
+    asyncio.run(serve())
+    seconds = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    check_routing(launches, "service")
+    check_backend_clean(mm, "service")
+    crumbs = list(backend.tracing.breadcrumbs)
+    intervals = [c for c in crumbs if "actives" in c]
+    in_process = [c for c in intervals if "cohort_collect_lag_ms" in c]
+    if in_process:
+        raise AssertionError(
+            f"{len(in_process)} cohorts were collected by process(), not by"
+            " the delivery stage"
+        )
+    dispatched = backend._dispatch_counter
+    deliveries = backend.tracing.recent_deliveries(256)
+    if backend.tracing.deliveries_total != dispatched:
+        raise AssertionError(
+            f"{backend.tracing.deliveries_total} deliveries of {dispatched} cohorts"
+        )
+    if intervals[0]["actives"] < N_TICKETS:
+        raise AssertionError(f"first interval had {intervals[0]['actives']} actives")
+    valid = sum(validate(b, 2) for b in batches)
+    matched = sum(b.entry_count for b in batches)
+    if valid != matched:
+        raise AssertionError(f"{valid} of {matched} matched entries re-validated")
+    if metrics.count("mm_backend_failures"):
+        raise AssertionError(f"backend failures: {metrics.by_label('mm_backend_failures')}")
+    # The profiler is loaded before the loop starts, so no cohort may
+    # miss its deadline, the profiled interval included.
+    if backend.tracing.slip_count():
+        raise AssertionError(
+            f"{backend.tracing.slip_count()} cohorts delivered past their deadline"
+        )
+    # Every PoolBuffer.flush of the service (gap, chunk and dispatch
+    # flushes): host ms, from the scatter kernel clock.
+    flushes = [
+        ev["ms"]
+        for ev in DEVOBS.timeline_between(t0_wall, time.time(), limit=256)
+        if ev["kernel"] == "matchmaker.scatter"
+    ]
+    busy = busy_share(capture["path"], "service_interval")
+    # What one idle-gap collection costs on this heap (the loop runs one
+    # full gc.collect() per interval, as the JAX package's does).
+    t_gc = time.perf_counter()
+    gc.collect()
+    gap_gc_ms = (time.perf_counter() - t_gc) * 1e3
+    out = {
+        "phase": "service", "restore_s": restore_s, "seconds": seconds,
+        "intervals": len(intervals), "cohorts": dispatched,
+        "adds": counter[0], "add_ms_per_ticket": 1e3 * add_s[0] / max(1, counter[0]),
+        "loop_seconds_in_adds": add_s[0], "gap_gc_collect_ms": gap_gc_ms,
+        "matched_entries": matched,
+        "matched_entries_validated": valid,
+        "wakeups_by_cause": metrics.by_label("mm_delivery_wakeups"),
+        "gap_sheds": metrics.count("mm_gap_shed"),
+        "cohorts_dispatch_to_published_ms": [
+            1e3 * d["publish_lag_s"] for d in deliveries if "publish_lag_s" in d
+        ],
+        "cohort_ready_lag_ms": [1e3 * d["ready_lag_s"] for d in deliveries],
+        "slipped": backend.tracing.slip_count(),
+        "interval_actives": [c["actives"] for c in intervals],
+        "process_host_ms": [
+            1e3 * sum(v for k, v in c.items() if k.endswith("_s"))
+            for c in intervals
+        ],
+        "flush_ms": flushes,
+        "flush_behind_busy_card": flush_behind_busy_card(mm.config),
+        "busy_share": {
+            "what": (
+                "the card's busy share over one service interval: the"
+                " union of kernel, memcpy and memset time in a"
+                " torch.profiler trace, divided by the 1 s capture window"
+            ),
+            **busy,
+        },
+        "trace": os.path.relpath(capture["path"], os.path.dirname(OUT_DIR)),
+        "capture_open_s": capture["open_s"], "capture_close_s": capture["close_s"],
+        "breaker": backend.breaker.state,
+        "launches": launches,
+    }
+    emit(out)
+    return launches
+
+
+def flush_behind_busy_card(cfg, busy_ms: float = 100.0) -> dict:
+    """What a pinned staging set buys: host ms of one PoolBuffer.flush of
+    a full 2,048-row chunk (north-star widths) issued while the card is
+    still busy with `busy_ms` of queued work (`torch.cuda._sleep`, the
+    stand-in for an in-flight cohort), beside the host ms of copying the
+    same columns from pageable memory behind the same busy card."""
+    from nakama_tpu_torch.matchmaker.device import PoolBuffer, pool_schema
+
+    chunk = 2048
+    pool = PoolBuffer(
+        chunk, cfg.numeric_fields, cfg.string_fields, cfg.max_constraints,
+        flush_chunk=chunk, device=DEVICE,
+    )
+    rows = pool_schema(chunk, pool.fn, pool.fs, pool.s, pool.d)
+    rng = np.random.default_rng(5)
+    for k, v in rows.items():
+        v[:] = rng.integers(1, 100, v.shape).astype(v.dtype)
+
+    def stage():
+        for slot in range(chunk):
+            pool.add(slot, {k: v[slot] for k, v in rows.items()})
+
+    # Calibrate the spin: cycles per ms of torch.cuda._sleep.
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10_000_000)
+    end.record()
+    end.synchronize()
+    cycles = int(busy_ms * 10_000_000 / start.elapsed_time(end))
+    stage()
+    pool.flush()  # warm the pinned-memory cache
+    torch.cuda.synchronize()
+    out = {"busy_ms": busy_ms, "rows": chunk}
+    for mode in ("pinned_pool_flush", "pageable_copy"):
+        stage()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        t0 = time.perf_counter()
+        if mode == "pinned_pool_flush":
+            pool.flush()
+        else:
+            for v in rows.values():
+                torch.from_numpy(v).to(DEVICE, non_blocking=True)
+        out[f"{mode}_ms"] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if mode == "pinned_pool_flush":
+            for k, v in rows.items():
+                if not np.array_equal(pool.tensors[k].cpu().numpy(), v):
+                    raise AssertionError(f"flushed column {k} differs")
+    return out
+
+
+def phase_faults() -> dict:
+    """The breaker ladder on the card: a 32,768-ticket north-star pool
+    (the two-stage path, so stage 1 runs), three synchronous intervals
+    with `device.dispatch` raising open the breaker, the open interval
+    serves from the host oracle (budget 64), the half-open probe launches
+    stage1_wgmma and closes it; then one `device.collect` failure on a
+    pipelined cohort is reclaimed, its tickets match on the next
+    dispatch, and no ticket is lost."""
+    from nakama_tpu_torch import faults, kernels
+    from nakama_tpu_torch.config import MatchmakerConfig
+    from nakama_tpu_torch.matchmaker import LocalMatchmaker
+
+    cfg = MatchmakerConfig(
+        interval_pipelining=False, big_pool_threshold=FAULT_POOL // 2,
+        breaker_threshold=3, breaker_cooldown_ms=300,
+        host_budget_per_interval=64,
+    )
+    mm = LocalMatchmaker(StrictLogger(), cfg)
+    batches = []
+    mm.on_matched = batches.append
+    backend = mm.backend
+    rng = np.random.default_rng(31)
+    counter = [0]
+    refill(mm, rng, FAULT_POOL, counter, "1v1", prefix="f-")
+    for k in kernels.KERNELS:
+        k.launches = 0
+    steps = []
+
+    def interval(label):
+        """One interval; a pipelined one is collected at once."""
+        before = {k.name: k.launches for k in kernels.KERNELS}
+        t0 = time.perf_counter()
+        batch = mm.process()
+        host_actives = backend.tracing.breadcrumbs[-1].get("host_actives")
+        matched = batch.entry_count
+        if cfg.interval_pipelining:
+            backend.wait_idle(60)
+            tail = mm.collect_pipelined()
+            matched += tail.entry_count if tail is not None else 0
+        torch.cuda.synchronize()
+        steps.append({
+            "step": label, "ms": (time.perf_counter() - t0) * 1e3,
+            "breaker": backend.breaker.state,
+            "matched_entries": matched, "host_actives": host_actives,
+            "launches": {k.name: k.launches - before[k.name] for k in kernels.KERNELS},
+        })
+        return steps[-1]
+
+    try:
+        faults.arm("device.dispatch", "raise", count=3)
+        for i in range(3):
+            interval(f"dispatch_fault_{i}")
+        if backend.breaker.state != "open":
+            raise AssertionError(f"breaker {backend.breaker.state} after 3 faults")
+        opened = interval("open")
+        if opened["matched_entries"] <= 0 or opened["launches"]["stage1_wgmma"]:
+            raise AssertionError(f"open interval did not serve from the host: {opened}")
+        time.sleep(max(0.0, cfg.breaker_cooldown_ms / 1000.0 + 0.05 - opened["ms"] / 1e3))
+        probe = interval("probe")
+        if probe["launches"]["stage1_wgmma"] < 1 or backend.breaker.state != "closed":
+            raise AssertionError(f"probe did not close the breaker: {probe}")
+        # One collect failure, on the pipelined path (the default): the
+        # cohort's slots are reclaimed and match on the next dispatch.
+        cfg.interval_pipelining = True
+        refill(mm, rng, len(mm) + 2000, counter, "1v1", prefix="f-")
+        reclaimed = backend.inflight_reclaimed
+        faults.arm("device.collect", "raise", count=1)
+        lost = interval("collect_fault")
+        reclaimed = backend.inflight_reclaimed - reclaimed
+        retried = interval("after_collect_fault")
+    finally:
+        faults.disarm()
+    matched = sum(b.entry_count for b in batches)
+    if counter[0] != len(mm) + matched:
+        raise AssertionError(
+            f"tickets lost: {counter[0]} added, {len(mm)} pooled, {matched} matched"
+        )
+    if reclaimed < 2000 or lost["matched_entries"] or not retried["matched_entries"]:
+        raise AssertionError(
+            f"collect fault reclaimed {reclaimed} slots: {lost}, then {retried}"
+        )
+    valid = sum(validate(b, 2) for b in batches)
+    flips = [
+        (e["old"], e["new"])
+        for e in backend.tracing.recent_breaker_events(64)
+        if e.get("kind") == "matchmaker_backend"
+    ]
+    expected = [("closed", "open"), ("open", "half_open"), ("half_open", "closed")]
+    if flips != expected:
+        raise AssertionError(f"breaker transitions {flips} != {expected}")
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    mm.stop()
+    emit({
+        "phase": "faults", "pool": FAULT_POOL, "steps": steps,
+        "transitions": flips, "reclaimed_on_collect_fault": reclaimed,
+        "adds": counter[0], "pooled": len(mm), "matched_entries": matched,
+        "matched_entries_validated": valid,
+        "fired": dict(faults.PLANE.fired), "launches": launches,
     })
     return launches
 
@@ -630,6 +1171,7 @@ def phase_assembler() -> dict:
     records, batches, valid = run_intervals(mm, rng, "5v5", 10, 2, 0)
     launches = {k.name: k.launches for k in kernels.KERNELS}
     uses_assembler = not mm.backend._use_pairs()
+    check_backend_clean(mm, "assembler")
     mm.stop()
     check_routing(launches, "assembler")
     if not uses_assembler:
@@ -674,11 +1216,18 @@ def main() -> int:
     timing = phase_kernels(dev)
     phase_selfcheck()
     north = timing["north_star"]
-    launches = phase_north_star(north["wgmma_ms"])
-    asm_launches = phase_assembler()
+    # Every path of the main path: counts set to 0 before each, read after.
+    launches, snap, first_groups = phase_north_star(north["wgmma_ms"])
+    paths = [
+        launches,
+        phase_assembler(),
+        phase_snapshot(snap, first_groups),
+        phase_service(snap),
+        phase_faults(),
+    ]
+    del snap
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 1)})
-    # Launches on the main path: both phases, counted from 0 before each.
-    total = {k.name: launches[k.name] + asm_launches[k.name] for k in kernels.KERNELS}
+    total = {k.name: sum(p[k.name] for p in paths) for k in kernels.KERNELS}
     err = timing["max_err"]
     emit({"kernels": [
         kernel_line(kernels.STAGE1, total["stage1"], err["stage1"], north,

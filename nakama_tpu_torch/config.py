@@ -1,10 +1,10 @@
 """Matchmaker configuration of the PyTorch/CUDA port.
 
 Field names and defaults follow the JAX package's `MatchmakerConfig`
-(reference defaults: server/config.go:971-989), less the knobs of
-subsystems this port does not carry yet (mesh sharding, the backend
-circuit breaker, the delivery stage's deadlines and watchdog, the async
-interval loop's cadence).
+(reference defaults: server/config.go:971-989), less the mesh-sharding
+knobs (the port runs on one card), plus the matchmaker-facing parts of
+its `TracingConfig` and `DevObsConfig`. `apply_observability` hands the
+latter two to the process-wide trace store and telemetry plane.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from dataclasses import dataclass
 @dataclass
 class MatchmakerConfig:
     max_tickets: int = 3
+    interval_sec: int = 15
     max_intervals: int = 2
     rev_precision: bool = False
     # "cuda": CudaBackend on cuda:0 (raises without a CUDA device);
@@ -44,3 +45,121 @@ class MatchmakerConfig:
     # fallback (queries the device kernels cannot express); overflow
     # defers to the next interval, oldest first.
     host_budget_per_interval: int = 512
+    # Seconds before a pipelined cohort's delivery deadline at which the
+    # delivery stage block-joins the cohort's assembly (once per head).
+    # join_head also refuses to block past deadline + guard, so a wedged
+    # head costs the guard at most one bounded join before the reclaim
+    # path (inflight_reclaim_deadline_ms) takes it.
+    pipeline_deadline_guard_sec: float = 2.0
+    # Delivery-stage watchdog poll cadence (seconds): the timed drain
+    # that runs even if a completion signal is lost. It bounds recovery
+    # from a lost signal; it is NOT the delivery latency.
+    delivery_watchdog_sec: float = 1.0
+    # Degradation ladder (faults.py CircuitBreaker in the device
+    # backend): after `breaker_threshold` consecutive transient device
+    # failures (dispatch or collect; a fatal error trips immediately)
+    # the breaker OPENS and intervals run the bounded host-oracle
+    # fallback (host_budget_per_interval still caps it). After
+    # `breaker_cooldown_ms` a half-open probe re-tries the device path;
+    # success closes the breaker, failure re-opens it with the cooldown
+    # doubled (capped at 16x).
+    breaker_threshold: int = 3
+    breaker_cooldown_ms: int = 30_000
+    # Backstop reclamation sweep: a pipelined cohort still unfinished
+    # this long PAST its delivery deadline is abandoned — its slots'
+    # in-flight claims are released and the tickets re-activated.
+    inflight_reclaim_deadline_ms: int = 60_000
+
+
+@dataclass
+class TracingConfig:
+    """Request-scoped tracing + the SLO plane (tracing.py): span trees
+    down to the matchmaker's cohorts, tail-based sampling into the
+    bounded in-process trace store, the interval and publish-lag SLOs.
+    Defaults are the disarmed production posture: tracing on, 1%
+    p-sample, errors/slow traces kept 100%."""
+
+    enabled: bool = True
+    # Probability a non-error, non-slow trace is kept (deterministic by
+    # trace id). Error traces and traces slower than slow_trace_ms
+    # (judged on the full span extent) are always kept.
+    sample_rate: float = 0.01
+    slow_trace_ms: int = 1000
+    # Bounded stores: kept traces, in-flight trace buffer, spans/trace.
+    capacity: int = 256
+    max_active_traces: int = 512
+    max_spans_per_trace: int = 64
+    # Optional JSONL export: one kept trace per line, appended.
+    export_path: str = ""
+    # Shared p-sampling salt (empty = per-boot random salt).
+    sample_salt: str = ""
+    # SLO plane: target good-fraction + per-SLI thresholds.
+    slo_target: float = 0.99
+    slo_interval_ms: int = 1000  # matchmaker process() wall time
+    slo_publish_lag_ms: int = 5000  # cohort dispatch→published lag
+
+
+@dataclass
+class DevObsConfig:
+    """Device telemetry plane (devobs.py): build-watch, per-kernel host
+    and CUDA-event clocks and the HBM ownership ledger. `enabled=False`
+    reduces every hook to one attribute read."""
+
+    enabled: bool = True
+    # Interval ticks before the warmup window closes: builds inside it
+    # are expected; after it, a build on the hot path is counted as a
+    # recompile and WARNs.
+    warmup_intervals: int = 3
+    # Bounded kernel-event timeline depth (delivery-ledger device phase
+    # chains slice it by wall window).
+    timeline_depth: int = 256
+
+
+def apply_observability(
+    tracing: TracingConfig | None = None,
+    devobs: DevObsConfig | None = None,
+    *,
+    metrics=None,
+    logger=None,
+):
+    """Configure the process-wide trace store and telemetry plane from
+    their config sections; returns the `SloRecorder` for a matchmaker's
+    `slo` hook (None when tracing is disabled)."""
+    from .devobs import DEVOBS
+    from .tracing import TRACES, SloRecorder
+
+    tc = tracing or TracingConfig()
+    dv = devobs or DevObsConfig()
+    TRACES.configure(
+        enabled=tc.enabled,
+        capacity=tc.capacity,
+        sample_rate=tc.sample_rate,
+        slow_ms=tc.slow_trace_ms,
+        max_active=tc.max_active_traces,
+        max_spans=tc.max_spans_per_trace,
+        export_path=tc.export_path,
+        sample_salt=tc.sample_salt,
+        metrics=metrics,
+    )
+    DEVOBS.configure(
+        enabled=dv.enabled,
+        warmup_intervals=dv.warmup_intervals,
+        timeline_depth=dv.timeline_depth,
+        metrics=metrics,
+        logger=logger,
+    )
+    if not tc.enabled:
+        return None
+    return SloRecorder(
+        {
+            "matchmaker_interval": {
+                "target": tc.slo_target,
+                "threshold_ms": tc.slo_interval_ms,
+            },
+            "delivery_publish": {
+                "target": tc.slo_target,
+                "threshold_ms": tc.slo_publish_lag_ms,
+            },
+        },
+        metrics=metrics,
+    )

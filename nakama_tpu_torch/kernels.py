@@ -25,9 +25,12 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from dataclasses import dataclass
 
 import torch
+
+from .devobs import DEVOBS
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
@@ -97,6 +100,7 @@ def build(kernel: Kernel, defines: tuple[str, ...] = ()) -> str:
         "-Xcompiler", "-fPIC", "-Xptxas", "-v", *(f"-D{d}" for d in defines),
         "-o", tmp, os.path.join(_CSRC, kernel.source),
     ]
+    t0 = time.perf_counter()
     try:
         done = subprocess.run(cmd, capture_output=True, text=True)
         if done.returncode != 0:
@@ -105,6 +109,9 @@ def build(kernel: Kernel, defines: tuple[str, ...] = ()) -> str:
             )
         kernel.build_log = done.stderr
         os.replace(tmp, path)
+        # Build-watch: a build after warmup on the hot path is counted
+        # as an unexpected recompile (devobs.py).
+        DEVOBS.on_compile(time.perf_counter() - t0, kernel=kernel.name)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)

@@ -1,7 +1,9 @@
 """Minimal structured logger: the surface the matchmaker uses.
 
 One JSON object per line with bound fields (`with_fields`), four levels,
-and a quiet logger for tests.
+and a quiet logger for tests. A line logged inside an active trace
+carries its `trace_id`/`span_id` (tracing.py), and every line the node
+name set by `set_node_name`.
 """
 
 from __future__ import annotations
@@ -11,6 +13,20 @@ import logging
 import sys
 import time
 from typing import Any, TextIO
+
+from .tracing import current_trace_ids
+
+# Process-wide node attribution (set at boot, like the trace store's
+# process-global posture): every record carries the node name next to
+# its trace_id/span_id, so a merged fleet log stream attributes each
+# line to the process that wrote it. Empty = single-process default, no
+# extra key.
+_NODE_NAME = ""
+
+
+def set_node_name(name: str) -> None:
+    global _NODE_NAME
+    _NODE_NAME = name or ""
 
 
 class Logger:
@@ -39,6 +55,14 @@ class Logger:
             **self._fields,
             **kv,
         }
+        # Logs↔traces correlation: one contextvar read per line;
+        # explicit kv keys win over the ambient context.
+        ids = current_trace_ids()
+        if ids is not None:
+            record.setdefault("trace_id", ids[0])
+            record.setdefault("span_id", ids[1])
+        if _NODE_NAME:
+            record.setdefault("node", _NODE_NAME)
         self._stream.write(json.dumps(record, default=str) + "\n")
 
     def debug(self, msg: str, **kv: Any):

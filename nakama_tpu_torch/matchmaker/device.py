@@ -14,7 +14,9 @@ queries.
 
 `PoolBuffer` keeps the ticket columns resident on the device and applies
 queued add/remove updates in place (`index_copy_` / `index_fill_`) once
-per flush, so `add` streams rows in instead of re-uploading the pool.
+per flush, so `add` streams rows in instead of re-uploading the pool;
+staged rows go up from pinned host memory without waiting for queued
+device work.
 
 Everything here is plain PyTorch and runs on whatever device its tensors
 live on; the small-pool path has no hand-written kernel.
@@ -25,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..devobs import DEVOBS
 from .compile import SOP_ALL, SOP_NUM_RANGE, SOP_STR_EQ, SOP_UNUSED
 
 NEG_INF = float("-inf")
@@ -76,15 +79,51 @@ def _to_device(host: dict[str, np.ndarray], device) -> dict[str, torch.Tensor]:
     return {k: torch.from_numpy(v).to(device) for k, v in host.items()}
 
 
+def _staging_spec(host: dict[str, np.ndarray], chunk: int) -> dict:
+    """Shape and dtype of each buffer of a staging set: per column a
+    [chunk, ...] buffer, plus the slot index."""
+    spec = {
+        k: ((chunk,) + v.shape[1:], torch.from_numpy(v[:0]).dtype)
+        for k, v in host.items()
+    }
+    spec["_slots"] = ((chunk,), torch.int64)
+    return spec
+
+
+def _staging_set(spec: dict, pin: bool):
+    """One host staging set for `PoolBuffer` (`_staging_spec`), as
+    tensors and their numpy views. Pinned when the pool lives on a card,
+    so a flushed chunk goes up with non-blocking copies (a copy from
+    pageable memory waits for all queued device work — with pipelining,
+    the in-flight cohort).
+
+    A set serves one flush and is then dropped. PyTorch's pinned-memory
+    cache records an event behind every non-blocking copy from a pinned
+    block and hands the block out again only once that event has
+    completed, so a staging buffer is never rewritten while the card may
+    still read it — and neither the cache nor this code ever waits for
+    the card to get there."""
+    tensors = {
+        k: torch.empty(shape, dtype=dt, pin_memory=pin)
+        for k, (shape, dt) in spec.items()
+    }
+    return tensors, {k: v.numpy() for k, v in tensors.items()}
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 class PoolBuffer:
     """Slot-allocated, device-resident ticket pool with queued updates.
 
-    Adds stage columnar into preallocated [flush_chunk, ...] host buffers
-    and flush eagerly once a chunk fills, so the H2D transfer rides the
-    gaps between intervals; `flush()` at interval start pushes only the
-    partial tail. Removals queue as slot arrays and clear the slots'
-    flags. `on_flush(rows)` lets the backend observe value distributions
-    (the stage-1 bucket grid) as rows stream in."""
+    Adds stage columnar into a [flush_chunk, ...] host staging set (pinned
+    on a card) and flush eagerly once a chunk fills, so the H2D transfer
+    rides the gaps between intervals; `flush()` at interval start pushes
+    only the partial tail. Removals queue as slot arrays and clear the
+    slots' flags. `on_flush(rows)` lets the backend observe value
+    distributions (the stage-1 bucket grid) as rows stream in. The
+    device columns' bytes are the HBM ledger's `matchmaker.pool` row."""
 
     def __init__(
         self,
@@ -104,32 +143,42 @@ class PoolBuffer:
         self.device = torch.device(device)
         host = pool_schema(capacity, fn, fs, s, d)
         self.tensors = _to_device(host, self.device)
+        self._ledger_pool_bytes()
         # Slot allocation lives in the caller's SlotStore (store.py); this
         # buffer only stages device-row updates by slot.
         self.high_water = 0
         # A removal of a just-staged add voids its staging position (slot
         # -1, compressed out at flush); an add after a removal of the same
         # slot is resolved by flush order (removals first, then adds).
-        self._stage = {
-            k: np.empty((flush_chunk,) + v.shape[1:], v.dtype)
-            for k, v in host.items()
-        }
+        # The staging set is taken by the first add after a flush (on
+        # the add path), never by the flush itself.
+        self._spec = _staging_spec(host, flush_chunk)
+        self._pin = self.device.type == "cuda"
+        self._set = None  # (tensors, numpy views) or None
         self._stage_slots = np.full(flush_chunk, -1, dtype=np.int32)
         self._stage_n = 0
         self._stage_pos: dict[int, int] = {}  # slot -> staging row
         self._pending_add_mask = np.zeros(capacity, dtype=bool)
         self._pending_rm: list[np.ndarray] = []
 
+    def _ledger_pool_bytes(self) -> None:
+        DEVOBS.mem_set(
+            "matchmaker.pool", sum(_nbytes(v) for v in self.tensors.values())
+        )
+
     def add(self, slot: int, row: dict[str, np.ndarray]):
         if self._stage_n >= self.flush_chunk:
             self.flush()
+        if self._set is None:
+            self._set = _staging_set(self._spec, self._pin)
         self.high_water = max(self.high_water, slot + 1)
         old = self._stage_pos.get(slot)
         if old is not None:  # re-staged before flush: void the old row
             self._stage_slots[old] = -1
         pos = self._stage_n
+        views = self._set[1]
         for k, v in row.items():
-            self._stage[k][pos] = v
+            views[k][pos] = v
         self._stage_slots[pos] = slot
         self._stage_pos[slot] = pos
         self._stage_n = pos + 1
@@ -155,10 +204,16 @@ class PoolBuffer:
         JAX package's `PoolBuffer.snapshot()` layout. Flush first so
         staged adds are included."""
         hw = self.high_water
+        # A copy even when the pool lives on the CPU (where `.cpu()` would
+        # alias the live columns that later flushes overwrite).
         columns = {
-            k: np.ascontiguousarray(v[:hw].cpu().numpy())
+            k: v[:hw].to("cpu", copy=True).numpy()
             for k, v in self.tensors.items()
         }
+        DEVOBS.transfer(
+            "pool.snapshot", "d2h",
+            sum(int(v.nbytes) for v in columns.values()),
+        )
         return {"high_water": hw, "columns": columns}
 
     def load(self, snap: dict) -> None:
@@ -174,6 +229,10 @@ class PoolBuffer:
         for k, v in snap["columns"].items():
             host[k][:hw] = v
         self.tensors = _to_device(host, self.device)
+        DEVOBS.transfer(
+            "pool.load", "h2d", sum(_nbytes(v) for v in self.tensors.values())
+        )
+        self._ledger_pool_bytes()
         self.high_water = hw
         self._stage_slots[:] = -1
         self._stage_n = 0
@@ -184,33 +243,51 @@ class PoolBuffer:
     def flush(self):
         """Apply queued updates in place: clear the flags of removed slots,
         then write the staged add rows — removals first, so a freed slot
-        re-added in the same window ends up live. (The JAX package pads
-        update counts to a few sizes to bound XLA compiles; eager PyTorch
-        compiles nothing per shape, so the port writes exactly the rows
-        it has.)"""
+        re-added in the same window ends up live. The rows and indices go
+        up from pinned host memory (on a card) with non-blocking copies,
+        and the set is dropped: the next add stages into a fresh one, so
+        nothing here waits for the card. (The JAX package
+        pads update counts to a few sizes to bound XLA compiles; eager
+        PyTorch compiles nothing per shape, so the port writes exactly the
+        rows it has.)"""
         if self._stage_n == 0 and not self._pending_rm:
             return
-        rm_parts, self._pending_rm = self._pending_rm, []
-        if rm_parts:
-            rm = np.concatenate(rm_parts).astype(np.int64)
-            idx = torch.from_numpy(rm).to(self.device)
-            self.tensors["flags"].index_fill_(0, idx, 0)
-
-        n = self._stage_n
-        if not n:
-            return
-        valid = self._stage_slots[:n] >= 0
-        idx_v = self._stage_slots[:n][valid]
-        self._stage_n = 0
-        self._stage_pos = {}
-        if not len(idx_v):
-            return
-        self._pending_add_mask[idx_v] = False
-        rows = {k: buf[:n][valid] for k, buf in self._stage.items()}
-        idx = torch.from_numpy(idx_v.astype(np.int64)).to(self.device)
-        for k, v in rows.items():
-            self.tensors[k].index_copy_(0, idx, torch.from_numpy(v).to(self.device))
-        if self.on_flush is not None:
+        dev = self.device
+        rows = None
+        sent = 0
+        with DEVOBS.device_call("matchmaker.scatter", device=dev):
+            rm_parts, self._pending_rm = self._pending_rm, []
+            if rm_parts:
+                rm = np.concatenate(rm_parts)
+                buf = torch.empty(len(rm), dtype=torch.int64, pin_memory=self._pin)
+                buf.numpy()[:] = rm
+                idx = buf.to(dev, non_blocking=True)
+                self.tensors["flags"].index_fill_(0, idx, 0)
+                sent += 8 * len(rm)
+            n = self._stage_n
+            self._stage_n = 0
+            self._stage_pos = {}
+            valid = self._stage_slots[:n] >= 0
+            u = int(valid.sum())
+            if u:
+                tens, views = self._set
+                self._set = None
+                idx_v = self._stage_slots[:n][valid]
+                self._pending_add_mask[idx_v] = False
+                if u < n:
+                    # Compact voided rows out, in place (nothing reads the
+                    # set before the copies below).
+                    for k in self.tensors:
+                        views[k][:u] = views[k][:n][valid]
+                views["_slots"][:u] = idx_v
+                idx = tens["_slots"][:u].to(dev, non_blocking=True)
+                for k, col in self.tensors.items():
+                    col.index_copy_(0, idx, tens[k][:u].to(dev, non_blocking=True))
+                    sent += _nbytes(tens[k][:u])
+                sent += 8 * u
+                rows = {k: views[k][:u] for k in self.tensors}
+        DEVOBS.transfer("pool.flush", "h2d", sent)
+        if rows is not None and self.on_flush is not None:
             self.on_flush(rows)
 
 

@@ -34,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from ..devobs import DEVOBS
 from .device import FLAG_NEVER, FLAG_VALID, _accepts, _rows
 
 NUM_BUCKETS = 16  # per numeric field
@@ -305,25 +306,30 @@ def topk_candidates_big(
     if n_cols > MAX_COLS:
         raise ValueError(f"n_cols {n_cols} > {MAX_COLS}")
     m = winners_per_block(k, n_cols // bn)
+    dev = active_slots.device
     pool_n = {key: v[:n_cols] for key, v in pool.items()}
-    safe = active_slots.clamp(min=0).long()
-    rowq = {key: pool_n[key][safe] for key in ROWQ_KEYS}
-    args = stage1_inputs(
-        pool_n, rowq, active_slots, grid_lo, grid_inv, fn=fn, fs=fs,
-        rev=rev, with_embedding=with_embedding,
-    )
-    winners = stage1(fn=fn, fs=fs, m=m, bn=bn, emb_scale=emb_scale, **args)
-    return _stage2(
-        pool_n,
-        rowq,
-        active_slots,
-        winners,
-        k=k,
-        rev=rev,
-        with_should=with_should,
-        with_embedding=with_embedding,
-        order_exact=order_exact,
-    )
+    # Each layer on its own kernel clock (host and CUDA-event time).
+    with DEVOBS.device_call("matchmaker.encode", device=dev):
+        safe = active_slots.clamp(min=0).long()
+        rowq = {key: pool_n[key][safe] for key in ROWQ_KEYS}
+        args = stage1_inputs(
+            pool_n, rowq, active_slots, grid_lo, grid_inv, fn=fn, fs=fs,
+            rev=rev, with_embedding=with_embedding,
+        )
+    with DEVOBS.device_call("matchmaker.stage1", device=dev):
+        winners = stage1(fn=fn, fs=fs, m=m, bn=bn, emb_scale=emb_scale, **args)
+    with DEVOBS.device_call("matchmaker.stage2", device=dev):
+        return _stage2(
+            pool_n,
+            rowq,
+            active_slots,
+            winners,
+            k=k,
+            rev=rev,
+            with_should=with_should,
+            with_embedding=with_embedding,
+            order_exact=order_exact,
+        )
 
 
 # --------------------------------------------------------------- stage 2

@@ -2,7 +2,7 @@
 
 This is the deterministic re-statement of the reference's per-interval match
 formation (reference server/matchmaker_process.go:27-334 `processDefault`,
-server/matchmaker.go:132-167 `groupIndexes`). It is
+:336-576 `processCustom`, server/matchmaker.go:132-167 `groupIndexes`). It is
 the correctness oracle for the CUDA backend and the 1k-ticket parity baseline
 (BASELINE.md config 1).
 
@@ -17,6 +17,8 @@ Deliberate differences from the reference:
 """
 
 from __future__ import annotations
+
+from typing import Callable, Iterator
 
 from .query import evaluate, matches
 from .types import MatchmakerEntry, MatchmakerTicket
@@ -226,3 +228,123 @@ def process_default(
             selected.discard(active.ticket)
 
     return matched_entries
+
+
+def combine_tickets(
+    tickets: list[MatchmakerTicket], lo: int, hi: int
+) -> Iterator[list[MatchmakerTicket]]:
+    """All subsets with total entry count in [lo, hi] (reference
+    combineIndexes, matchmaker_process.go:578-612)."""
+    n = len(tickets)
+    for bits_ in range(1, 1 << n):
+        combo: list[MatchmakerTicket] = []
+        count = 0
+        ok = True
+        for i in range(n):
+            if (bits_ >> i) & 1:
+                count += tickets[i].count
+                if count > hi:
+                    ok = False
+                    break
+                combo.append(tickets[i])
+        if ok and count >= lo:
+            yield combo
+
+
+def process_custom(
+    actives: list[MatchmakerTicket],
+    pool: dict[str, MatchmakerTicket],
+    *,
+    max_intervals: int,
+    rev_precision: bool,
+    override_fn: Callable[
+        [list[list[MatchmakerEntry]]], list[list[MatchmakerEntry]]
+    ],
+) -> tuple[list[list[MatchmakerEntry]], list[str]]:
+    """One interval of custom match formation: enumerate ALL candidate
+    combinations per active ticket and let the runtime override choose
+    (reference processCustom, matchmaker_process.go:336-576)."""
+    candidates: list[list[MatchmakerEntry]] = []
+    expired_actives: list[str] = []
+
+    for active in actives:
+        active.intervals += 1
+
+    for active in actives:
+        last_interval = (
+            active.intervals >= max_intervals
+            or active.min_count == active.max_count
+        )
+        if last_interval:
+            expired_actives.append(active.ticket)
+
+        hits_scored = search_pool(active, pool, {active.ticket})
+        active_sessions = active.session_ids
+        hit_tickets: list[MatchmakerTicket] = []
+        for hit, _score in hits_scored:
+            if rev_precision and not _mutual(hit, active):
+                continue
+            if (
+                active.max_count < hit.max_count
+                and hit.intervals <= max_intervals
+            ):
+                continue
+            if _session_overlap(active_sessions, hit.session_ids):
+                continue
+            hit_tickets.append(hit)
+
+        for combo in combine_tickets(
+            hit_tickets,
+            active.min_count - active.count,
+            active.max_count - active.count,
+        ):
+            size = sum(t.count for t in combo) + active.count
+            if not (active.min_count <= size <= active.max_count):
+                continue
+            if size % active.count_multiple != 0:
+                continue
+            reject = False
+            for t in combo:
+                if (
+                    size > t.max_count
+                    or size < t.min_count
+                    or size % t.count_multiple != 0
+                ):
+                    reject = True
+                    break
+                # Hit under its preferred max and can still wait.
+                if size < t.max_count and t.intervals <= max_intervals:
+                    reject = True
+                    break
+            if reject:
+                continue
+            # Session and (optional) pairwise mutual-match conflicts.
+            seen_sessions: set[str] = set()
+            conflict = False
+            for t in combo:
+                if _session_overlap(seen_sessions, t.session_ids):
+                    conflict = True
+                    break
+                seen_sessions |= t.session_ids
+            if not conflict and rev_precision:
+                group = combo + [active]
+                for i in range(len(group)):
+                    for j in range(i + 1, len(group)):
+                        if not _mutual(group[i], group[j]) or not _mutual(
+                            group[j], group[i]
+                        ):
+                            conflict = True
+                            break
+                    if conflict:
+                        break
+            if conflict:
+                continue
+            entries: list[MatchmakerEntry] = []
+            for t in combo:
+                entries.extend(t.entries)
+            entries.extend(active.entries)
+            candidates.append(entries)
+
+    if not candidates:
+        return [], expired_actives
+    return override_fn(candidates), expired_actives

@@ -75,7 +75,7 @@ class SlotStore:
 
     # ------------------------------------------------------------ mutation
 
-    def add(self, ticket: MatchmakerTicket) -> int:
+    def add(self, ticket: MatchmakerTicket, active: bool = True) -> int:
         """Assign a slot and register the ticket. Raises on capacity/dup;
         leaves no partial state behind on failure."""
         if self._free_n == 0 and self._graveyard:
@@ -131,8 +131,8 @@ class SlotStore:
         m["session_hashes"][slot, len(sessions) :] = 0
         self.ticket_at[slot] = ticket
         self.alive[slot] = True
-        self.active[slot] = True
-        self.n_active += 1
+        self.active[slot] = active
+        self.n_active += active
         self.gen[slot] += 1
         return slot
 
@@ -210,13 +210,26 @@ class SlotStore:
         self.active[slots] |= turn_on
         self.n_active += int(turn_on.sum())
 
-    def drain(self):
+    def drain(self, deadline: float | None = None):
         """Settle lazily-removed slots (reverse maps, object refs, free
-        list) and release the parked objects; called in the gap between
-        intervals, and on demand when the allocator or a duplicate-id add
-        needs undrained slots settled early."""
+        list) and release the parked objects; called from the interval
+        idle gap, and on-demand when the allocator or a duplicate-id add
+        needs undrained slots settled early.
+
+        `deadline` (perf_counter seconds) makes the pass preemptible: a
+        cohort delivery due mid-gap must not queue behind a ~100k-object
+        teardown, so the loop's gap work can stop between parked batches
+        and leave the rest for the next gap (each batch settles
+        atomically; partially-drained state is just a shorter
+        graveyard)."""
+        import time as _time
+
         parked, self._graveyard = self._graveyard, []
-        for slots, snapshot in parked:
+        for i, (slots, snapshot) in enumerate(parked):
+            if deadline is not None and _time.perf_counter() >= deadline:
+                # Park the remainder for the next gap (order preserved).
+                self._graveyard = parked[i:] + self._graveyard
+                return
             if callable(snapshot):
                 # Materialize any still-lazy delivery snapshot before the
                 # refs are cleared: a batch consumed after this drain
@@ -229,7 +242,104 @@ class SlotStore:
             self._free[self._free_n : self._free_n + n] = slots
             self._free_n += n
 
+    # -------------------------------------------------- snapshot / restore
+
+    def snapshot(self) -> dict:
+        """Checkpoint view of the store (recovery.py): the live slots'
+        columnar metadata plus frozen ticket rows, slot-addressed so a
+        restore rebuilds the EXACT slot assignment (device rows and gen
+        counters are slot-keyed). Settles the graveyard first so maps,
+        masks, and parked snapshots are consistent. Everything is a
+        copy/compact row — the pool keeps mutating while the checkpoint
+        pickles off-loop — and the id/party hashes are precomputed here
+        (idle gap) so restore's bulk map rebuild does no hashing."""
+        from .types import freeze_ticket
+
+        self.drain()
+        live = self.live_slots()
+        tickets = [self.ticket_at[s] for s in live]
+        return {
+            "capacity": self.capacity,
+            "live_slots": live,
+            "active": self.active[live].copy(),
+            "gen": self.gen.copy(),
+            "meta": {k: v[live].copy() for k, v in self.meta.items()},
+            "tickets": [freeze_ticket(t) for t in tickets],
+            "id_hash": np.asarray(
+                [_hash_id(t.ticket) for t in tickets], dtype=np.uint64
+            ),
+            "party_hash": np.asarray(
+                [
+                    _hash_id(t.party_id) if t.party_id else 0
+                    for t in tickets
+                ],
+                dtype=np.uint64,
+            ),
+        }
+
+    def restore(self, snap: dict) -> None:
+        """Rebuild slot state from a snapshot onto THIS (fresh) store:
+        bulk columnar writes, one thaw pass over the frozen ticket rows
+        (query ASTs re-parsed once per distinct query), and ONE native
+        bulk call rebuilding the reverse maps from the precomputed
+        hashes — the restore half of the <2s 100k-pool recovery
+        budget. No per-ticket query compilation, no device staging (the
+        backend restores its own rows)."""
+        from .types import thaw_ticket
+
+        if snap["capacity"] != self.capacity:
+            raise ValueError(
+                f"snapshot capacity {snap['capacity']} != store"
+                f" capacity {self.capacity} (restore onto a store built"
+                " from the same matchmaker config)"
+            )
+        if self.n_live:
+            raise RuntimeError("restore requires an empty store")
+        live = np.asarray(snap["live_slots"], dtype=np.int32)
+        for k, v in snap["meta"].items():
+            self.meta[k][live] = v
+        self.alive[live] = True
+        self.active[live] = snap["active"]
+        self.gen = np.asarray(snap["gen"], dtype=np.int64).copy()
+        qcache: dict = {}
+        tickets = [thaw_ticket(r, qcache) for r in snap["tickets"]]
+        if len(live):
+            obj = np.empty(len(tickets), dtype=object)
+            obj[:] = tickets
+            self.ticket_at[live] = obj
+            add_bulk = getattr(self.maps, "add_bulk", None)
+            if add_bulk is not None:
+                add_bulk(
+                    live,
+                    snap["id_hash"],
+                    self.meta["session_hashes"][live],
+                    self.meta["session_counts"][live],
+                    snap["party_hash"],
+                )
+            else:
+                sh = self.meta["session_hashes"]
+                sc = self.meta["session_counts"]
+                for i, s in enumerate(live):
+                    self.maps.add(
+                        int(s),
+                        int(snap["id_hash"][i]),
+                        sh[s, : sc[s]],
+                        int(snap["party_hash"][i]),
+                    )
+        self.n_live = len(live)
+        self.n_active = int(self.active[live].sum())
+        # Free list: every non-live slot, descending so the lowest slot
+        # pops first (same density bias as a fresh store).
+        free_mask = np.ones(self.capacity, dtype=bool)
+        free_mask[live] = False
+        free = np.nonzero(free_mask)[0][::-1].astype(np.int32)
+        self._free[: len(free)] = free
+        self._free_n = len(free)
+
     # ------------------------------------------------------------- queries
+
+    def __contains__(self, ticket_id: str) -> bool:
+        return self.slot_by_id(ticket_id) is not None
 
     def slot_by_id(self, ticket_id: str) -> int | None:
         slot = self.maps.slot_of(_hash_id(ticket_id))
@@ -276,6 +386,9 @@ class SlotStore:
             if self.alive[slot] and t is not None and t.party_id == party_id:
                 out.append(t)
         return out
+
+    def live_tickets(self) -> list[MatchmakerTicket]:
+        return list(self.ticket_at[self.alive])
 
     def live_slots(self) -> np.ndarray:
         return np.nonzero(self.alive)[0].astype(np.int32)

@@ -3,7 +3,10 @@
 Capability parity with the reference ticket model (reference
 server/matchmaker.go:61-130): a ticket carries one entry per presence (a
 party ticket carries several), string+numeric properties, a query, min/max
-count, count multiple, and bookkeeping used by the process loop.
+count, count multiple, and bookkeeping used by the process loop. Extract is
+the node-drain handover format (server/matchmaker.go:110-130); frozen
+ticket rows (`freeze_ticket`) are the snapshot format, plain tuples that
+the JAX package's snapshots share.
 """
 
 from __future__ import annotations
@@ -13,6 +16,16 @@ from dataclasses import dataclass, field
 from typing import Any
 
 _created_seq = itertools.count(1)
+
+
+def advance_created_seq(past: int) -> None:
+    """Advance the process-wide created_seq counter past `past` (warm
+    restart: restored tickets keep their sequence numbers, so new adds
+    must not collide with — or sort before — them on the oldest-first
+    tie-break)."""
+    global _created_seq
+    current = next(_created_seq)
+    _created_seq = itertools.count(max(current, int(past) + 1))
 
 
 @dataclass(frozen=True)
@@ -194,3 +207,118 @@ class MatchBatch:
         if callable(self._tickets):
             self._tickets = self._tickets()  # lazy store snapshot
         return list(self._tickets[self.offsets[i] : self.offsets[i + 1]])
+
+
+def freeze_ticket(t: MatchmakerTicket) -> tuple:
+    """Compact checkpoint row for one ticket (recovery.py snapshots):
+    plain tuples pickle ~3x leaner/faster than the object graph, and
+    the query AST is dropped entirely — `thaw_ticket` re-parses once
+    per DISTINCT query (production pools repeat a small canonical set),
+    which measured far cheaper than pickling ~pool_size AST trees."""
+    return (
+        t.ticket,
+        t.query,
+        t.min_count,
+        t.max_count,
+        t.count_multiple,
+        t.session_id,
+        t.party_id,
+        [
+            (
+                e.presence.user_id,
+                e.presence.session_id,
+                e.presence.username,
+                e.presence.node,
+            )
+            for e in t.entries
+        ],
+        t.string_properties,
+        t.numeric_properties,
+        t.created_at,
+        t.created_seq,
+        int(t.intervals),
+        t.embedding,
+    )
+
+
+def thaw_ticket(row: tuple, query_cache: dict) -> MatchmakerTicket:
+    """Rebuild a ticket from its checkpoint row. Constructs via
+    `object.__new__` + direct `__dict__` fill — the dataclass
+    `__init__`/`__post_init__` overhead is ~3x the restore budget at
+    100k tickets, and every invariant they enforce already held when
+    the row was frozen. `query_cache` maps query string -> parsed AST,
+    shared across the whole restore."""
+    (
+        tid, query, mn, mx, cm, sid, pid, pres, sprops, nprops,
+        created_at, seq, iv, emb,
+    ) = row
+    ast = query_cache.get(query)
+    if ast is None:
+        from .query import parse_query
+
+        ast = query_cache[query] = parse_query(query)
+    new = object.__new__
+    entries = []
+    for user_id, session_id, username, node in pres:
+        p = new(MatchmakerPresence)
+        # Frozen dataclass: object.__setattr__ sidesteps the (irrelevant
+        # here) immutability guard the same way pickle does.
+        object.__setattr__(
+            p,
+            "__dict__",
+            {
+                "user_id": user_id,
+                "session_id": session_id,
+                "username": username,
+                "node": node,
+            },
+        )
+        e = new(MatchmakerEntry)
+        e.__dict__ = {
+            "ticket": tid,
+            "presence": p,
+            "string_properties": sprops,
+            "numeric_properties": nprops,
+            "party_id": pid,
+            "create_time": created_at,
+        }
+        entries.append(e)
+    t = new(MatchmakerTicket)
+    t.__dict__ = {
+        "ticket": tid,
+        "query": query,
+        "min_count": mn,
+        "max_count": mx,
+        "count_multiple": cm,
+        "session_id": sid,
+        "party_id": pid,
+        "entries": entries,
+        "string_properties": sprops,
+        "numeric_properties": nprops,
+        "created_at": created_at,
+        "created_seq": seq,
+        "intervals": iv,
+        "parsed_query": ast,
+        "embedding": emb,
+    }
+    return t
+
+
+@dataclass
+class MatchmakerExtract:
+    """Ticket handover/checkpoint format for node drain
+    (reference MatchmakerExtract, server/matchmaker.go:110-130)."""
+
+    presences: list[MatchmakerPresence]
+    session_id: str
+    party_id: str
+    query: str
+    min_count: int
+    max_count: int
+    count_multiple: int
+    string_properties: dict[str, str]
+    numeric_properties: dict[str, float]
+    ticket: str
+    created_at: float
+    intervals: int = 0
+    embedding: Any = None

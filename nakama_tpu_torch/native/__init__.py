@@ -16,8 +16,11 @@ import os
 import subprocess
 import tempfile
 import threading
+import time
 
 import numpy as np
+
+from ..devobs import DEVOBS
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SOURCES = ("assembler.cpp", "tickstore.cpp")
@@ -50,6 +53,7 @@ def build() -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
+    t0 = time.perf_counter()
     cmd = [
         os.environ.get("CXX", "g++"), "-O2", "-std=c++17", "-fPIC",
         "-shared", "-o", tmp, *srcs,
@@ -57,6 +61,7 @@ def build() -> str:
     try:
         subprocess.run(cmd, check=True, capture_output=True, text=True)
         os.replace(tmp, lib_path)
+        DEVOBS.on_compile(time.perf_counter() - t0, kernel="native")
     except (subprocess.CalledProcessError, FileNotFoundError) as e:
         detail = getattr(e, "stderr", "") or str(e)
         raise NativeUnavailable(f"cannot build native library: {detail}") from e
@@ -83,6 +88,12 @@ def load() -> ctypes.CDLL:
         lib.ts_add.argtypes = [
             ctypes.c_void_p, ctypes.c_int32, ctypes.c_uint64,
             ctypes.c_void_p, ctypes.c_int32, ctypes.c_uint64,
+        ]
+        lib.ts_add_bulk.restype = ctypes.c_int32
+        lib.ts_add_bulk.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int32, ctypes.c_int32,
         ]
         lib.ts_remove_slots.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
@@ -137,6 +148,43 @@ class TickStore:
             raise KeyError("duplicate ticket id hash")
         if rc == -2:
             raise RuntimeError(f"slot {slot} already occupied")
+
+    def add_bulk(
+        self,
+        slots: np.ndarray,  # i32 [n]
+        id_hashes: np.ndarray,  # u64 [n]
+        session_hashes: np.ndarray,  # u64 [n, stride]
+        session_counts: np.ndarray,  # i32 [n]
+        party_hashes: np.ndarray,  # u64 [n]
+    ):
+        """Register a whole snapshot in ONE native call (warm-restart
+        restore) — per-row semantics identical to add()."""
+        slots = np.ascontiguousarray(slots, dtype=np.int32)
+        id_hashes = np.ascontiguousarray(id_hashes, dtype=np.uint64)
+        session_hashes = np.ascontiguousarray(
+            session_hashes, dtype=np.uint64
+        )
+        session_counts = np.ascontiguousarray(
+            session_counts, dtype=np.int32
+        )
+        party_hashes = np.ascontiguousarray(party_hashes, dtype=np.uint64)
+        n = len(slots)
+        stride = session_hashes.shape[1] if n else 0
+        rc = self._lib.ts_add_bulk(
+            self._h,
+            _ptr(slots, np.int32),
+            _ptr(id_hashes, np.uint64),
+            _ptr(session_hashes, np.uint64),
+            _ptr(session_counts, np.int32),
+            _ptr(party_hashes, np.uint64),
+            ctypes.c_int32(n),
+            ctypes.c_int32(stride),
+        )
+        if rc >= 0:
+            raise RuntimeError(
+                f"bulk ticket registration failed at row {rc}"
+                " (duplicate id or occupied slot)"
+            )
 
     def remove_slots(self, slots: np.ndarray):
         slots = np.ascontiguousarray(slots, dtype=np.int32)

@@ -225,6 +225,27 @@ void ts_remove_slots(void* h, const int32_t* slots, int32_t n) {
     }
 }
 
+// Bulk registration — the warm-restart restore path (recovery.py): one
+// call re-registers a whole checkpoint snapshot, so rebuilding the
+// reverse maps for a 100k-ticket pool is native loop time instead of
+// ~100k ctypes round trips. Same per-row semantics as ts_add; stops at
+// the first failing row and returns its index (-1 = all registered).
+int32_t ts_add_bulk(void* h, const int32_t* slots,
+                    const uint64_t* id_hashes,
+                    const uint64_t* sessions,  // [n * stride] row-major
+                    const int32_t* n_sessions,
+                    const uint64_t* party_hashes, int32_t n,
+                    int32_t stride) {
+    for (int32_t r = 0; r < n; ++r) {
+        int32_t rc =
+            ts_add(h, slots[r], id_hashes[r],
+                   sessions + static_cast<size_t>(r) * stride,
+                   n_sessions[r], party_hashes[r]);
+        if (rc != 0) return r;
+    }
+    return -1;
+}
+
 int32_t ts_slot_of(void* h, uint64_t id_hash) {
     return static_cast<Store*>(h)->by_id.find_one(id_hash);
 }

@@ -251,3 +251,66 @@ def test_pool_buffer_add_remove_readd_matches_jax():
         np.testing.assert_array_equal(
             v[:51].numpy(), got["columns"][key], err_msg=key
         )
+
+
+def test_pool_buffer_staging_ring_keeps_in_flight_sets_and_pool_unchanged():
+    """Each flush hands its staging set to the copies and drops it; the
+    next add stages into a fresh set, so a set whose copy may still be in
+    flight is never written again, and a flush never takes (or waits
+    for) a set. Every flushed set still holds what it sent after all the
+    later adds, and the flushed pool equals the JAX package's after the
+    same operations, voided and re-staged rows included."""
+    rng = np.random.default_rng(9)
+    cap, chunk = 256, 8
+    jpool = jd.PoolBuffer(cap, FN, FS, S, flush_chunk=chunk)
+    tpool = td.PoolBuffer(cap, FN, FS, S, flush_chunk=chunk, device="cpu")
+    sent = []  # (set's tensors, a copy of their contents at flush)
+    real_flush = tpool.flush
+
+    def flush_keeping_the_set():
+        if tpool._stage_n:
+            tens = tpool._set[0]
+            sent.append((tens, None))
+        real_flush()
+        if sent and sent[-1][1] is None:
+            tens = sent[-1][0]
+            sent[-1] = (tens, {k: v.clone() for k, v in tens.items()})
+            assert tpool._set is None  # the flush took no new set
+
+    tpool.flush = flush_keeping_the_set
+    template = td.pool_schema(1, FN, FS, S)
+
+    def row():
+        return {
+            key: (
+                rng.standard_normal(v.shape[1:]).astype(np.float32)
+                if v.dtype == np.float32
+                else rng.integers(1, 1000, v.shape[1:]).astype(np.int32)
+            )
+            for key, v in template.items()
+        }
+
+    for slot in range(200):  # 25 eager flushes
+        r = row()
+        for pool in (jpool, tpool):
+            pool.add(slot, r)
+        if slot % 13 == 5:  # void a staged row, then re-stage another
+            for pool in (jpool, tpool):
+                pool.remove_slots(np.asarray([slot, slot - 20], np.int32))
+            r = row()
+            for pool in (jpool, tpool):
+                pool.add(slot - 20, r)
+    jpool.flush()
+    tpool.flush()
+    assert len(sent) >= 25
+    ids = {id(tens["_slots"]) for tens, _ in sent}
+    assert len(ids) == len(sent)  # one set per flush, none handed out twice
+    for tens, at_flush in sent:
+        for k, v in tens.items():  # bit for bit: unused rows are raw memory
+            assert v.numpy().tobytes() == at_flush[k].numpy().tobytes(), k
+    want, got = jpool.snapshot(), tpool.snapshot()
+    assert got["high_water"] == want["high_water"] == 200
+    for key in want["columns"]:
+        np.testing.assert_array_equal(
+            got["columns"][key], want["columns"][key], err_msg=key
+        )

@@ -8,6 +8,8 @@ shared with `test_torch_stage1.py`, which holds the plain version against
 the JAX package's Pallas kernel.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -151,3 +153,88 @@ def test_stage1_wgmma_kernel_matches_plain_on_card():
     after = {k.name: k.launches for k in kernels.KERNELS}
     assert after["stage1_wgmma"] - before["stage1_wgmma"] == runs == 16
     assert after["stage1"] - before["stage1"] == runs_first == 4
+
+
+@pytest.mark.cuda
+def test_device_clock_reads_completed_events_without_a_synchronise(monkeypatch):
+    """A device call on the card is timed by a pair of CUDA events; the
+    telemetry plane folds its device time in only once the events have
+    completed and never synchronises to get there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from nakama_tpu_torch.devobs import DEVOBS
+
+    DEVOBS.reset()
+    dev = torch.device("cuda:0")
+    a = torch.randn(4096, 4096, device=dev)
+    torch.cuda.synchronize()
+
+    def no_sync(*args, **kw):
+        raise AssertionError("the telemetry plane synchronised the device")
+
+    with DEVOBS.device_call("matchmaker.score", device=dev):
+        for _ in range(20):
+            a = a @ a.T / 4096.0
+    event = DEVOBS.timeline[-1]
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "synchronize", no_sync)
+        m.setattr(torch.cuda.Event, "synchronize", no_sync)
+        DEVOBS.resolve()  # the products are most likely still running
+    pending = DEVOBS.stats()["pending_device_events"]
+    assert (pending == 1) == (event[3] is None)
+    a.sum().item()  # the test itself waits for the card
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "synchronize", no_sync)
+        DEVOBS.interval_tick()
+    assert DEVOBS.stats()["pending_device_events"] == 0
+    assert event[3] is not None and event[3] > 0.0
+    stats = {k["kernel"]: k for k in DEVOBS.kernel_stats()}["matchmaker.score"]
+    assert stats["device_calls"] == 1
+    DEVOBS.reset()
+
+
+@pytest.mark.cuda
+def test_pool_flush_does_not_wait_behind_queued_device_work(monkeypatch):
+    """PoolBuffer.flush stages from pinned memory: issued while the card
+    is still busy (a ~200 ms spin standing in for an in-flight cohort),
+    three chunk flushes return long before the spin ends, without a
+    synchronise, and the pool holds every row once the card catches up."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from nakama_tpu_torch.matchmaker.device import PoolBuffer, pool_schema
+
+    dev = torch.device("cuda:0")
+    chunk, n = 256, 768
+    pool = PoolBuffer(n, 8, 8, 8, flush_chunk=chunk, device=dev)
+    rows = pool_schema(n, 8, 8, 8)
+    rng = np.random.default_rng(3)
+    for v in rows.values():
+        v[:] = rng.integers(1, 100, v.shape).astype(v.dtype)
+    pool.add(0, {k: v[0] for k, v in rows.items()})
+    pool.flush()  # warm the pinned-memory cache
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10_000_000)
+    end.record()
+    end.synchronize()
+    cycles = int(200.0 * 10_000_000 / start.elapsed_time(end))
+
+    def no_sync(*args, **kw):
+        raise AssertionError("the flush waited for the card")
+
+    host_ms = []
+    for _ in range(2):  # the first pass also fills the pinned-memory cache
+        torch.cuda._sleep(cycles)
+        t0 = time.perf_counter()
+        with monkeypatch.context() as m:
+            m.setattr(torch.cuda, "synchronize", no_sync)
+            m.setattr(torch.cuda.Event, "synchronize", no_sync)
+            for slot in range(n):  # eager flushes at 256 and 512
+                pool.add(slot, {k: v[slot] for k, v in rows.items()})
+            pool.flush()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    assert host_ms[-1] < 100.0, host_ms
+    for k, v in rows.items():
+        np.testing.assert_array_equal(pool.tensors[k].cpu().numpy(), v, err_msg=k)

@@ -7,8 +7,10 @@ interval, with new tickets and cancellations between intervals. The
 matched groups, by session id and in delivery order, must be identical on
 each device path: the 1v1 device-pairing path, the two-stage path with
 the native assembler, and the small-pool exact path — synchronously, and
-drained through the pipelined queue. A subprocess checks that the port
-runs without JAX or the JAX package in the interpreter.
+drained through the pipelined queue. A subprocess checks that the port —
+an interval, the service loop with tracing, telemetry and an armed
+fault, and a snapshot restored — runs without JAX, the JAX package or
+prometheus_client in the interpreter.
 """
 
 import os
@@ -202,9 +204,12 @@ def test_pipelined_drain_matches_jax():
 
 HYGIENE = textwrap.dedent(
     """
+    import asyncio
     import sys
     import numpy as np
-    from nakama_tpu_torch.config import MatchmakerConfig
+    from nakama_tpu_torch import faults, tracing
+    from nakama_tpu_torch.config import MatchmakerConfig, apply_observability
+    from nakama_tpu_torch.devobs import DEVOBS
     from nakama_tpu_torch.logger import test_logger
     from nakama_tpu_torch.matchmaker import LocalMatchmaker, MatchmakerPresence
     from nakama_tpu_torch.matchmaker.cuda import CudaBackend
@@ -213,24 +218,62 @@ HYGIENE = textwrap.dedent(
         pool_capacity=256, numeric_fields=8, string_fields=8,
         max_constraints=8, big_pool_threshold=64, interval_pipelining=False,
     )
-    backend = CudaBackend(
-        cfg, test_logger(), device="cpu", col_block=64, big_row_block=64,
-        big_col_block=64,
-    )
+    slo = apply_observability()
+    tracing.TRACES.configure(sample_rate=1.0)
+
+    def backend(cfg):
+        return CudaBackend(
+            cfg, test_logger(), device="cpu", col_block=64, big_row_block=64,
+            big_col_block=64,
+        )
+
     got = []
-    mm = LocalMatchmaker(test_logger(), cfg, backend=backend, on_matched=got.append)
+    mm = LocalMatchmaker(test_logger(), cfg, backend=backend(cfg), on_matched=got.append)
+    mm.slo = slo
     rng = np.random.default_rng(0)
-    for i in range(100):
+
+    def add(i):
         p = MatchmakerPresence(user_id=f"u{i}", session_id=f"s{i}")
         r = float(rng.integers(0, 100))
         mm.add([p], p.session_id, "", f"+properties.rank:>={r - 30}"
                f" +properties.rank:<={r + 30}", 2, 2, 1, {}, {"rank": r})
+
+    for i in range(100):
+        add(i)
     mm.process()
     assert sum(len(b) for b in got) > 30, got
+
+    # The service: two intervals of start()'s loop with tracing and
+    # device telemetry on, a fault armed through the first and disarmed.
+    cfg.interval_pipelining = True
+    cfg.interval_sec = 0.2
+    faults.arm("device.dispatch", "raise", count=1)
+
+    async def serve():
+        mm.start()
+        with tracing.root_span("client.add"):
+            for i in range(100, 160):
+                add(i)
+        await asyncio.sleep(0.5)
+        faults.disarm()
+        await asyncio.sleep(0.4)
+        mm.stop()
+
+    asyncio.run(serve())
+    assert faults.PLANE.fired["device.dispatch"] == 1
+    assert mm.backend.tracing.deliveries_total >= 1
+    assert DEVOBS.stats()["kernels"]
+
+    snap = mm.snapshot_state()
+    cfg2 = MatchmakerConfig(**vars(cfg))
+    mm2 = LocalMatchmaker(test_logger(), cfg2, backend=backend(cfg2))
+    mm2.restore_state(snap)
+    assert len(mm2) == len(mm)
     bad = sorted(
         m for m in sys.modules
         if m == "jax" or m.startswith("jax.")
         or m == "nakama_tpu" or m.startswith("nakama_tpu.")
+        or m == "prometheus_client" or m.startswith("prometheus_client.")
     )
     assert not bad, bad
     print("ok")
