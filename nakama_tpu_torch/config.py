@@ -5,11 +5,76 @@ Field names and defaults follow the JAX package's `MatchmakerConfig`
 knobs (the port runs on one card), plus the matchmaker-facing parts of
 its `TracingConfig` and `DevObsConfig`. `apply_observability` hands the
 latter two to the process-wide trace store and telemetry plane.
+`OverloadConfig` and `RecoveryConfig` carry the JAX package's fields
+(names and defaults) that the port reads so far: the ladder's and the
+admission controller's, and the recovery plane's. The rest of those
+sections, and the metrics and database sections, come with the server
+slice that reads them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+
+@dataclass
+class OverloadConfig:
+    """Overload-control plane (overload.py): admission control and the
+    load-level ladder. Defaults are the disarmed production posture —
+    admission is bounded, but the bounds are wide enough that an
+    unloaded server never queues."""
+
+    # Server-wide concurrent-request permits shared by all three
+    # priority classes (realtime socket ops > authenticated RPC/storage
+    # > anonymous list/read endpoints).
+    admission_max_concurrent: int = 256
+    # Bounded per-class wait queues; a full queue rejects with 429 +
+    # Retry-After. WARN halves these and stops queueing the list class;
+    # SHED rejects the list class outright.
+    admission_queue_realtime: int = 512
+    admission_queue_rpc: int = 256
+    admission_queue_list: int = 64
+    retry_after_sec: int = 1
+    # Load-level ladder (OK→WARN→SHED): sampled every ladder_sample_ms;
+    # escalation is immediate, de-escalation needs
+    # ladder_recover_samples consecutive calmer samples.
+    ladder_sample_ms: int = 250
+    ladder_recover_samples: int = 3
+    # db_write_queue_depth thresholds as fractions of the engine's
+    # write queue depth.
+    shed_queue_depth_warn: float = 0.5
+    shed_queue_depth_shed: float = 0.9
+    # Matchmaker interval-lag thresholds (seconds past the head
+    # cohort's delivery deadline).
+    interval_lag_warn_sec: float = 2.0
+    interval_lag_shed_sec: float = 15.0
+
+
+@dataclass
+class RecoveryConfig:
+    """Crash-recovery plane (recovery.py): the durable ticket journal
+    (append-only, LSN-ordered, drained through the group-commit write
+    pipeline), periodic pool checkpoints that truncate it, and the
+    warm-restart replay at boot. Durability requires a file-backed
+    database; on `:memory:` engines the plane runs but a process
+    restart starts a fresh store."""
+
+    # Journal ticket outcomes (add/remove/matched/publish-failed).
+    # False keeps checkpoints only: replay granularity becomes the
+    # checkpoint interval instead of the last durable journal drain.
+    journal: bool = True
+    # Pool snapshot cadence (interval idle gap). Bounds both replay
+    # work at boot and the journal's disk footprint.
+    checkpoint_interval_sec: int = 60
+    # Buffered journal records per drain unit (one atomic execute_many
+    # riding a shared group commit).
+    journal_flush_max: int = 2048
+    # Degraded-mode (storage down) in-memory buffer bound; overflow
+    # drops oldest records — the pool still holds the tickets and the
+    # next checkpoint covers them.
+    journal_buffer_cap: int = 65536
+    # Checkpoint/snapshot directory; empty = the server's data_dir.
+    recovery_dir: str = ""
 
 
 @dataclass

@@ -42,7 +42,14 @@ import time
 FAULT_POINTS = (
     "device.dispatch",   # CudaBackend._dispatch (raise/stall)
     "device.collect",    # the cohort's fetch/assembly worker thread
+    "db.drain",          # WriteBatcher drain loop, per batch
+    "db.read",           # ReadCoalescer drain worker, per chunk
     "delivery.publish",  # LocalMatchmaker on_matched delivery
+    "api.admit",         # AdmissionController.try_admit (overload.py)
+    "overload.signal",   # ladder sample; drop mode forces a SHED sample
+    "journal.append",    # TicketJournal flush (recovery.py), per batch
+    "journal.replay",    # warm-restart journal replay (recovery.py)
+    "checkpoint.write",  # pool snapshot write (recovery.py), per attempt
 )
 
 
@@ -222,6 +229,18 @@ def degrades(exc: BaseException) -> bool:
     return isinstance(exc, InjectedFault) or (
         type(exc).__name__ in _TRANSIENT_NAMES
     )
+
+
+def from_card(exc: BaseException) -> bool:
+    """Is this an error from the card that no storage-side degrade path
+    may absorb? torch raises a CUDA fault as a `RuntimeError`
+    (`torch.AcceleratorError` is one), and the kernel wrappers raise
+    one for a failed build or launch (kernels.py); storage errors
+    (sqlite3, OSError, pickle, `DatabaseError`) never are. `degrades`
+    admits what the ladder may absorb, device memory pressure
+    included. The recovery plane degrades to the journal on storage
+    errors, the JAX package's behaviour, and raises these."""
+    return isinstance(exc, RuntimeError) and not degrades(exc)
 
 
 # ------------------------------------------------------ circuit breaker

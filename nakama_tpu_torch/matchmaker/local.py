@@ -370,13 +370,17 @@ class LocalMatchmaker:
                         # Crash-recovery checkpoint rides the same idle
                         # gap as GC/drain/flush: pool snapshot + journal
                         # truncation, bounded replay for the next boot.
-                        # Failure is survivable (WARNed inside) and must
-                        # never kill the interval loop.
+                        # A storage failure is survivable (WARNed
+                        # inside) and never kills the interval loop; an
+                        # error from the card ends the service like any
+                        # other device error (faults.from_card).
                         try:
                             await self.checkpointer.maybe_checkpoint(
                                 self
                             )
                         except Exception as e:
+                            if faults.from_card(e):
+                                raise
                             self.logger.error(
                                 "checkpoint error", error=str(e)
                             )

@@ -4,7 +4,8 @@ Port of the JAX package's `tracing.py`. Three layers live here:
 
 1. **Breadcrumbs + ledgers** (`Tracing`): cheap per-interval timing
    crumbs and bounded event ledgers (deliveries, breaker transitions
-   and reclaims) — the aggregate, always-on layer. Every ledger is a
+   and reclaims, storage group-commit drains, overload-ladder
+   transitions) — the aggregate, always-on layer. Every ledger is a
    `Ledger`: a bounded deque plus a monotonic `total` counter, so "how
    many ever" questions never read a saturated deque length.
    `Tracing.device_trace` captures a bounded `torch.profiler` trace
@@ -23,7 +24,8 @@ Port of the JAX package's `tracing.py`. Three layers live here:
    are p-sampled deterministically by trace id.
 
 3. **SLO burn rates** (`SloRecorder`): multi-window (5m/1h) error-budget
-   burn over matchmaker interval time and delivery publish lag.
+   burn over matchmaker interval time and delivery publish lag; the
+   overload ladder samples it (`overload.slo_burn_signal`).
 
 The disarmed posture (no ambient trace on the caller) costs one
 contextvar read per instrumentation point.
@@ -331,6 +333,33 @@ def emit_span(
         sp.set_status(status, message)
     sp.end_ts = max(start_ts, end_ts)
     TRACES.add_span(sp)
+
+
+def emit_trace(
+    name: str,
+    *,
+    start_ts: float,
+    end_ts: float,
+    status: str = "ok",
+    message: str = "",
+    links: list[dict] | None = None,
+    **attrs,
+) -> str:
+    """Record a complete single-span trace post-hoc (the storage
+    group-commit span: one root per drain, its batched units attached
+    as span links). Returns the trace id ("" when disabled)."""
+    if not TRACES.enabled:
+        return ""
+    sp = Span(new_trace_id(), new_span_id(), "", name, attrs,
+              start_ts=start_ts)
+    if links:
+        sp.links = list(links)
+    if status != "ok":
+        sp.set_status(status, message)
+    sp.end_ts = max(start_ts, end_ts)
+    TRACES.add_span(sp)
+    TRACES.root_done(sp)
+    return sp.trace_id
 
 
 # ------------------------------------------------------------ trace store
@@ -867,6 +896,33 @@ class SloRecorder:
             for name in self.slos
         }
 
+    def sample(self) -> dict[str, dict[str, float]]:
+        """Compute all burn rates and publish the gauges — called from
+        the overload ladder's sampling loop, never per request."""
+        rates = self.burn_rates()
+        if self.metrics is not None:
+            for name, windows in rates.items():
+                for label, value in windows.items():
+                    try:
+                        self.metrics.slo_burn_rate.labels(
+                            slo=name, window=label
+                        ).set(value)
+                    except Exception:
+                        pass
+        return rates
+
+    def max_burn(self, window: str = "5m") -> float:
+        w = dict(self.WINDOWS)[window]
+        return max(
+            (self.burn_rate(name, w) for name in self.slos), default=0.0
+        )
+
+    def snapshot(self) -> dict:
+        return {
+            "slos": self.slos,
+            "burn_rates": self.burn_rates(),
+        }
+
 # ------------------------------------------------- aggregate Tracing obj
 
 
@@ -882,11 +938,18 @@ class Tracing:
         # deadline slips): slips are observable here and via metrics,
         # not inferred from bench WARN lines.
         self.deliveries = Ledger(capacity)
+        # Group-commit drain spans from the storage write batcher
+        # (record_db_drain): batch size / drain time / queue depth.
+        self.db_drains = Ledger(capacity)
         # Degradation-ladder transitions (faults.py CircuitBreaker) and
         # reclamation events: breaker open/half-open/closed flips plus
         # in-flight cohort reclamations, so an operator can read the
         # outage timeline off the ledger instead of correlating logs.
         self.breaker_events = Ledger(capacity)
+        # Overload-ladder transitions (overload.py OverloadController):
+        # OK→WARN→SHED flips with the per-signal levels that drove
+        # them, so "why did we shed at 14:02" reads off the ledger.
+        self.overload_events = Ledger(capacity)
 
     @property
     def deliveries_total(self) -> int:
@@ -900,7 +963,9 @@ class Tracing:
         return {
             "breadcrumbs": self.breadcrumbs.total,
             "deliveries": self.deliveries.total,
+            "db_drains": self.db_drains.total,
             "breaker_events": self.breaker_events.total,
+            "overload_events": self.overload_events.total,
         }
 
     # ------------------------------------------------------ device trace
@@ -1020,6 +1085,18 @@ class Tracing:
         interval deadline."""
         return sum(1 for d in self.deliveries if d.get("slipped"))
 
+    # ---------------------------------------------------- db drain spans
+
+    def record_db_drain(self, **fields):
+        """One group-commit drain by the storage write batcher: batch
+        size, drain duration, and post-drain queue depth (storage/db.py
+        WriteBatcher). A separate ledger so high-rate write drains don't
+        evict the interval breadcrumbs."""
+        self.db_drains.append(fields)
+
+    def recent_db_drains(self, n: int = 32) -> list[dict]:
+        return self.db_drains.recent(n)
+
     # ------------------------------------------------ degradation ladder
 
     def record_breaker(self, **fields):
@@ -1034,3 +1111,13 @@ class Tracing:
 
     def recent_breaker_events(self, n: int = 32) -> list[dict]:
         return self.breaker_events.recent(n)
+
+    # ------------------------------------------------- overload ladder
+
+    def record_overload(self, **fields):
+        """One overload-ladder transition (overload.py): old/new level
+        and the per-signal levels at the sample that drove it."""
+        self.overload_events.append(fields)
+
+    def recent_overload_events(self, n: int = 32) -> list[dict]:
+        return self.overload_events.recent(n)

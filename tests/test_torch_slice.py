@@ -9,8 +9,10 @@ each device path: the 1v1 device-pairing path, the two-stage path with
 the native assembler, and the small-pool exact path — synchronously, and
 drained through the pipelined queue. A subprocess checks that the port —
 an interval, the service loop with tracing, telemetry and an armed
-fault, and a snapshot restored — runs without JAX, the JAX package or
-prometheus_client in the interpreter.
+fault, a snapshot restored, the ticket journal and a checkpoint over
+the SQLite engine, a warm restart, a metrics scrape and the overload
+ladder — runs without JAX, the JAX package or prometheus_client in the
+interpreter.
 """
 
 import os
@@ -269,6 +271,52 @@ HYGIENE = textwrap.dedent(
     mm2 = LocalMatchmaker(test_logger(), cfg2, backend=backend(cfg2))
     mm2.restore_state(snap)
     assert len(mm2) == len(mm)
+
+    # The durable plane: journal and checkpoint over the SQLite engine,
+    # a warm restart, a live metrics registry and the overload ladder.
+    import os
+    import tempfile
+    from nakama_tpu_torch import overload
+    from nakama_tpu_torch.metrics import Metrics
+    from nakama_tpu_torch.recovery import Checkpointer, TicketJournal, recover
+    from nakama_tpu_torch.storage import make_database
+
+    async def durable():
+        d = tempfile.mkdtemp()
+        db = make_database(os.path.join(d, "h.db"))
+        await db.connect()
+        metrics = Metrics()
+        db.bind_observability(metrics, mm2.backend.tracing)
+        journal = TicketJournal(db, test_logger(), metrics=metrics)
+        mm2.journal = journal
+        ckpt = Checkpointer(
+            journal, db, os.path.join(d, "h.ckpt"), test_logger(),
+            metrics=metrics,
+        )
+        assert await ckpt.checkpoint(mm2) is not None
+        for i in range(300, 320):
+            p = MatchmakerPresence(user_id=f"u{i}", session_id=f"s{i}")
+            mm2.add([p], p.session_id, "", "+properties.mode:none", 2, 2)
+        mm2.remove(["nope"])
+        assert await journal.flush()
+        mm3 = LocalMatchmaker(test_logger(), cfg2, backend=backend(cfg2))
+        await recover(mm3, db, ckpt.path, "local", test_logger())
+        assert len(mm3) == len(mm2)
+        ov = overload.OverloadController(
+            overload.AdmissionController(4, {0: 4, 1: 4, 2: 4}),
+            metrics=metrics,
+        )
+        ov.register_signal(
+            "breaker", overload.breaker_signal(lambda: mm3.backend.breaker)
+        )
+        ov.register_signal("db", overload.db_queue_signal(
+            lambda: db._batcher.depth, 4096, 0.5, 0.9
+        ))
+        assert ov.sample() == overload.OK
+        assert b"nakama_matchmaker_journal_durable_lsn 20.0" in metrics.scrape()
+        await db.close()
+
+    asyncio.run(durable())
     bad = sorted(
         m for m in sys.modules
         if m == "jax" or m.startswith("jax.")
