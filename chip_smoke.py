@@ -16,8 +16,13 @@ fresh matchmaker (same groups as the original's interval), restored
 again into one that runs `start()`'s interval loop and delivery stage
 under a trickle of adds (one interval captured with the profiler for
 the card's busy share), and a 32,768-ticket pool driven through the
-breaker ladder with armed faults. Every phase but the fault phase
-asserts that the breaker stayed closed with no backend failure. Every
+breaker ladder with armed faults. Then crash recovery (a checkpoint and
+journal tail recovered; SIGKILLed children that lose no acknowledged
+ticket) and the server: `NakamaServer` warm-restarts the 100,000-ticket
+pool and serves 256 socket clients (HTTP auth, /ws, matchmaker adds),
+stops and restarts with the same pool, and `python -m nakama_tpu_torch`
+serves and stops on SIGTERM in a subprocess. Every phase but the fault
+phase asserts that the breaker stayed closed with no backend failure. Every
 phase prints one JSON line; any failure raises and the script exits
 non-zero without a result line. The last line is the device summary.
 
@@ -28,6 +33,7 @@ JAX or of the JAX package.
 from __future__ import annotations
 
 import asyncio
+import base64
 import collections
 import concurrent.futures
 import gc
@@ -35,6 +41,7 @@ import json
 import os
 import pickle
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -737,8 +744,11 @@ def phase_north_star(stage1_ms: float) -> tuple[dict, dict, list]:
         snap["state"] = m.snapshot_state()
         snap["snapshot_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        snap["bytes"] = len(pickle.dumps(snap["state"], protocol=pickle.HIGHEST_PROTOCOL))
+        # Kept pickled for the server phase, which checkpoints this pool
+        # after the service phase has dropped the state itself.
+        snap["pickled"] = pickle.dumps(snap["state"], protocol=pickle.HIGHEST_PROTOCOL)
         snap["pickle_s"] = time.perf_counter() - t0
+        snap["bytes"] = len(snap["pickled"])
         snap["tickets"] = len(m)
 
     for k in kernels.KERNELS:
@@ -1925,6 +1935,685 @@ def phase_assembler() -> dict:
     return launches
 
 
+# ------------------------------------------------------------ server phase
+
+SERVER_CLIENTS = 256
+SERVER_INTERVAL_S = 1
+SERVER_KEY = "defaultkey"
+
+
+class ServerLog:
+    """The phase's server logger: JSON lines into a file (the smoke's own
+    output stays readable); `errors()` reads back every error line."""
+
+    def __init__(self, path: str):
+        from nakama_tpu_torch.logger import Logger
+
+        self.path = path
+        self.file = open(path, "w", buffering=1)
+        self.logger = Logger(stream=self.file)
+
+    def errors(self) -> list[dict]:
+        self.file.flush()
+        with open(self.path) as fh:
+            lines = [json.loads(line) for line in fh if line.startswith("{")]
+        return [r for r in lines if r.get("level") == "error"]
+
+
+def server_config(out_dir: str):
+    """The phase's server: CudaBackend on cuda:0 (the default backend),
+    1 s pipelined intervals, the journal and checkpoints over a SQLite
+    file, no gap checkpoint inside the run (the final one is the stop's),
+    ephemeral API and metrics ports."""
+    from nakama_tpu_torch.config import parse_args
+
+    return parse_args([
+        "--socket.port", "0", "--metrics.prometheus_port", "-1",
+        "--data_dir", out_dir,
+        "--database.address", os.path.join(out_dir, "server.db"),
+        "--matchmaker.interval_sec", str(SERVER_INTERVAL_S),
+        "--matchmaker.pipeline_deadline_guard_sec", "0.25",
+        "--recovery.checkpoint_interval_sec", "3600",
+        "--shutdown_grace_sec", "3",
+    ])
+
+
+def raise_fd_limit(need: int) -> dict:
+    import resource
+
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if soft < need:
+        new = need if hard == resource.RLIM_INFINITY else min(need, hard)
+        resource.setrlimit(resource.RLIMIT_NOFILE, (new, hard))
+    return {"before": soft, "after": resource.getrlimit(resource.RLIMIT_NOFILE)[0],
+            "hard": hard}
+
+
+async def build_server_checkpoint(pickled: bytes, cfg) -> dict:
+    """The north-star snapshot restored into a matchmaker on the card and
+    checkpointed through the port's `Checkpointer` into the server's
+    data_dir, beside its SQLite file. Returns the checkpoint's stats and
+    each recovered ticket's query by session (the client-side validity
+    check needs the partners' queries)."""
+    from nakama_tpu_torch.recovery import Checkpointer, TicketJournal
+    from nakama_tpu_torch.storage import Database
+
+    mm, restore_s = restored(pickle.loads(pickled))
+    store = mm.store
+    queries = {
+        store.ticket_at[s].session_id: store.ticket_at[s].query
+        for s in store.live_slots()
+    }
+    db = Database(cfg.database.address[0], read_pool_size=1)
+    await db.connect()
+    journal = TicketJournal(db, StrictLogger(), node=cfg.name)
+    ckpt = Checkpointer(
+        journal, db, os.path.join(cfg.data_dir, f"{cfg.name}-matchmaker.ckpt"),
+        StrictLogger(), node=cfg.name,
+    )
+    stats = await ckpt.checkpoint(mm)
+    await db.close()
+    check_backend_clean(mm, "server build")
+    mm.stop()
+    if stats is None:
+        raise AssertionError("the server phase's checkpoint failed")
+    return {"restore_s": restore_s, "tickets": len(queries), "checkpoint": stats,
+            "queries": queries}
+
+
+async def server_client(server, ticks: list, added: dict, delivered: dict,
+                        i: int, results: list):
+    """One player: device auth over HTTP, /ws, one north-star
+    matchmaker_add, then recv-until-key loops for the ticket and the
+    match. The server's side counts its intervals (`ticks[0]`) and
+    stamps each client ticket with the interval count when it was added
+    (`added`) and when its match was delivered (`delivered`): a ticket
+    must be matched by a cohort of one of the 3 intervals after its add,
+    or still be in the pool after them. The socket stays open for the
+    stop."""
+    from nakama_tpu_torch.api import wsproto
+
+    rng = np.random.default_rng(5000 + i)
+    q, strs, nums = north_star_ticket(rng)
+    device = f"smoke-device-{i:04d}"
+    rec: dict = {"i": i, "query": q, "device": device}
+    t0 = time.perf_counter()
+    r = await wsproto.request(
+        "127.0.0.1", server.port, "POST", "/v2/account/authenticate/device",
+        headers={"Authorization": "Basic " + base64.b64encode(
+            f"{SERVER_KEY}:".encode()).decode()},
+        body={"account": {"id": device}},
+    )
+    rec["auth_at"] = (t0, time.perf_counter())
+    rec["auth_ms"] = (rec["auth_at"][1] - t0) * 1e3
+    if r.status != 200:
+        raise AssertionError(f"client {i}: auth {r.status} {r.body[:200]!r}")
+    ws = await wsproto.connect(
+        "127.0.0.1", server.port, f"/ws?token={r.json()['token']}")
+    rec["ws"] = ws
+
+    async def until(key, timeout):
+        async def loop():
+            while True:
+                env = json.loads(await ws.recv())
+                if key in env:
+                    return env
+        return await asyncio.wait_for(loop(), timeout)
+
+    t_add = time.perf_counter()
+    await ws.send(json.dumps({"cid": f"c{i}", "matchmaker_add": {
+        "min_count": 2, "max_count": 2, "query": q,
+        "string_properties": strs, "numeric_properties": nums,
+    }}))
+    ack = await until("matchmaker_ticket", 30)
+    rec["add_to_ticket_ms"] = (time.perf_counter() - t_add) * 1e3
+    tid = rec["ticket"] = ack["matchmaker_ticket"]["ticket"]
+    rec["matched"] = None
+    t_end = time.perf_counter() + 60
+    while time.perf_counter() < t_end:
+        try:
+            env = await until("matchmaker_matched", 0.25)
+        except asyncio.TimeoutError:
+            # The 4th interval since the add has begun and no match was
+            # delivered: the ticket must be in the pool.
+            if ticks[0] - added[tid] > 3 and tid not in delivered:
+                if server.matchmaker.store.get(tid) is None:
+                    raise AssertionError(
+                        f"client {i}: neither matched nor in the pool") from None
+                break
+            continue
+        rec["add_to_matched_ms"] = (time.perf_counter() - t_add) * 1e3
+        rec["intervals_to_match"] = delivered[tid] - added[tid]
+        rec["matched"] = env["matchmaker_matched"]
+        break
+    else:
+        raise AssertionError(f"client {i}: no match and no 4th interval in 60 s")
+    results.append(rec)
+
+
+def check_client_groups(results: list, queries_by_session: dict, key: str) -> dict:
+    """Every group that names a client: each member's query accepts every
+    other member's properties (the port's evaluator over the envelope's
+    properties), the match token parses with the server's key and names
+    every member."""
+    from nakama_tpu_torch.api import session_token
+    from nakama_tpu_torch.matchmaker.query import matches, parse_query
+
+    client_query = {r["matched"]["self"]["presence"]["session_id"]: r["query"]
+                    for r in results if r["matched"]}
+    groups = 0
+    for r in results:
+        m = r["matched"]
+        if m is None:
+            continue
+        users = m["users"]
+        if len(users) != 2 or m["ticket"] != r["ticket"]:
+            raise AssertionError(f"client {r['i']}: bad match envelope {m}")
+        for a in users:
+            sid = a["presence"]["session_id"]
+            q = client_query.get(sid) or queries_by_session[sid]
+            for b in users:
+                if b is a:
+                    continue
+                doc = {f"properties.{k}": v for k, v in b["string_properties"].items()}
+                doc.update({f"properties.{k}": float(v)
+                            for k, v in b["numeric_properties"].items()})
+                if not matches(parse_query(q), doc):
+                    raise AssertionError(f"client {r['i']}: {q!r} rejects {b}")
+        claims = session_token.parse(key, m["token"])
+        named = {part.split(":")[0] for part in claims.user_id.split(",")}
+        if claims.vars.get("kind") != "match_token" or named != {
+            u["presence"]["user_id"] for u in users
+        }:
+            raise AssertionError(f"client {r['i']}: match token {claims}")
+        groups += 1
+    return {"groups_checked": groups}
+
+
+def parse_scrape(body: bytes) -> dict:
+    want = ("nakama_matchmaker_tickets", "nakama_overload_state",
+            "nakama_matchmaker_journal", "nakama_sessions ")
+    return {
+        line.rsplit(" ", 1)[0]: float(line.rsplit(" ", 1)[1])
+        for line in body.decode().splitlines()
+        if line.startswith(want) and "_bucket{" not in line
+    }
+
+
+def scrape_db(body: bytes) -> dict:
+    """The group-commit counters of a port scrape: commits, and the write
+    units they carried."""
+    want = {"nakama_db_group_commits_total": "commits",
+            "nakama_db_write_batch_size_count": "batches",
+            "nakama_db_write_batch_size_sum": "units"}
+    out = dict.fromkeys(want.values(), 0.0)
+    for line in body.decode().splitlines():
+        name, _, value = line.partition(" ")
+        if name in want:
+            out[want[name]] = float(value)
+    return out
+
+
+def auth_breakdown(results, auth_server, auth_db, admit_waits, beats, commits) -> dict:
+    """Each device auth split at the server's middleware: before it (the
+    connection, the request, the loop's queue), inside it (admission and
+    the handler, of which the database part), after it (the response and
+    the client's wakeup). Beside them: the RPC class's admission waits,
+    the heartbeat's stalls inside the auth window (their sum and
+    largest), the write queue's deepest point there, and the group
+    commits of the client leg."""
+    def pcts(samples):
+        return {k: v for k, v in ms_stats(samples).items() if k != "samples_ms"}
+
+    before, inside, after, db = [], [], [], []
+    for r in results:
+        t0, t1 = r["auth_at"]
+        s0, s1 = auth_server[r["device"]]
+        before.append((s0 - t0) * 1e3)
+        inside.append((s1 - s0) * 1e3)
+        after.append((t1 - s1) * 1e3)
+        db.append(auth_db[r["device"]] * 1e3)
+    lo = min(r["auth_at"][0] for r in results)
+    hi = max(r["auth_at"][1] for r in results)
+    window = [b for b in beats if lo <= b[0] <= hi]
+    return {
+        "window_s": hi - lo,
+        "before_server_ms": pcts(before), "in_server_ms": pcts(inside),
+        "of_which_db_ms": pcts(db), "after_server_ms": pcts(after),
+        "admission_wait_ms": pcts(admit_waits) if admit_waits else None,
+        "stall_in_window_ms": {"sum": sum(b[1] for b in window),
+                               "max": max((b[1] for b in window), default=0.0),
+                               "beats": len(window)},
+        "write_queue_max": max((b[2] for b in window), default=0),
+        "group_commits": commits,
+    }
+
+
+def phase_server(pickled: bytes) -> dict:
+    """`NakamaServer` on the card at the north-star state size: the
+    100,000-ticket pool checkpointed into a fresh data_dir, warm-restarted
+    by `start()` before its first interval, then 256 socket clients
+    (device auth over HTTP, /ws, one north-star matchmaker_add each)
+    served by 1 s pipelined intervals; each client's ticket acknowledged,
+    matched within 3 intervals or still in the pool, its group valid, its
+    match token the server's. The breaker stays closed, the ladder at OK;
+    stage 1 runs on stage1_wgmma only. Then stop() (drain to durable), a
+    second server on the same data_dir recovers exactly the pool the
+    first held at stop, and `python -m nakama_tpu_torch` serves, stops on
+    SIGTERM and recovers in a subprocess."""
+    import shutil
+
+    from nakama_tpu_torch import kernels
+    from nakama_tpu_torch.api import wsproto
+    from nakama_tpu_torch.server import NakamaServer
+
+    out_dir = os.path.join(OUT_DIR, "chip_smoke", "server")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    fds = raise_fd_limit(4 * SERVER_CLIENTS + 256)
+    cfg = server_config(out_dir)
+    res: dict = {"fd_limit": fds}
+
+    async def run():
+        built = await build_server_checkpoint(pickled, cfg)
+        queries_by_session = built.pop("queries")
+        res["build"] = built
+        gc.collect()
+        log = ServerLog(os.path.join(out_dir, "server.log"))
+        for k in kernels.KERNELS:
+            k.launches = 0
+        t0 = time.perf_counter()
+        server = NakamaServer(cfg, log.logger)
+        if server.matchmaker.backend.device != DEVICE:
+            raise AssertionError(f"server backend on {server.matchmaker.backend.device}")
+        res["construct_s"] = time.perf_counter() - t0
+        # The ladder's samples and the matched handler's time on the loop.
+        levels: list = []
+        sample = server.overload.sample
+
+        def recorded_sample():
+            level = sample()
+            levels.append(level)
+            return level
+
+        server.overload.sample = recorded_sample
+        handler = server.matchmaker.on_matched
+        callbacks: list = []
+
+        # Interval counts at each client ticket's add and at its match's
+        # delivery, by ticket id (client tickets by their slot until then).
+        ticks = [0]
+        added: dict = {}
+        delivered: dict = {}
+        client_slots: dict = {}
+
+        def timed_handler(batch):
+            t = time.perf_counter()
+            try:
+                return handler(batch)
+            finally:
+                callbacks.append({"groups": len(batch),
+                                  "callback_s": time.perf_counter() - t})
+                if client_slots:
+                    keys = np.fromiter(client_slots, dtype=np.int64)
+                    for s in np.intersect1d(np.asarray(batch.slots), keys).tolist():
+                        delivered[client_slots.pop(s)] = ticks[0]
+
+        server.matchmaker.on_matched = timed_handler
+        process = server.matchmaker.process
+
+        def counted_process():
+            ticks[0] += 1
+            return process()
+
+        server.matchmaker.process = counted_process
+        add = server.matchmaker.add
+
+        def counted_add(*args, **kwargs):
+            tid, created = add(*args, **kwargs)
+            added[tid] = ticks[0]
+            client_slots[server.matchmaker.store.slot_by_id(tid)] = tid
+            return tid, created
+
+        server.matchmaker.add = counted_add
+        # Where an auth request's time goes: the server's middleware
+        # (admission and handler), the handler's database part, and the
+        # admission waits of the RPC class (the auth requests').
+        from nakama_tpu_torch import overload as overload_mod
+        from nakama_tpu_torch.core import authenticate as core_auth
+
+        auth_server: dict = {}
+        auth_db: dict = {}
+        admit_waits: list = []
+        middleware = server.api._overload_middleware
+
+        async def timed_middleware(request, handler):
+            t = time.perf_counter()
+            resp = await middleware(request, handler)
+            if request.path == "/v2/account/authenticate/device":
+                auth_server[request.json()["account"]["id"]] = (t, time.perf_counter())
+            return resp
+
+        server.api._overload_middleware = timed_middleware
+        authenticate_device = core_auth.authenticate_device
+
+        async def timed_authenticate(db, device_id, *args):
+            t = time.perf_counter()
+            try:
+                return await authenticate_device(db, device_id, *args)
+            finally:
+                auth_db[device_id] = time.perf_counter() - t
+
+        core_auth.authenticate_device = timed_authenticate
+        admit = server.overload.admission.admit
+
+        async def timed_admit(cls, deadline=None):
+            t = time.perf_counter()
+            try:
+                return await admit(cls, deadline)
+            finally:
+                if cls == overload_mod.RPC:
+                    admit_waits.append((time.perf_counter() - t) * 1e3)
+
+        server.overload.admission.admit = timed_admit
+        t0 = time.perf_counter()
+        await server.start()
+        res["start_s"] = time.perf_counter() - t0
+        rec = server.recovered
+        res["recover"] = {k: v for k, v in rec.items()
+                          if k not in ("unpublished_lsns", "repooled_ids")}
+        if rec["tickets"] != built["tickets"]:
+            raise AssertionError(
+                f"start() recovered {rec['tickets']} of {built['tickets']} tickets")
+        if ticks[0]:
+            raise AssertionError("an interval ran before recover() finished")
+        # The loop's stalls while the clients are served: a 10 ms
+        # heartbeat's lateness, with the write queue's depth beside it.
+        beats: list = []
+        batcher = server.db._batcher
+
+        async def heartbeat():
+            while True:
+                t = time.perf_counter()
+                await asyncio.sleep(0.01)
+                now = time.perf_counter()
+                beats.append((now, (now - t - 0.01) * 1e3, batcher.depth))
+
+        beat = asyncio.get_running_loop().create_task(heartbeat())
+        results: list = []
+        commits0 = scrape_db(server.metrics.scrape())
+        t0 = time.perf_counter()
+        await asyncio.gather(*(
+            server_client(server, ticks, added, delivered, i, results)
+            for i in range(SERVER_CLIENTS)
+        ))
+        res["client_leg_s"] = time.perf_counter() - t0
+        beat.cancel()
+        try:
+            await beat
+        except asyncio.CancelledError:
+            pass
+        commits1 = scrape_db(server.metrics.scrape())
+        res["loop_stall"] = {
+            "beats": len(beats), "max_ms": max(b[1] for b in beats),
+            "sum_ms": sum(b[1] for b in beats),
+        }
+        res["auth_breakdown"] = auth_breakdown(
+            results, auth_server, auth_db, admit_waits, beats,
+            {k: commits1[k] - commits0[k] for k in commits1})
+        mm = server.matchmaker
+        unmatched = [r for r in results if r["matched"] is None]
+        late = [r["i"] for r in results if r.get("intervals_to_match", 0) > 3]
+        if len(results) != SERVER_CLIENTS or late:
+            raise AssertionError(
+                f"{len(results)} clients served; matched after 3 intervals: {late}")
+        res["clients"] = {
+            "n": len(results), "acknowledged": sum("ticket" in r for r in results),
+            "matched": len(results) - len(unmatched), "still_pooled": len(unmatched),
+            "intervals_to_match": dict(collections.Counter(
+                r["intervals_to_match"] for r in results if r["matched"])),
+        }
+        res["client_groups"] = check_client_groups(
+            results, queries_by_session, cfg.session.encryption_key)
+        def pcts(samples):
+            return {k: v for k, v in ms_stats(samples).items() if k != "samples_ms"}
+
+        res["auth_latency"] = pcts([r["auth_ms"] for r in results])
+        res["add_to_ticket"] = pcts([r["add_to_ticket_ms"] for r in results])
+        res["add_to_matched"] = pcts(
+            [r["add_to_matched_ms"] for r in results if r["matched"]])
+        crumbs = [c for c in mm.backend.tracing.breadcrumbs if "actives" in c]
+        res["intervals"] = [
+            {"actives": c["actives"],
+             **{k[:-2] + "_ms": 1e3 * v for k, v in c.items()
+                if k.endswith("_s") and isinstance(v, float)},
+             **{k: v for k, v in c.items() if k.startswith("cohort_")}}
+            for c in crumbs
+        ]
+        res["matched_handler"] = callbacks
+        scrape = await wsproto.request(
+            "127.0.0.1", server.metrics_port, "GET", "/metrics")
+        res["scrape"] = {"status": scrape.status, "bytes": len(scrape.body),
+                         **parse_scrape(scrape.body)}
+        check_backend_clean(mm, "server")
+        # Every acknowledged add journaled and durable, the journal
+        # never degraded (its drains must not inherit a socket
+        # envelope's deadline).
+        journal = server.recovery.journal
+        flushed = await journal.flush()
+        res["journal"] = journal.stats()
+        if not flushed or journal.degraded or res["scrape"].get(
+            "nakama_matchmaker_journal_degraded"
+        ) or journal.dropped or journal.durable_lsn != journal.lsn:
+            raise AssertionError(f"the server's journal: {res['journal']}")
+        res["ladder_levels"] = sorted(set(levels))
+        if not levels or set(levels) != {0}:
+            raise AssertionError(f"the overload ladder left OK: {levels}")
+        # Stop: drain to durable; the final checkpoint timed.
+        ckpt = server.recovery.checkpointer
+        checkpoint = ckpt.checkpoint
+        final: dict = {}
+
+        async def timed_checkpoint(m):
+            t = time.perf_counter()
+            stats = await checkpoint(m)
+            final["s"] = time.perf_counter() - t
+            final["stats"] = stats
+            return stats
+
+        ckpt.checkpoint = timed_checkpoint
+        t0 = time.perf_counter()
+        await server.stop()
+        res["stop_s"] = time.perf_counter() - t0
+        res["final_checkpoint"] = final
+        held = live_ticket_ids(mm)
+        closes = []
+        for r in results:
+            try:
+                while True:
+                    await asyncio.wait_for(r["ws"].recv(), 10)
+            except wsproto.ConnectionClosed as e:
+                closes.append(e.code)
+        if set(closes) != {1012}:
+            raise AssertionError(f"clients closed with {collections.Counter(closes)}")
+        errors = log.errors()
+        if errors:
+            raise AssertionError(f"the server logged errors: {errors[:5]}")
+        res["pool_at_stop"] = len(held)
+        # A second server on the same data_dir: the same pool.
+        log2 = ServerLog(os.path.join(out_dir, "server-restart.log"))
+        again = NakamaServer(cfg, log2.logger)
+        t0 = time.perf_counter()
+        await again.start()
+        res["restart_start_s"] = time.perf_counter() - t0
+        # The clients' tickets still pooled at the stop are held for
+        # their players, out of the pool.
+        pool = sorted(live_ticket_ids(again.matchmaker)
+                      + list(again.recovery.held.ticket_ids()))
+        res["restart_recover"] = {
+            k: v for k, v in again.recovered.items()
+            if k not in ("unpublished_lsns", "repooled_ids")}
+        res["restart_held"] = len(again.recovery.held)
+        await again.stop()
+        if pool != sorted(held) or again.recovered["tickets"] != len(held):
+            raise AssertionError(
+                f"the restart recovered {again.recovered['tickets']} tickets"
+                f" ({len(pool)} pooled or held), the stop held {len(held)}"
+                f" ({len(set(pool) ^ set(held))} differ)")
+        if log2.errors():
+            raise AssertionError(f"the restart logged errors: {log2.errors()[:5]}")
+        res["restart_identical_pool"] = True
+
+    asyncio.run(run())
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    check_routing(launches, "server")
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["python_m"] = server_module_leg(os.path.join(OUT_DIR, "chip_smoke", "server-m"))
+    emit({"phase": "server", "tickets": N_TICKETS, "clients": SERVER_CLIENTS,
+          **res, "launches": launches})
+    return launches
+
+
+def server_module_leg(out_dir: str, backend: str = "cuda") -> dict:
+    """`python -X importtime -m nakama_tpu_torch` (on cuda:0 with the
+    default `backend`), flags only, a small pool: two clients matched,
+    two unmatchable tickets left, SIGTERM → exit 0; a restart reads
+    `recovered_tickets` 2 and `held_tickets` 2 (held for their players)
+    from its boot log. No module of JAX or of the
+    JAX package is imported."""
+    import shutil
+
+    from nakama_tpu_torch.api import wsproto
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    here = os.path.dirname(os.path.abspath(__file__))
+    argv = [
+        sys.executable, "-X", "importtime", "-m", "nakama_tpu_torch",
+        "--socket.port", "0", "--matchmaker.interval_sec", "1",
+        "--matchmaker.pool_capacity", "8192",
+        "--database.address", os.path.join(out_dir, "server.db"),
+        "--data_dir", out_dir, "--logger.level", "info",
+        "--matchmaker.backend", backend,
+    ]
+    env = {**os.environ, "PYTHONPATH": here}
+    out: dict = {}
+
+    def launch(tag):
+        import queue
+
+        err = open(os.path.join(out_dir, f"importtime-{tag}.txt"), "w")
+        proc = subprocess.Popen(argv, cwd=out_dir, env=env, stdout=subprocess.PIPE,
+                                stderr=err, text=True)
+        lines_q: queue.Queue = queue.Queue()
+
+        def pump():  # drains stdout for the child's whole life
+            for raw in proc.stdout:
+                lines_q.put(raw)
+            lines_q.put(None)
+
+        threading.Thread(target=pump, daemon=True).start()
+        lines = []
+        t0 = time.perf_counter()
+        while True:
+            try:
+                raw = lines_q.get(timeout=max(0.01, 120 - (time.perf_counter() - t0)))
+            except queue.Empty:
+                raw = None
+            if raw is None:
+                proc.kill()
+                raise AssertionError(f"python -m ({tag}) never listened: {lines[-5:]}")
+            if raw.startswith("{"):
+                lines.append(json.loads(raw))
+                if lines[-1].get("msg") == "server listening":
+                    break
+        out[f"{tag}_boot_s"] = time.perf_counter() - t0
+        return proc, lines, err
+
+    def stop(proc, err, tag):
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(120)
+        out[f"{tag}_sigterm_exit_s"] = time.perf_counter() - t0
+        err.close()
+        with open(err.name) as fh:
+            report = fh.read()
+        foreign = [
+            ln.rsplit("|", 1)[-1].strip() for ln in report.splitlines()
+            if ln.startswith("import time:") and re.match(
+                r"^(jax|nakama_tpu)(\.|$)", ln.rsplit("|", 1)[-1].strip())
+        ]
+        if code != 0 or foreign:
+            raise AssertionError(f"python -m ({tag}): exit {code}, imported {foreign[:5]}")
+        out[f"{tag}_imports"] = sum(ln.startswith("import time:")
+                                    for ln in report.splitlines())
+
+    proc, lines, err = launch("first")
+    try:
+        port = lines[-1]["port"]
+
+        async def clients():
+            socks = []
+            for i, (mode, want) in enumerate(
+                [("duo", "duo"), ("duo", "duo"), ("a", "none0"), ("b", "none1")]
+            ):
+                r = await wsproto.request(
+                    "127.0.0.1", port, "POST", "/v2/account/authenticate/device",
+                    headers={"Authorization": "Basic " + base64.b64encode(
+                        f"{SERVER_KEY}:".encode()).decode()},
+                    body={"account": {"id": f"smoke-module-{i:04d}"}},
+                )
+                ws = await wsproto.connect("127.0.0.1", port,
+                                           f"/ws?token={r.json()['token']}")
+                await ws.send(json.dumps({"matchmaker_add": {
+                    "min_count": 2, "max_count": 2,
+                    "query": f"+properties.mode:{want}",
+                    "string_properties": {"mode": mode}}}))
+                socks.append(ws)
+
+            async def until(ws, key, timeout):
+                while True:
+                    env = json.loads(await asyncio.wait_for(ws.recv(), timeout))
+                    if key in env:
+                        return env
+
+            for ws in socks:
+                await until(ws, "matchmaker_ticket", 30)
+            matched = [await until(ws, "matchmaker_matched", 30) for ws in socks[:2]]
+            proc.send_signal(signal.SIGTERM)
+            codes = []
+            for ws in socks:
+                try:
+                    while True:
+                        await asyncio.wait_for(ws.recv(), 30)
+                except wsproto.ConnectionClosed as e:
+                    codes.append(e.code)
+            return matched, codes
+
+        t0 = time.perf_counter()
+        matched, codes = asyncio.run(clients())
+        out["clients_s"] = time.perf_counter() - t0
+        if len(matched) != 2 or codes != [1012] * 4:
+            raise AssertionError(f"python -m: matched {len(matched)}, closes {codes}")
+        stop(proc, err, "first")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    proc, lines, err = launch("restart")
+    try:
+        boot = [r for r in lines if r.get("msg") == "crash recovery enabled"]
+        out["restart_recovered_tickets"] = boot[0]["recovered_tickets"] if boot else None
+        out["restart_held_tickets"] = boot[0]["held_tickets"] if boot else None
+        if out["restart_recovered_tickets"] != 2 or out["restart_held_tickets"] != 2:
+            raise AssertionError(f"python -m restart recovered {boot}")
+        stop(proc, err, "restart")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    return out
+
+
 def kernel_line(kernel, launches: int, err: int, timing: dict, ms_key: str,
                 bound_key: str) -> dict:
     return {
@@ -1960,8 +2649,10 @@ def main() -> int:
     paths = [launches, phase_assembler(), phase_snapshot(snap, first_groups)]
     recovery_launches, recovery = phase_recovery(snap)
     paths += [recovery_launches, phase_service(snap), phase_faults()]
+    pickled = snap.pop("pickled")
     del snap
     paths.append(phase_crash(recovery))
+    paths.append(phase_server(pickled))
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 1)})
     total = {k.name: sum(p[k.name] for p in paths) for k in kernels.KERNELS}
     err = timing["max_err"]

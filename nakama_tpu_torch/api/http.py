@@ -1,0 +1,604 @@
+"""HTTP request/response API + the /ws socket on one port.
+
+Parity with the reference ApiServer (reference server/api.go:87-226) for
+this slice of the port: the JAX package's `api/http.py` routes `/`,
+`/healthcheck` and `/v2/healthcheck`, `/ws`, the device, email and
+custom `/v2/account/authenticate/*` routes (server-key Basic auth),
+`/v2/account/session/refresh` and `/v2/session/logout`, behind the same
+overload middleware (admission classes, exempt paths, 429 +
+Retry-After, 504, the `traceparent` echo) and with the same error
+bodies (`{"error", "message", "code"}`) and status codes (`_map_error`).
+Every other route of the JAX package answers as its
+`_h_unimplemented` does (501) until its slice lands; a path it does not
+route is 404, a method it does not route on a known path 405.
+
+It runs over `wsproto` (the port's standard-library HTTP/1.1 and
+WebSocket transport), not `aiohttp`. The metrics listener serves the
+registry's exposition at `/metrics` on the metrics section's
+`prometheus_port` (0 = off, -1 = an ephemeral port), as the JAX
+console's does.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import base64
+import re
+import time
+from typing import Any
+
+from .. import overload
+from .. import tracing as trace_api
+from ..core import authenticate as core_auth
+from ..core.authenticate import AuthError
+from . import session_token
+from .wsproto import HttpRequest, HttpResponse, HttpServer, json_response
+
+GRPC_UNAUTHENTICATED = 16
+GRPC_PERMISSION_DENIED = 7
+GRPC_NOT_FOUND = 5
+GRPC_ALREADY_EXISTS = 6
+GRPC_INVALID_ARGUMENT = 3
+GRPC_DEADLINE_EXCEEDED = 4
+GRPC_RESOURCE_EXHAUSTED = 8
+GRPC_INTERNAL = 13
+GRPC_UNIMPLEMENTED = 12
+
+_AUTH_CODE_TO_HTTP = {
+    "not_found": (404, GRPC_NOT_FOUND),
+    "already_exists": (409, GRPC_ALREADY_EXISTS),
+    "unauthenticated": (401, GRPC_UNAUTHENTICATED),
+    "permission_denied": (403, GRPC_PERMISSION_DENIED),
+}
+
+_SOCIAL_PROVIDERS = (
+    "apple", "facebook", "facebookinstantgame", "gamecenter", "google",
+    "steam",
+)
+_PROVIDERS = ("device", "email", "custom") + _SOCIAL_PROVIDERS
+
+# The JAX package's routes that later slices port (method, path
+# pattern): each answers 501 here.
+_LATER_ROUTES = (
+    [("POST", f"/v2/account/authenticate/{p}") for p in _SOCIAL_PROVIDERS]
+    + [("POST", f"/v2/account/{kind}/{p}")
+       for kind in ("link", "unlink") for p in _PROVIDERS]
+    + [
+        ("GET", "/v2/account"), ("PUT", "/v2/account"),
+        ("DELETE", "/v2/account"), ("GET", "/v2/user"),
+        ("POST", "/v2/storage"), ("PUT", "/v2/storage"),
+        ("PUT", "/v2/storage/delete"), ("GET", "/v2/storage/{collection}"),
+        ("GET", "/v2/storage/{collection}/{user_id}"),
+        ("POST", "/v2/rpc/{id}"), ("GET", "/v2/rpc/{id}"),
+        ("POST", "/v2/event"), ("GET", "/v2/match"),
+        ("GET", "/v2/leaderboard/{id}"), ("POST", "/v2/leaderboard/{id}"),
+        ("DELETE", "/v2/leaderboard/{id}"),
+        ("GET", "/v2/leaderboard/{id}/owner/{owner_id}"),
+        ("GET", "/v2/channel/{channel_id}"), ("GET", "/v2/tournament"),
+        ("GET", "/v2/tournament/{id}"), ("POST", "/v2/tournament/{id}"),
+        ("POST", "/v2/tournament/{id}/join"),
+        ("DELETE", "/v2/tournament/{id}"),
+        ("GET", "/v2/tournament/{id}/owner/{owner_id}"),
+        ("GET", "/v2/friend"), ("POST", "/v2/friend"),
+        ("DELETE", "/v2/friend"), ("POST", "/v2/friend/block"),
+        ("POST", "/v2/friend/facebook"), ("POST", "/v2/friend/steam"),
+        ("GET", "/v2/group"), ("POST", "/v2/group"),
+        ("PUT", "/v2/group/{group_id}"), ("DELETE", "/v2/group/{group_id}"),
+        ("GET", "/v2/group/{group_id}/user"),
+        ("GET", "/v2/user/{user_id}/group"),
+    ]
+    + [("POST", f"/v2/group/{{group_id}}/{action}")
+       for action in ("join", "leave", "add", "kick", "ban", "promote",
+                      "demote")]
+    + [
+        ("GET", "/v2/notification"), ("DELETE", "/v2/notification"),
+        ("POST", "/v2/iap/purchase/apple"), ("POST", "/v2/iap/purchase/google"),
+        ("POST", "/v2/iap/purchase/huawei"), ("GET", "/v2/iap/subscription"),
+        ("POST", "/v2/iap/subscription/apple"),
+        ("POST", "/v2/iap/subscription/google"),
+        ("GET", "/v2/iap/subscription/{original_transaction_id}"),
+    ]
+)
+
+
+def _pattern(path: str) -> re.Pattern:
+    return re.compile("^" + re.sub(r"\{[^}]+\}", "[^/]+", path) + "$")
+
+
+class ApiError(Exception):
+    def __init__(self, message: str, status: int, grpc_code: int):
+        super().__init__(message)
+        self.status = status
+        self.grpc_code = grpc_code
+
+
+def _error_response(
+    message: str, status: int, grpc_code: int, headers: dict | None = None
+) -> HttpResponse:
+    return json_response(
+        {"error": message, "message": message, "code": grpc_code},
+        status=status,
+        headers=headers,
+    )
+
+
+def _text_response(status: int, text: str) -> HttpResponse:
+    return HttpResponse(
+        status, text.encode(), content_type="text/plain; charset=utf-8"
+    )
+
+
+# Paths outside admission control: health/index must answer even under
+# SHED (that's how operators see the server is alive), and /ws is a
+# long-lived upgrade — holding a permit for a connection's lifetime
+# would exhaust the pool, so realtime admission is per-envelope in the
+# pipeline instead.
+_OVERLOAD_EXEMPT = frozenset({"/", "/healthcheck", "/v2/healthcheck", "/ws"})
+
+
+class ApiServer:
+    """Routes + auth middleware over the NakamaServer's components."""
+
+    def __init__(self, server):
+        self.server = server
+        self.config = server.config
+        self.logger = server.logger.with_fields(subsystem="api")
+        sc = self.config.socket
+        self._http = HttpServer(
+            self._handle,
+            max_request_size=sc.max_request_size_bytes,
+            idle_timeout_s=sc.idle_timeout_ms / 1000.0,
+            logger=self.logger,
+        )
+        self._metrics_http: HttpServer | None = None
+        self.port: int | None = None
+        self.metrics_port: int | None = None
+        routes: list[tuple[str, str, Any]] = [
+            ("GET", "/", self._h_index),
+            ("GET", "/healthcheck", self._h_healthcheck),
+            ("GET", "/v2/healthcheck", self._h_healthcheck),
+            ("GET", "/ws", self._h_ws),
+            ("POST", "/v2/account/session/refresh", self._h_session_refresh),
+            ("POST", "/v2/session/logout", self._h_session_logout),
+        ]
+        for provider in ("device", "email", "custom"):
+            routes.append((
+                "POST", f"/v2/account/authenticate/{provider}",
+                self._make_authenticate(provider),
+            ))
+        routes += [(m, p, self._h_unimplemented) for m, p in _LATER_ROUTES]
+        self._routes = [(m, _pattern(p), h) for m, p, h in routes]
+
+    # ----------------------------------------------------------- lifecycle
+
+    async def start(self, host: str, port: int) -> int:
+        self.port = await self._http.start(host, port)
+        metrics_cfg = self.config.metrics
+        want = metrics_cfg.prometheus_port
+        if want:
+            # Prometheus exposition on its own internal listener (the
+            # reference serves scrape on a dedicated port and treats 0
+            # as disabled); -1 binds an ephemeral port.
+            self._metrics_http = HttpServer(
+                self._handle_metrics, max_request_size=0, logger=self.logger
+            )
+            self.metrics_port = await self._metrics_http.start(
+                host, 0 if want < 0 else want
+            )
+        return self.port
+
+    async def stop(self):
+        """Stop both listeners; requests in flight finish, and open
+        sockets stay until the server closes their sessions
+        (`wait_closed`)."""
+        if self._metrics_http is not None:
+            await self._metrics_http.stop()
+        await self._http.stop()
+
+    async def wait_closed(self):
+        if self._metrics_http is not None:
+            await self._metrics_http.wait_closed()
+            self._metrics_http = None
+        await self._http.wait_closed()
+
+    async def _handle_metrics(self, request: HttpRequest) -> HttpResponse:
+        if request.path != "/metrics":
+            return _text_response(404, "404: Not Found")
+        return HttpResponse(
+            200,
+            self.server.metrics.scrape(),
+            content_type="text/plain; version=0.0.4; charset=utf-8",
+        )
+
+    # ------------------------------------------------------------- routing
+
+    def _route(self, request: HttpRequest):
+        path = request.path
+        known = False
+        for method, pattern, handler in self._routes:
+            if pattern.match(path):
+                known = True
+                if method == request.method:
+                    return handler
+        if known:
+            return lambda _req: _async(
+                _text_response(405, "405: Method Not Allowed")
+            )
+        return lambda _req: _async(_text_response(404, "404: Not Found"))
+
+    async def _handle(self, request: HttpRequest) -> HttpResponse | None:
+        handler = self._route(request)
+        if request.path in _OVERLOAD_EXEMPT:
+            return await handler(request)
+        return await self._overload_middleware(request, handler)
+
+    # ------------------------------------------------------------ overload
+
+    def _rate_key(self, request: HttpRequest) -> str:
+        """Rate-limiter key: client IP + the tail of the presented
+        credential, so one NATed IP's users don't share a bucket but an
+        unauthenticated flood from one address still does."""
+        return f"{request.remote}|{request.headers.get('Authorization', '')[-16:]}"
+
+    async def _overload_middleware(self, request: HttpRequest, handler):
+        """The request-plane front door: one trace root span per
+        request (W3C `traceparent` ingested from the request and
+        emitted on every response — including 429/504 rejections, whose
+        traces are error-status and therefore always tail-kept), the
+        overload triad (overload.py) inside it, and the api-latency SLO
+        observation on the way out."""
+        ov = getattr(self.server, "overload", None)
+        if not trace_api.TRACES.enabled:
+            return await self._normalized(request, handler, ov)
+        t0 = time.perf_counter()
+        with trace_api.root_span(
+            f"http {request.method} {request.path}",
+            traceparent=request.headers.get("traceparent", ""),
+            **{"http.method": request.method, "http.path": request.path},
+        ) as root:
+            resp = await self._normalized(request, handler, ov)
+            if root is not None:
+                root.set_attribute("http.status", resp.status)
+                if resp.status in (429, 504) or resp.status >= 500:
+                    root.set_status("error", f"http {resp.status}")
+                resp.headers["traceparent"] = trace_api.current_traceparent()
+            slo = getattr(self.server, "slo", None)
+            if slo is not None:
+                slo.observe(
+                    "api_latency", (time.perf_counter() - t0) * 1000
+                )
+            return resp
+
+    async def _normalized(self, request: HttpRequest, handler, ov):
+        """Every request resolves to a RESPONSE here: a raw escape
+        becomes the API's standard JSON 500, so the outage still gets
+        its error trace, traceparent echo and SLO observation."""
+        try:
+            return await self._admitted(request, handler, ov)
+        except asyncio.CancelledError:
+            raise
+        except Exception as e:
+            self.logger.error(
+                "unhandled error in request middleware", error=str(e)
+            )
+            return _error_response("internal error", 500, GRPC_INTERNAL)
+
+    async def _admitted(self, request: HttpRequest, handler, ov):
+        """The overload triad (overload.py): deadline from
+        `grpc-timeout`/`X-Request-Timeout` (else the per-class
+        default), token-bucket rate limit, prioritized admission, and
+        the deadline carried via contextvar into storage/matchmaker
+        checkpoints. A request presenting a credential and not a GET is
+        the RPC class; everything else the list class (realtime
+        envelopes are classed in the pipeline)."""
+        if ov is None:
+            return await handler(request)
+        cls = (
+            overload.RPC
+            if request.method != "GET"
+            and (
+                request.headers.get("Authorization")
+                or request.query.get("http_key")
+            )
+            else overload.LIST
+        )
+        ocfg = self.config.overload
+        default_ms = (
+            ocfg.deadline_list_ms if cls == overload.LIST
+            else ocfg.deadline_rpc_ms
+        ) or ocfg.deadline_default_ms
+        try:
+            deadline = overload.deadline_from_headers(
+                request.headers, default_ms
+            )
+        except ValueError as e:
+            return _error_response(str(e), 400, GRPC_INVALID_ARGUMENT)
+        limiter = ov.rate_limiter
+        if limiter is not None and not limiter.allow(self._rate_key(request)):
+            e = ov.admission.reject(cls, "rate_limited")
+            return _error_response(
+                str(e), 429, GRPC_RESOURCE_EXHAUSTED,
+                headers={"Retry-After": str(int(e.retry_after_sec))},
+            )
+        try:
+            with trace_api.span(
+                "admission", **{"class": overload.CLASS_NAMES[cls]}
+            ):
+                await ov.admission.admit(cls, deadline)
+        except overload.AdmissionRejected as e:
+            return _error_response(
+                str(e), 429, GRPC_RESOURCE_EXHAUSTED,
+                headers={"Retry-After": str(int(e.retry_after_sec))},
+            )
+        except overload.DeadlineExceeded as e:
+            self._note_deadline()
+            return _error_response(str(e), 504, GRPC_DEADLINE_EXCEEDED)
+        token = overload.set_deadline(deadline)
+        try:
+            if deadline.explicit:
+                # A client-supplied timeout is ENFORCED: the handler is
+                # cancelled at expiry and the caller gets their 504.
+                try:
+                    return await asyncio.wait_for(
+                        handler(request), max(0.0, deadline.remaining())
+                    )
+                except asyncio.TimeoutError:
+                    self._note_deadline()
+                    return _error_response(
+                        "deadline exceeded", 504, GRPC_DEADLINE_EXCEEDED
+                    )
+            return await handler(request)
+        finally:
+            overload.reset_deadline(token)
+            ov.admission.release()
+
+    def _note_deadline(self):
+        metrics = getattr(self.server, "metrics", None)
+        if metrics is not None:
+            metrics.request_deadline_exceeded.labels(stage="http").inc()
+
+    # ---------------------------------------------------------------- auth
+
+    def _check_server_key(self, request: HttpRequest):
+        """Basic auth with the server key (reference api.go:101
+        securityInterceptorFunc for authenticate methods)."""
+        header = request.headers.get("Authorization", "")
+        if header.startswith("Basic "):
+            try:
+                decoded = base64.b64decode(header[6:]).decode()
+            except Exception:
+                decoded = ""
+            key = decoded.split(":", 1)[0]
+            if key == self.config.socket.server_key:
+                return
+        raise ApiError(
+            "server key required", 401, GRPC_UNAUTHENTICATED
+        )
+
+    def _session(self, request: HttpRequest) -> session_token.SessionClaims:
+        header = request.headers.get("Authorization", "")
+        token = header[7:] if header.startswith("Bearer ") else ""
+        if not token:
+            token = request.query.get("token", "")
+        if not token:
+            raise ApiError(
+                "auth token required", 401, GRPC_UNAUTHENTICATED
+            )
+        try:
+            claims = session_token.parse(
+                self.config.session.encryption_key, token
+            )
+        except session_token.TokenError as e:
+            raise ApiError(str(e), 401, GRPC_UNAUTHENTICATED)
+        if not self.server.session_cache.is_valid_session(
+            claims.user_id, claims.token_id
+        ):
+            raise ApiError(
+                "session invalidated", 401, GRPC_UNAUTHENTICATED
+            )
+        return claims
+
+    def _issue_tokens(
+        self, user_id: str, username: str, vars: dict | None = None
+    ) -> dict:
+        sc = self.config.session
+        token, claims = session_token.generate(
+            sc.encryption_key,
+            user_id,
+            username,
+            sc.token_expiry_sec,
+            vars=vars or {},
+        )
+        refresh, rclaims = session_token.generate(
+            sc.refresh_encryption_key,
+            user_id,
+            username,
+            sc.refresh_token_expiry_sec,
+            vars=vars or {},
+        )
+        self.server.session_cache.add(
+            user_id,
+            claims.expires_at,
+            claims.token_id,
+            rclaims.expires_at,
+            rclaims.token_id,
+        )
+        return {"token": token, "refresh_token": refresh}
+
+    async def _json(self, request: HttpRequest) -> dict:
+        if not request.body:
+            return {}
+        try:
+            body = request.json()
+        except ValueError:
+            raise ApiError(
+                "invalid JSON body", 400, GRPC_INVALID_ARGUMENT
+            )
+        return body if isinstance(body, dict) else {}
+
+    # ------------------------------------------------------------- basics
+
+    async def _h_index(self, request):
+        return json_response({"name": self.config.name})
+
+    async def _h_healthcheck(self, request):
+        # DB reachability is the health signal (reference Healthcheck).
+        try:
+            await self.server.db.fetch_one("SELECT 1")
+        except Exception as e:
+            return _error_response(str(e), 500, GRPC_INTERNAL)
+        return json_response({})
+
+    async def _h_unimplemented(self, request):
+        return _error_response(
+            "not yet implemented", 501, GRPC_UNIMPLEMENTED
+        )
+
+    async def _h_ws(self, request: HttpRequest):
+        sc = self.config.socket
+        ws = await request.accept_websocket(
+            max_message_size=sc.max_message_size_bytes,
+            ping_period_s=sc.ping_period_ms / 1000.0,
+            pong_wait_s=sc.pong_wait_ms / 1000.0,
+        )
+        await self.server.acceptor.handle(ws)
+        return None
+
+    # ----------------------------------------------------- authentication
+
+    def _make_authenticate(self, provider: str):
+        async def handler(request: HttpRequest):
+            try:
+                self._check_server_key(request)
+                body = await self._json(request)
+                create = _parse_bool(
+                    request.query.get("create", body.get("create", True))
+                )
+                username = request.query.get(
+                    "username", body.get("username", "")
+                )
+                account = body.get("account", body)
+                db = self.server.db
+                if provider == "device":
+                    user_id, uname, created = (
+                        await core_auth.authenticate_device(
+                            db, account.get("id", ""), username, create
+                        )
+                    )
+                elif provider == "email":
+                    user_id, uname, created = (
+                        await core_auth.authenticate_email(
+                            db,
+                            account.get("email", ""),
+                            account.get("password", ""),
+                            username,
+                            create,
+                        )
+                    )
+                else:
+                    user_id, uname, created = (
+                        await core_auth.authenticate_custom(
+                            db, account.get("id", ""), username, create
+                        )
+                    )
+                result = {
+                    "created": created,
+                    **self._issue_tokens(
+                        user_id, uname, body.get("vars") or {}
+                    ),
+                }
+                return json_response(result)
+            except Exception as e:
+                return self._map_error(e)
+
+        return handler
+
+    async def _h_session_refresh(self, request: HttpRequest):
+        try:
+            self._check_server_key(request)
+            body = await self._json(request)
+            sc = self.config.session
+            try:
+                claims = session_token.parse(
+                    sc.refresh_encryption_key, body.get("token", "")
+                )
+            except session_token.TokenError as e:
+                raise ApiError(str(e), 401, GRPC_UNAUTHENTICATED)
+            cache = self.server.session_cache
+            if not cache.is_valid_refresh(claims.user_id, claims.token_id):
+                raise ApiError(
+                    "refresh token invalidated", 401, GRPC_UNAUTHENTICATED
+                )
+            # Rotation kills only the USED refresh token; live sessions on
+            # other devices keep working and short-lived session tokens
+            # age out naturally (reference SessionRefresh semantics).
+            cache.remove_refresh(claims.user_id, claims.token_id)
+            vars = dict(claims.vars)
+            vars.update(body.get("vars") or {})
+            result = {
+                "created": False,
+                **self._issue_tokens(claims.user_id, claims.username, vars),
+            }
+            return json_response(result)
+        except Exception as e:
+            return self._map_error(e)
+
+    async def _h_session_logout(self, request: HttpRequest):
+        """Invalidate the presented session (+ the refresh token in the
+        body, if given) — NOT every device's sessions (reference
+        SessionLogout api_account.go)."""
+        try:
+            claims = self._session(request)
+            cache = self.server.session_cache
+            cache.remove_session(claims.user_id, claims.token_id)
+            body = await self._json(request)
+            refresh = body.get("refresh_token", "")
+            if refresh:
+                try:
+                    rclaims = session_token.parse(
+                        self.config.session.refresh_encryption_key, refresh
+                    )
+                    cache.remove_refresh(
+                        rclaims.user_id, rclaims.token_id
+                    )
+                except session_token.TokenError:
+                    pass
+            return json_response({})
+        except Exception as e:
+            return self._map_error(e)
+
+    # ------------------------------------------------------------- errors
+
+    def _map_error(self, e: Exception) -> HttpResponse:
+        if isinstance(e, ApiError):
+            return _error_response(str(e), e.status, e.grpc_code)
+        if isinstance(e, overload.DeadlineExceeded):
+            # A checkpoint deep in the stack (matchmaker add, storage
+            # submit/drain) short-circuited on the caller's deadline.
+            self._note_deadline()
+            return _error_response(str(e), 504, GRPC_DEADLINE_EXCEEDED)
+        if isinstance(e, overload.AdmissionRejected):
+            return _error_response(
+                str(e), 429, GRPC_RESOURCE_EXHAUSTED,
+                headers={"Retry-After": str(int(e.retry_after_sec))},
+            )
+        if isinstance(e, AuthError):
+            status, code = _AUTH_CODE_TO_HTTP.get(
+                getattr(e, "code", ""), (400, GRPC_INVALID_ARGUMENT)
+            )
+            return _error_response(str(e), status, code)
+        if isinstance(e, (ValueError, KeyError)):
+            # Malformed client input (unparsable ints, bad cursors).
+            return _error_response(str(e), 400, GRPC_INVALID_ARGUMENT)
+        self.logger.error("api handler error", error=str(e))
+        return _error_response("internal error", 500, GRPC_INTERNAL)
+
+
+async def _async(value):
+    return value
+
+
+def _parse_bool(value: Any) -> bool:
+    if isinstance(value, bool):
+        return value
+    return str(value).lower() in ("true", "1", "yes", "")

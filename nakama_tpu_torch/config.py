@@ -1,29 +1,118 @@
-"""Matchmaker configuration of the PyTorch/CUDA port.
+"""Configuration tree of the PyTorch/CUDA port: dataclasses, YAML files
+and reflected CLI flags.
 
-Field names and defaults follow the JAX package's `MatchmakerConfig`
-(reference defaults: server/config.go:971-989), less the mesh-sharding
-knobs (the port runs on one card), plus the matchmaker-facing parts of
-its `TracingConfig` and `DevObsConfig`. `apply_observability` hands the
-latter two to the process-wide trace store and telemetry plane.
-`OverloadConfig` and `RecoveryConfig` carry the JAX package's fields
-(names and defaults) that the port reads so far: the ladder's and the
-admission controller's, and the recovery plane's. The rest of those
-sections, and the metrics and database sections, come with the server
-slice that reads them.
+Field names, defaults and comments follow the JAX package's `config.py`
+section for section (reference server/config.go:35-1073), for the
+sections the port serves so far: the server's own fields (`name`,
+`data_dir`, `shutdown_grace_sec`), `logger`, `metrics`, `session`,
+`socket`, `database`, `matchmaker`, `tracker`, `overload`, `tracing`,
+`recovery` and `devobs`. The matchmaker section drops the mesh-sharding
+knobs (the port runs on one card); `socket` has no `grpc_port` and
+`database` no `group_commit` (the port has neither path), and fields no
+port code reads yet are left out until the code that reads them lands
+(the metrics section's `reporting_freq_sec`, `session.single_match`,
+`single_party`, `single_session`, `socket.read_buffer_size_bytes`,
+`write_buffer_size_bytes`, `ping_backoff_threshold`, `database.driver`,
+`conn_max_lifetime_ms`). A section the
+port does not have yet (`cluster`, `console`, `runtime`, ...) is an
+unknown key to `load_config`, as a typo is. `--config file.yml` imports
+PyYAML only when a file is given; flags alone need nothing outside the
+standard library. `apply_observability` hands the tracing and devobs
+sections to the process-wide trace store and telemetry plane.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import re
+import socket
+from dataclasses import dataclass, field, fields, is_dataclass
+from typing import Any
+
+
+@dataclass
+class LoggerConfig:
+    level: str = "info"
+    format: str = "json"  # json | text | logfmt | stackdriver
+    stdout: bool = True
+    file: str = ""
+    # File-sink rotation (reference server/config.go:627-646, lumberjack
+    # semantics): size-triggered rotation with count/age retention.
+    rotation: bool = False
+    max_size: int = 100  # megabytes before the file rotates
+    max_age: int = 0  # days to retain rotated files (0 = no age pruning)
+    max_backups: int = 0  # rotated files to retain (0 = keep all)
+    local_time: bool = False  # timestamp rotated names in local time
+    compress: bool = False  # gzip rotated files
+
+
+@dataclass
+class MetricsConfig:
+    namespace: str = ""
+    # 0 = exposition disabled (reference semantics); >0 = dedicated
+    # internal listener; -1 = ephemeral port (tests).
+    prometheus_port: int = 0
+
+
+@dataclass
+class SessionConfig:
+    encryption_key: str = "defaultencryptionkey"
+    token_expiry_sec: int = 60
+    refresh_encryption_key: str = "defaultrefreshencryptionkey"
+    refresh_token_expiry_sec: int = 3600
+    single_socket: bool = False
+
+
+@dataclass
+class SocketConfig:
+    server_key: str = "defaultkey"
+    port: int = 7350
+    address: str = ""
+    max_message_size_bytes: int = 4096
+    max_request_size_bytes: int = 262_144
+    idle_timeout_ms: int = 60_000
+    ping_period_ms: int = 15_000
+    pong_wait_ms: int = 25_000
+    outgoing_queue_size: int = 64
+
+
+@dataclass
+class DatabaseConfig:
+    # ":memory:" = embedded non-durable default; point at a file path for
+    # durability (reference default is a live Postgres DSN, config.go).
+    address: list[str] = field(default_factory=lambda: [":memory:"])
+    max_open_conns: int = 100
+    # Reader pool width (file-backed WAL engines only; capped by
+    # max_open_conns at construction, server.py). 8 matches the
+    # pre-knob hardcoded server pool so existing deployments keep
+    # their read parallelism.
+    read_pool_size: int = 8
+    write_batch_max: int = 256  # most units one drain may share a commit
+    write_queue_depth: int = 4096  # queued units before submitters park
+    # Bounded linger (ms) before a non-full drain commits; 0 = drain
+    # immediately (commit latency already batches concurrent writers).
+    write_drain_deadline_ms: int = 0
+    # Storage self-healing (faults.py degradation ladder): a crashed
+    # write-drain / read-coalescer loop fails its pending futures with
+    # DatabaseError and restarts with backoff; after this many
+    # consecutive crash-restarts the batcher fails fast (new submits
+    # rejected) until a drain succeeds or the engine reconnects.
+    db_drain_restart_max: int = 8
+
+
+@dataclass
+class TrackerConfig:
+    event_queue_size: int = 1024
 
 
 @dataclass
 class OverloadConfig:
-    """Overload-control plane (overload.py): admission control and the
-    load-level ladder. Defaults are the disarmed production posture —
-    admission is bounded, but the bounds are wide enough that an
-    unloaded server never queues."""
+    """Overload-control plane (overload.py): admission control, deadline
+    propagation, prioritized shedding. Defaults are the disarmed
+    production posture — deadlines propagate and admission is bounded,
+    but the bounds are wide enough that an unloaded server never
+    queues."""
 
+    enabled: bool = True
     # Server-wide concurrent-request permits shared by all three
     # priority classes (realtime socket ops > authenticated RPC/storage
     # > anonymous list/read endpoints).
@@ -35,13 +124,27 @@ class OverloadConfig:
     admission_queue_rpc: int = 256
     admission_queue_list: int = 64
     retry_after_sec: int = 1
+    # Per-class request deadline defaults (ms), used when the client
+    # sent no grpc-timeout / X-Request-Timeout header; 0 falls back to
+    # deadline_default_ms. Expired deadlines short-circuit with 504
+    # before doing dead work, and the storage write batcher drops
+    # queued units whose caller deadline passed.
+    deadline_default_ms: int = 10_000
+    deadline_realtime_ms: int = 5_000
+    deadline_rpc_ms: int = 0
+    deadline_list_ms: int = 0
+    # Token-bucket per-key (ip+token) rate limiter generalizing the
+    # LoginAttemptCache tiers; 0 rps = disabled (the default: the
+    # admission queues are the primary bound).
+    rate_limit_rps: float = 0.0
+    rate_limit_burst: int = 32
     # Load-level ladder (OK→WARN→SHED): sampled every ladder_sample_ms;
     # escalation is immediate, de-escalation needs
     # ladder_recover_samples consecutive calmer samples.
     ladder_sample_ms: int = 250
     ladder_recover_samples: int = 3
-    # db_write_queue_depth thresholds as fractions of the engine's
-    # write queue depth.
+    # db_write_queue_depth thresholds as fractions of
+    # database.write_queue_depth.
     shed_queue_depth_warn: float = 0.5
     shed_queue_depth_shed: float = 0.9
     # Matchmaker interval-lag thresholds (seconds past the head
@@ -55,10 +158,12 @@ class RecoveryConfig:
     """Crash-recovery plane (recovery.py): the durable ticket journal
     (append-only, LSN-ordered, drained through the group-commit write
     pipeline), periodic pool checkpoints that truncate it, and the
-    warm-restart replay at boot. Durability requires a file-backed
-    database; on `:memory:` engines the plane runs but a process
-    restart starts a fresh store."""
+    warm-restart replay at boot. Defaults are the armed production
+    posture — journaling on, checkpoints every 60s. Durability requires
+    a file-backed database; on `:memory:` engines the plane runs but a
+    process restart starts a fresh store (documented, not an error)."""
 
+    enabled: bool = True
     # Journal ticket outcomes (add/remove/matched/publish-failed).
     # False keeps checkpoints only: replay granularity becomes the
     # checkpoint interval instead of the last durable journal drain.
@@ -73,7 +178,7 @@ class RecoveryConfig:
     # drops oldest records — the pool still holds the tickets and the
     # next checkpoint covers them.
     journal_buffer_cap: int = 65536
-    # Checkpoint/snapshot directory; empty = the server's data_dir.
+    # Checkpoint/snapshot directory; empty = config.data_dir.
     recovery_dir: str = ""
 
 
@@ -160,8 +265,16 @@ class TracingConfig:
     sample_salt: str = ""
     # SLO plane: target good-fraction + per-SLI thresholds.
     slo_target: float = 0.99
+    slo_api_latency_ms: int = 200
     slo_interval_ms: int = 1000  # matchmaker process() wall time
     slo_publish_lag_ms: int = 5000  # cohort dispatch→published lag
+    # Feed the 5m burn rate into the OverloadController ladder (WARN at
+    # slo_burn_warn, SHED at slo_burn_shed). Off by default: a freshly
+    # booted server's first intervals (kernel builds, the first
+    # 100,000-ticket pass) would spike the burn and tighten admission.
+    slo_overload_feedback: bool = False
+    slo_burn_warn: float = 14.0
+    slo_burn_shed: float = 100.0
 
 
 @dataclass
@@ -178,6 +291,268 @@ class DevObsConfig:
     # Bounded kernel-event timeline depth (delivery-ledger device phase
     # chains slice it by wall window).
     timeline_depth: int = 256
+
+
+@dataclass
+class Config:
+    name: str = "nakama-tpu"
+    data_dir: str = "./data"
+    # Graceful-stop budget: in-flight matchmaker cohorts get this long
+    # to publish, queued storage writes this long to commit, before
+    # close() starts rejecting. A small nonzero grace is the
+    # crash-only-software posture: fast, but never lossy by default.
+    shutdown_grace_sec: int = 3
+    logger: LoggerConfig = field(default_factory=LoggerConfig)
+    metrics: MetricsConfig = field(default_factory=MetricsConfig)
+    session: SessionConfig = field(default_factory=SessionConfig)
+    socket: SocketConfig = field(default_factory=SocketConfig)
+    database: DatabaseConfig = field(default_factory=DatabaseConfig)
+    matchmaker: MatchmakerConfig = field(default_factory=MatchmakerConfig)
+    tracker: TrackerConfig = field(default_factory=TrackerConfig)
+    overload: OverloadConfig = field(default_factory=OverloadConfig)
+    tracing: TracingConfig = field(default_factory=TracingConfig)
+    recovery: RecoveryConfig = field(default_factory=RecoveryConfig)
+    devobs: DevObsConfig = field(default_factory=DevObsConfig)
+
+    @property
+    def node(self) -> str:
+        return self.name
+
+    def check(self) -> list[str]:
+        """Sanity-check the config; returns warnings. The JAX package's
+        checks of the sections the port has, in its order and words."""
+        warnings: list[str] = []
+        # The node name is embedded in presence/ticket/match IDs with
+        # "." as the separator and is parsed back out by rsplit.
+        if not re.fullmatch(r"[A-Za-z0-9_-]+", self.name or ""):
+            raise ValueError(
+                "name must be non-empty and contain only"
+                " [A-Za-z0-9_-] (it is embedded in presence/ticket/"
+                "match IDs with '.' as the separator)"
+            )
+        if self.session.encryption_key == "defaultencryptionkey":
+            warnings.append("session.encryption_key is the insecure default")
+        if self.socket.server_key == "defaultkey":
+            warnings.append("socket.server_key is the insecure default")
+        if self.matchmaker.max_tickets < 1:
+            raise ValueError("matchmaker.max_tickets must be >= 1")
+        if self.matchmaker.interval_sec < 1:
+            raise ValueError("matchmaker.interval_sec must be >= 1")
+        if self.matchmaker.max_intervals < 1:
+            raise ValueError("matchmaker.max_intervals must be >= 1")
+        if self.overload.admission_max_concurrent < 1:
+            raise ValueError(
+                "overload.admission_max_concurrent must be >= 1"
+            )
+        if not (
+            0.0 < self.overload.shed_queue_depth_warn
+            <= self.overload.shed_queue_depth_shed
+        ):
+            warnings.append(
+                "overload.shed_queue_depth_warn should be in"
+                " (0, shed_queue_depth_shed]"
+            )
+        if not (0.0 <= self.tracing.sample_rate <= 1.0):
+            warnings.append(
+                "tracing.sample_rate should be in [0, 1]"
+            )
+        if not (0.0 < self.tracing.slo_target < 1.0):
+            warnings.append("tracing.slo_target should be in (0, 1)")
+        if self.devobs.warmup_intervals < 0:
+            raise ValueError("devobs.warmup_intervals must be >= 0")
+        if self.recovery.checkpoint_interval_sec < 1:
+            raise ValueError(
+                "recovery.checkpoint_interval_sec must be >= 1"
+            )
+        if self.recovery.enabled and self.database.address == [":memory:"]:
+            warnings.append(
+                "recovery is enabled but database.address is :memory: —"
+                " the ticket journal will not survive a restart"
+            )
+        return warnings
+
+
+_TRUE = ("1", "true", "yes", "on")
+_FALSE = ("0", "false", "no", "off")
+
+
+def _coerce(current: Any, value: Any, where: str) -> Any:
+    """Coerce `value` (a flag string or a YAML scalar) to the type of the
+    field's current/default value; reject mismatches loudly."""
+    if isinstance(current, bool):
+        if isinstance(value, bool):
+            return value
+        if isinstance(value, str):
+            low = value.lower()
+            if low in _TRUE:
+                return True
+            if low in _FALSE:
+                return False
+        raise ValueError(f"{where}: expected a boolean, got {value!r}")
+    if isinstance(current, int) and not isinstance(current, bool):
+        if isinstance(value, int) and not isinstance(value, bool):
+            return value
+        if isinstance(value, str):
+            try:
+                return int(value)
+            except ValueError:
+                pass
+        raise ValueError(f"{where}: expected an integer, got {value!r}")
+    if isinstance(current, float):
+        if isinstance(value, (int, float)) and not isinstance(value, bool):
+            return float(value)
+        if isinstance(value, str):
+            try:
+                return float(value)
+            except ValueError:
+                pass
+        raise ValueError(f"{where}: expected a number, got {value!r}")
+    if isinstance(current, list):
+        if isinstance(value, list):
+            return value
+        if isinstance(value, str):
+            return [x for x in value.split(",") if x]
+        raise ValueError(f"{where}: expected a list, got {value!r}")
+    if isinstance(current, dict):
+        if isinstance(value, dict):
+            return value
+        if isinstance(value, str):
+            return dict(
+                kv.split("=", 1) for kv in value.split(",") if "=" in kv
+            )
+        raise ValueError(f"{where}: expected a mapping, got {value!r}")
+    if isinstance(value, str):
+        return value
+    raise ValueError(f"{where}: expected a string, got {value!r}")
+
+
+def _set_dotted(obj: Any, dotted: str, raw: str) -> None:
+    parts = dotted.split(".")
+    try:
+        for p in parts[:-1]:
+            obj = getattr(obj, p)
+        leaf = parts[-1]
+        current = getattr(obj, leaf)
+        if leaf not in {f.name for f in fields(obj)}:
+            raise AttributeError(leaf)  # property/method, not a config field
+        setattr(obj, leaf, _coerce(current, raw, f"--{dotted}"))
+    except AttributeError as e:
+        raise ValueError(f"unknown config flag: --{dotted}") from e
+
+
+def _merge_dict(cfg: Any, data: Any) -> None:
+    if not isinstance(data, dict):
+        raise ValueError(
+            f"config document must be a mapping, got {type(data).__name__}"
+        )
+    for key, value in data.items():
+        if not hasattr(cfg, key):
+            raise ValueError(f"unknown config key: {key}")
+        current = getattr(cfg, key)
+        if is_dataclass(current):
+            if value is None:
+                continue  # empty yaml section ("logger:") keeps defaults
+            if not isinstance(value, dict):
+                raise ValueError(
+                    f"config section {key!r} must be a mapping, got {type(value).__name__}"
+                )
+            _merge_dict(current, value)
+        else:
+            setattr(cfg, key, _coerce(current, value, key))
+
+
+def _load_yaml(path: str) -> Any:
+    """One YAML config document. PyYAML is imported here, only when a
+    file is given: the flags-only path needs nothing outside the
+    standard library."""
+    try:
+        import yaml
+    except ImportError as e:
+        raise RuntimeError(
+            f"--config {path}: reading a YAML config file needs the PyYAML"
+            " package (yaml), which is not installed; pass the settings as"
+            " --section.key flags instead"
+        ) from e
+    with open(path) as fh:
+        return yaml.safe_load(fh) or {}
+
+
+def load_config(
+    yaml_paths: list[str] | None = None, argv: list[str] | None = None
+) -> Config:
+    """Build a Config from YAML file(s) then CLI flags (flags win).
+
+    Flags are ``--section.key value`` or ``--section.key=value``, generated
+    by reflection over the dataclass tree the way the reference's flags/
+    package reflects over struct yaml tags.
+    """
+    cfg = Config()
+    for path in yaml_paths or []:
+        _merge_dict(cfg, _load_yaml(path))
+
+    argv = list(argv or [])
+    i = 0
+    while i < len(argv):
+        arg = argv[i]
+        if not arg.startswith("--"):
+            raise ValueError(f"unexpected argument: {arg}")
+        body = arg[2:]
+        if "=" in body:
+            dotted, raw = body.split("=", 1)
+            i += 1
+        else:
+            dotted = body
+            if i + 1 >= len(argv):
+                raise ValueError(f"flag {arg} missing value")
+            raw = argv[i + 1]
+            i += 2
+        _set_dotted(cfg, dotted, raw)
+    return cfg
+
+
+def parse_args(argv: list[str]) -> Config:
+    """CLI entrypoint parsing: ``--config file.yml`` flags first, rest as overrides."""
+    yaml_paths: list[str] = []
+    rest: list[str] = []
+    i = 0
+    while i < len(argv):
+        if argv[i] == "--config":
+            if i + 1 >= len(argv):
+                raise ValueError("flag --config missing value")
+            yaml_paths.append(argv[i + 1])
+            i += 2
+        elif argv[i].startswith("--config="):
+            yaml_paths.append(argv[i].split("=", 1)[1])
+            i += 1
+        else:
+            rest.append(argv[i])
+            i += 1
+    cfg = load_config(yaml_paths, rest)
+    if not cfg.name:
+        # Hostnames may carry dots/invalid chars; the node name is an
+        # ID component (check() enforces [A-Za-z0-9_-]) — sanitize the
+        # fallback instead of failing the default boot.
+        cfg.name = (
+            re.sub(r"[^A-Za-z0-9_-]", "-", socket.gethostname())
+            or "nakama"
+        )
+    return cfg
+
+
+def config_to_dict(cfg: Any, redact: bool = False) -> dict:
+    """Dump the config tree (redacts keys/passwords)."""
+    out: dict[str, Any] = {}
+    for f in fields(cfg):
+        value = getattr(cfg, f.name)
+        if is_dataclass(value):
+            out[f.name] = config_to_dict(value, redact=redact)
+        else:
+            if redact and any(
+                s in f.name for s in ("key", "password", "secret")
+            ):
+                value = "***" if value else ""
+            out[f.name] = value
+    return out
 
 
 def apply_observability(
@@ -217,6 +592,10 @@ def apply_observability(
         return None
     return SloRecorder(
         {
+            "api_latency": {
+                "target": tc.slo_target,
+                "threshold_ms": tc.slo_api_latency_ms,
+            },
             "matchmaker_interval": {
                 "target": tc.slo_target,
                 "threshold_ms": tc.slo_interval_ms,

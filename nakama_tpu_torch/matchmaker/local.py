@@ -1159,12 +1159,19 @@ class LocalMatchmaker:
 
     # ------------------------------------------------------ extract / insert
 
-    def extract(self) -> list[MatchmakerExtract]:
-        """Export all tickets for node-drain handover (matchmaker.go:684)."""
+    def extract(self, ticket_ids=None) -> list[MatchmakerExtract]:
+        """Export all tickets for node-drain handover (matchmaker.go:684),
+        or only the live ones among `ticket_ids` (the tickets a graceful
+        stop held for their players, recovery.HeldTickets)."""
         store = self.store
         iv = store.meta["intervals"]
         out = []
-        for s in store.live_slots():
+        if ticket_ids is None:
+            slots = store.live_slots()
+        else:
+            slots = [store.slot_by_id(tid) for tid in ticket_ids]
+            slots = [s for s in slots if s is not None]
+        for s in slots:
             t = store.ticket_at[s]
             out.append(
                 MatchmakerExtract(

@@ -56,12 +56,13 @@ loses nothing at all.
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import json
 import os
 import pickle
 import time
 
-from . import faults
+from . import faults, overload
 from . import tracing as trace_api
 
 # Journal record ops. `matched` consumes tickets (ids only — the
@@ -268,6 +269,11 @@ class TicketJournal:
     # ------------------------------------------------------------- drain
 
     async def _drain(self):
+        # The drain task copies the context of the add that kicked it,
+        # a socket envelope's included: its write units must not carry
+        # that request's deadline, or a unit that waits it out in the
+        # write queue is dropped and the journal degrades.
+        overload.set_deadline(None)
         try:
             while self._buf and not self.suspended:
                 if self._resume_at:
@@ -826,6 +832,103 @@ def _load_snapshot(path: str) -> dict:
     return snap
 
 
+class HeldTickets:
+    """The tickets a graceful stop keeps for its connected players.
+
+    A difference from the JAX package, whose stop removes every
+    connected session's tickets. The stop tells its players to come
+    back (close 1012 with Retry-After), names their tickets in a file
+    beside the checkpoint (`save`), and the final checkpoint keeps
+    them. The next start takes the named tickets out of the pool
+    (`load`), so no live player is matched with a player who is not
+    there, and hands each back to its user's next session (`reown`),
+    under that session's id, so its match reaches the player. What no
+    player claims within the window is dropped (`release`). Tickets
+    held across a crash are not named, and the restart serves them as
+    the JAX package's does. Held tickets live in memory only: a crash
+    while they are held loses them."""
+
+    def __init__(self, matchmaker, path: str, logger):
+        self.matchmaker = matchmaker
+        self.path = path
+        self.logger = logger
+        self._by_user: dict[str, list] = {}
+
+    def __len__(self) -> int:
+        return sum(len(v) for v in self._by_user.values())
+
+    def ticket_ids(self) -> set[str]:
+        return {ex.ticket for v in self._by_user.values() for ex in v}
+
+    def save(self, sessions) -> int:
+        """At stop, after the matchmaker stopped and before the sessions
+        close: unclaimed held tickets go back to the pool, and the file
+        names them and every open session's tickets by user."""
+        mm = self.matchmaker
+        named = {
+            ex.ticket: user for user, v in self._by_user.items() for ex in v
+        }
+        mm.insert([ex for v in self._by_user.values() for ex in v])
+        self._by_user.clear()
+        for session in sessions:
+            for t in mm.store.session_tickets(session.id):
+                named[t.ticket] = session.user_id
+        if named:
+            tmp = self.path + ".tmp"
+            with open(tmp, "w") as fh:
+                json.dump(named, fh)
+                fh.flush()
+                os.fsync(fh.fileno())
+            os.replace(tmp, self.path)
+        return len(named)
+
+    def load(self) -> int:
+        """At start, after the warm restart: take the named tickets out
+        of the pool (a journaled removal) and hold them by user."""
+        try:
+            with open(self.path) as fh:
+                named = json.load(fh)
+        except FileNotFoundError:
+            return 0
+        mm = self.matchmaker
+        held = mm.extract(list(named))
+        mm.remove([ex.ticket for ex in held])
+        for ex in held:
+            self._by_user.setdefault(named[ex.ticket], []).append(ex)
+        os.remove(self.path)
+        return len(held)
+
+    def reown(self, session) -> int:
+        """A session of a user whose tickets are held: they return to
+        the pool under this session's id."""
+        held = self._by_user.pop(session.user_id, None)
+        if not held:
+            return 0
+        for ex in held:
+            ex.session_id = session.id
+            ex.presences = [
+                dataclasses.replace(p, session_id=session.id)
+                if p.user_id == session.user_id
+                else p
+                for p in ex.presences
+            ]
+        self.matchmaker.insert(held)
+        self.logger.info(
+            "held tickets returned to their player",
+            user_id=session.user_id,
+            tickets=len(held),
+        )
+        return len(held)
+
+    def release(self) -> None:
+        """The hold's window ended: drop what no player claimed."""
+        if self._by_user:
+            self.logger.info(
+                "held tickets released unclaimed", tickets=len(self)
+            )
+        self._by_user.clear()
+
+
 class RecoveryPlane:
     """Server-facing wiring: builds the journal + checkpointer from
     config, attaches them to the matchmaker, and owns the warm-restart
@@ -873,6 +976,11 @@ class RecoveryPlane:
         # round would preserve it past its tickets' republication.
         self._unsettled: dict | None = None
         self.checkpointer.pre_hook = self._retry_settlement
+        self.held = HeldTickets(
+            matchmaker,
+            os.path.join(base, f"{node}-held-tickets.json"),
+            self.logger,
+        )
 
     async def recover(self) -> dict:
         """Warm restart before the matchmaker starts: rebuild the pool

@@ -245,6 +245,14 @@ def current_trace_ids() -> tuple[str, str] | None:
     return sp.trace_id, sp.span_id
 
 
+def current_traceparent() -> str | None:
+    """The W3C `traceparent` of the active span, or None."""
+    sp = _current_span.get()
+    if sp is None:
+        return None
+    return format_traceparent(sp.trace_id, sp.span_id)
+
+
 def add_event(name: str, **attrs) -> None:
     """Attach an event to the active span; no-op without one."""
     sp = _current_span.get()

@@ -238,3 +238,86 @@ def test_pool_flush_does_not_wait_behind_queued_device_work(monkeypatch):
     assert host_ms[-1] < 100.0, host_ms
     for k, v in rows.items():
         np.testing.assert_array_equal(pool.tensors[k].cpu().numpy(), v, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_server_on_the_card_launches_stage1_wgmma(tmp_path):
+    """`NakamaServer` with its default backend (`CudaBackend` on cuda:0)
+    over a pool above `big_pool_threshold`: two socket clients' tickets
+    and 4,096 more in the pool; one interval goes through the Hopper
+    stage-1 kernel (never the first one) and both clients are matched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import asyncio
+    import base64
+    import json
+
+    from nakama_tpu_torch import kernels
+    from nakama_tpu_torch.api import wsproto
+    from nakama_tpu_torch.config import parse_args
+    from nakama_tpu_torch.logger import test_logger
+    from nakama_tpu_torch.matchmaker import MatchmakerPresence
+    from nakama_tpu_torch.server import NakamaServer
+
+    cfg = parse_args([
+        "--socket.port", "0", "--data_dir", str(tmp_path),
+        "--matchmaker.interval_sec", "100",
+        "--matchmaker.interval_pipelining", "false",
+        "--matchmaker.pool_capacity", "8192",
+        "--matchmaker.candidates_per_ticket", "8",
+        "--matchmaker.big_pool_threshold", "4096",
+    ])
+    basic = {"Authorization": "Basic " + base64.b64encode(b"defaultkey:").decode()}
+
+    async def run():
+        server = NakamaServer(cfg, test_logger())
+        assert server.matchmaker.backend.device == torch.device("cuda:0")
+        await server.start()
+        try:
+            sockets = []
+            for i in range(2):
+                r = await wsproto.request(
+                    "127.0.0.1", server.port, "POST",
+                    "/v2/account/authenticate/device", headers=basic,
+                    body={"account": {"id": f"device-card-{i}"}},
+                )
+                ws = await wsproto.connect(
+                    "127.0.0.1", server.port, f"/ws?token={r.json()['token']}"
+                )
+                await ws.send(json.dumps({"matchmaker_add": {
+                    "min_count": 2, "max_count": 2,
+                    "query": "+properties.mode:card",
+                    "string_properties": {"mode": "card"}}}))
+                while "matchmaker_ticket" not in json.loads(
+                    await asyncio.wait_for(ws.recv(), 30)
+                ):
+                    pass
+                sockets.append(ws)
+            # Fillers carry no "mode", so the clients' stage-1 rows see
+            # only each other as eligible.
+            for i in range(4096):
+                p = MatchmakerPresence(user_id=f"u{i}", session_id=f"s{i}")
+                server.matchmaker.add(
+                    [p], p.session_id, "", f"+properties.team:t{i % 64}",
+                    2, 2, 1, {"team": f"t{i % 64}"}, {},
+                )
+            before = (kernels.STAGE1_WGMMA.launches, kernels.STAGE1.launches)
+            server.matchmaker.process()
+            torch.cuda.synchronize()
+            after = (kernels.STAGE1_WGMMA.launches, kernels.STAGE1.launches)
+            matched = []
+            for ws in sockets:
+                while True:
+                    env = json.loads(await asyncio.wait_for(ws.recv(), 30))
+                    if "matchmaker_matched" in env:
+                        matched.append(env["matchmaker_matched"])
+                        break
+            return before, after, matched
+        finally:
+            await server.stop()
+
+    before, after, matched = asyncio.run(run())
+    assert after[0] > before[0]
+    assert after[1] == before[1]
+    assert len(matched) == 2
+    assert matched[0]["token"] == matched[1]["token"]

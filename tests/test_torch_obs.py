@@ -352,5 +352,6 @@ def test_apply_observability_configures_the_planes():
     assert tracing.TRACES.capacity == 9
     assert devobs.DEVOBS.warmup_intervals == 5
     assert devobs.DEVOBS.timeline.maxlen == 32
-    assert set(slo.slos) == {"matchmaker_interval", "delivery_publish"}
+    assert set(slo.slos) == {
+        "api_latency", "matchmaker_interval", "delivery_publish"}
     assert apply_observability(TracingConfig(enabled=False)) is None

@@ -471,3 +471,30 @@ async def test_first_checkpoint_waits_a_full_interval(tmp_path):
     assert (await ckpt.maybe_checkpoint(mm))["lsn"] == 0
     mm.stop()
     await db.close()
+
+
+async def test_a_drain_kicked_inside_a_request_ignores_its_deadline(tmp_path):
+    """A journal drain kicked by an add inside a socket envelope's
+    deadline scope: the port's drain drops the request's deadline and
+    the records reach the database; the JAX package's drain inherits it,
+    and a deadline that passes before its unit commits degrades the
+    journal (a fault of the reference, ROADMAP.md §C)."""
+    import asyncio
+
+    from nakama_tpu import overload as joverload
+    from nakama_tpu_torch import overload as toverload
+
+    state = {}
+    for pkg, ov in (("jax", joverload), ("port", toverload)):
+        db = await open_db(pkg, tmp_path / f"{pkg}.db")
+        rec = jrec if pkg == "jax" else trec
+        journal = rec.TicketJournal(db, quiet_logger())
+        with ov.deadline_scope(ov.Deadline(0.0)):  # already expired
+            journal.record_remove(["t-1", "t-2"])
+        for _ in range(100):
+            if journal.degraded or journal.durable_lsn == journal.lsn:
+                break
+            await asyncio.sleep(0.01)
+        state[pkg] = (journal.degraded, journal.durable_lsn)
+        await db.close()
+    assert state == {"jax": (True, 0), "port": (False, 1)}

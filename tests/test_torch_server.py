@@ -1,0 +1,801 @@
+"""The port's server (`nakama_tpu_torch/server.py` over `api/`,
+`realtime/`, `core/authenticate.py`) held against the JAX package's
+`NakamaServer`: both run the same seeded script — HTTP auth (device,
+email, custom), refresh and logout, health, socket pings, matchmaker
+adds and removes, malformed envelopes, status follows, one interval
+driven by hand — and must give the same HTTP bodies, the same envelopes
+once random ids are normalised away, identical matched groups by device
+id and match-token claims identical apart from ids and expiry. The port
+runs `CudaBackend(device="cpu")` (the kernels' plain versions), the JAX
+server its host oracle; the tickets come in unique pairs plus a few
+that fit no one, so the groups do not depend on arrival order or the
+backend. Also: parsed `/metrics` scrapes, `Config.check()` and
+`parse_args`, and `python -m nakama_tpu_torch` in a subprocess (JAX
+never imported; SIGTERM exits 0; a restart recovers the unmatched
+tickets).
+
+Stated tolerance: none — every compared value must be equal."""
+
+import asyncio
+import base64
+import json
+import os
+import queue
+import re
+import signal
+import subprocess
+import sys
+import threading
+import time
+
+import numpy as np
+import pytest
+
+from fixtures import quiet_logger
+from test_torch_metrics import parse
+
+from nakama_tpu import config as jax_config
+from nakama_tpu.api import session_token as jax_token
+from nakama_tpu.server import NakamaServer as JaxServer
+from nakama_tpu_torch import config as port_config
+from nakama_tpu_torch.api import session_token as port_token
+from nakama_tpu_torch.api import wsproto
+from nakama_tpu_torch.logger import test_logger as port_logger
+from nakama_tpu_torch.matchmaker.cuda import CudaBackend
+from nakama_tpu_torch.server import NakamaServer
+
+HOST = "127.0.0.1"
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FLAGS = [
+    "--socket.port", "0", "--metrics.prometheus_port", "-1",
+    "--matchmaker.interval_sec", "100",
+    "--matchmaker.interval_pipelining", "false",
+    "--matchmaker.pool_capacity", "2048",
+    "--matchmaker.candidates_per_ticket", "8",
+    "--matchmaker.numeric_fields", "8", "--matchmaker.string_fields", "8",
+    "--matchmaker.big_pool_threshold", "64",
+]
+
+
+def basic(key="defaultkey"):
+    return {
+        "Authorization": "Basic " + base64.b64encode(f"{key}:".encode()).decode()
+    }
+
+
+def bearer(token):
+    return {"Authorization": f"Bearer {token}"}
+
+
+async def jax_server(data_dir):
+    cfg = jax_config.parse_args(
+        FLAGS + ["--matchmaker.backend", "cpu", "--data_dir", str(data_dir)])
+    server = JaxServer(cfg, quiet_logger())
+    await server.start()
+    return server
+
+
+async def torch_server(data_dir):
+    cfg = port_config.parse_args(FLAGS + ["--data_dir", str(data_dir)])
+    log = port_logger()
+    backend = CudaBackend(
+        cfg.matchmaker, log, device="cpu", row_block=8, col_block=64,
+        big_row_block=8, big_col_block=64,
+    )
+    server = NakamaServer(cfg, log, matchmaker_backend=backend)
+    await server.start()
+    return server
+
+
+def ticket_plan(seed: int, n_pairs: int, n_single: int):
+    """(device id, properties, query) per client: unique pairs (each pair
+    shares a mode and a rank window only its partner meets) and singles
+    that fit no one."""
+    rng = np.random.default_rng(seed)
+    plan = []
+    for p in range(n_pairs):
+        rank = float(rng.integers(0, 1000))
+        for side in range(2):
+            plan.append((
+                f"device-pair-{p}-{side}",
+                {"string_properties": {"mode": f"p{p}"},
+                 "numeric_properties": {"rank": rank + side}},
+                f"+properties.mode:p{p} +properties.rank:>={rank - 5}"
+                f" +properties.rank:<={rank + 5}",
+            ))
+    for s in range(n_single):
+        plan.append((
+            f"device-single-{s}",
+            {"string_properties": {"mode": f"s{s}"},
+             "numeric_properties": {"rank": 0.0}},
+            f"+properties.mode:nobody{s}",
+        ))
+    order = rng.permutation(len(plan))
+    return [plan[i] for i in order]
+
+
+class Normaliser:
+    """Replaces a server's random ids with stable names."""
+
+    def __init__(self):
+        self.names: dict[str, str] = {}
+
+    def learn(self, value: str, name: str):
+        self.names[value] = name
+
+    def __call__(self, obj):
+        if isinstance(obj, dict):
+            out = {}
+            for k, v in obj.items():
+                if k in ("token", "refresh_token") and isinstance(v, str):
+                    out[k] = "<token>"
+                else:
+                    out[k] = self(v)
+            return out
+        if isinstance(obj, list):
+            return [self(v) for v in obj]
+        if isinstance(obj, str):
+            return self.names.get(obj, obj)
+        return obj
+
+
+async def recv_until(ws, key, log, timeout=10.0):
+    async def loop():
+        while True:
+            env = json.loads(await ws.recv())
+            log.append(env)
+            if key in env:
+                return env
+    return await asyncio.wait_for(loop(), timeout)
+
+
+async def run_script(server, key: str) -> dict:
+    """The shared script; returns what a client sees, ids normalised."""
+    port = server.port
+    norm = Normaliser()
+    out: dict = {"http": [], "ws": {}, "matched": {}, "claims": {}}
+
+    async def call(method, path, headers=None, body=None):
+        r = await wsproto.request(HOST, port, method, path, headers=headers, body=body)
+        try:
+            payload = r.json()
+        except ValueError:
+            payload = r.body.decode()
+        out["http"].append((method, path, r.status, norm(payload)))
+        return r.status, payload
+
+    await call("GET", "/healthcheck")
+    await call("GET", "/v2/healthcheck")
+    await call("GET", "/")
+    await call("POST", "/v2/account/authenticate/device", basic("wrong"),
+               {"account": {"id": "device-abcdef"}})
+    await call("POST", "/v2/account/authenticate/device", basic(),
+               {"account": {"id": "short"}})
+    await call("POST", "/v2/account/authenticate/device?create=false", basic(),
+               {"account": {"id": "device-nobody-here"}})
+    await call("POST", "/v2/account/authenticate/email", basic(),
+               {"account": {"email": "a@b.cc", "password": "x"}})
+    _, first = await call("POST", "/v2/account/authenticate/email?username=mail1",
+                          basic(), {"account": {"email": "mail1@example.com",
+                                                "password": "password1"}})
+    await call("POST", "/v2/account/authenticate/email", basic(),
+               {"account": {"email": "mail1@example.com", "password": "password2"}})
+    await call("POST", "/v2/account/authenticate/email", basic(),
+               {"account": {"email": "mail1@example.com", "password": "password1"}})
+    await call("POST", "/v2/account/authenticate/custom", basic(),
+               {"account": {"id": "abc"}})
+    _, c1 = await call("POST", "/v2/account/authenticate/custom?username=cust1",
+                       basic(), {"account": {"id": "custom-id-1"}})
+    _, c2 = await call("POST", "/v2/account/authenticate/custom", basic(),
+                       {"account": {"id": "custom-id-1"}})
+    assert c1["token"] and c2["token"]
+    mail_claims = port_token.parse("defaultencryptionkey", first["token"])
+    norm.learn(mail_claims.user_id, "user:mail1")
+    custom_uid = port_token.parse("defaultencryptionkey", c1["token"]).user_id
+    assert port_token.parse("defaultencryptionkey", c2["token"]).user_id == custom_uid
+    norm.learn(custom_uid, "user:cust1")
+    # Refresh rotates the used refresh token; logout kills the session.
+    await call("POST", "/v2/account/session/refresh", basic(),
+               {"token": first["refresh_token"]})
+    await call("POST", "/v2/account/session/refresh", basic(),
+               {"token": first["refresh_token"]})
+    await call("POST", "/v2/account/session/refresh", basic(), {"token": "x.y.z"})
+    await call("POST", "/v2/session/logout", None, {})
+    await call("POST", "/v2/session/logout", bearer(c1["token"]),
+               {"refresh_token": c1["refresh_token"]})
+    await call("POST", "/v2/account/session/refresh", basic(),
+               {"token": c1["refresh_token"]})
+
+    plan = ticket_plan(11, n_pairs=4, n_single=2)
+    clients = {}
+    for device, props, query in plan:
+        status, body = await call(
+            "POST", f"/v2/account/authenticate/device?username={device}",
+            basic(), {"account": {"id": device}},
+        )
+        again_status, again = await call(
+            "POST", "/v2/account/authenticate/device", basic(),
+            {"account": {"id": device}},
+        )
+        assert body["created"] is True and again["created"] is False
+        claims = port_token.parse("defaultencryptionkey", body["token"])
+        assert port_token.parse("defaultencryptionkey", again["token"]).user_id == claims.user_id
+        norm.learn(claims.user_id, f"user:{device}")
+        ws = await wsproto.connect(HOST, port, f"/ws?token={body['token']}")
+        log: list = []
+        clients[device] = (ws, log, props, query)
+        # The socket's own STATUS presence names its session id.
+        event = await recv_until(ws, "stream_presence_event", log)
+        norm.learn(event["stream_presence_event"]["joins"][0]["session_id"],
+                   f"session:{device}")
+
+    # A logged-out session's token is refused at the socket.
+    dead = await wsproto.connect(HOST, port, f"/ws?token={c1['token']}")
+    with pytest.raises(wsproto.ConnectionClosed) as closed:
+        await asyncio.wait_for(dead.recv(), 10)
+    out["logout_close"] = (closed.value.code, closed.value.reason)
+
+    devices = [d for d, _, _ in plan]
+    first_ws, first_log, _, _ = clients[devices[0]]
+    malformed = [
+        {"cid": "m1"},
+        {"cid": "m2", "ping": {}, "pong": {}},
+        {"cid": "m3", "no_such_message": {}},
+        {"cid": "m4", "matchmaker_add": {"min_count": 1, "max_count": 2}},
+        {"cid": "m5", "matchmaker_add": {"min_count": 4, "max_count": 2}},
+        {"cid": "m6", "matchmaker_add": {"min_count": 2, "max_count": 2,
+                                          "query": "+properties.mode:"}},
+        {"cid": "m7", "matchmaker_remove": {"ticket": "no-such-ticket"}},
+        {"cid": "m8", "matchmaker_remove": {}},
+        {"cid": "m10", "matchmaker_add": {"min_count": 2, "max_count": 4,
+                                           "count_multiple": 3}},
+    ]
+    for env in malformed:
+        await first_ws.send(json.dumps(env))
+        await recv_until(first_ws, "error", first_log)
+    # A key whose handler is a later slice's: the JAX answer for a key
+    # without a handler (the JAX server has this one, so it is checked
+    # here, outside the compared log).
+    await first_ws.send(json.dumps({"cid": "m9", "channel_join": {"target": "r"}}))
+    err = await recv_until(first_ws, "error", [])
+    out["channel_join"] = err["error"]
+    await first_ws.send(json.dumps({"cid": "p1", "ping": {}}))
+    await recv_until(first_ws, "pong", first_log)
+    # A ticket added and removed again by its owner.
+    await first_ws.send(json.dumps({"cid": "r1", "matchmaker_add": {
+        "min_count": 2, "max_count": 2, "query": "+properties.mode:never"}}))
+    removable = (await recv_until(first_ws, "matchmaker_ticket", first_log))
+    norm.learn(removable["matchmaker_ticket"]["ticket"], "ticket:removed")
+    await first_ws.send(json.dumps({"cid": "r2", "matchmaker_remove": {
+        "ticket": removable["matchmaker_ticket"]["ticket"]}}))
+    await recv_until(first_ws, "cid", first_log)
+    # Status follow (an existing user and an unknown one), update,
+    # unfollow.
+    second = devices[1]
+    second_uid = [v for v, n in norm.names.items() if n == f"user:{second}"][0]
+    await first_ws.send(json.dumps({"cid": "s1", "status_follow": {
+        "user_ids": [second_uid, "00000000-0000-0000-0000-000000000000"]}}))
+    status = await recv_until(first_ws, "status", first_log)
+    out["status_follow"] = norm(status)
+    await first_ws.send(json.dumps({"cid": "s2", "status_update": {"status": "hi"}}))
+    await recv_until(first_ws, "cid", first_log)
+    await first_ws.send(json.dumps({"cid": "s3", "status_unfollow": {
+        "user_ids": [second_uid]}}))
+    await recv_until(first_ws, "cid", first_log)
+
+    for device, (ws, log, props, query) in clients.items():
+        await ws.send(json.dumps({"cid": f"add-{device}", "matchmaker_add": {
+            "min_count": 2, "max_count": 2, "query": query, **props}}))
+        ack = await recv_until(ws, "matchmaker_ticket", log)
+        norm.learn(ack["matchmaker_ticket"]["ticket"], f"ticket:{device}")
+    assert len(server.matchmaker) == len(plan)
+    server.matchmaker.process()
+    for device, (ws, log, _, _) in clients.items():
+        if device.startswith("device-pair"):
+            env = await recv_until(ws, "matchmaker_matched", log)
+            body = env["matchmaker_matched"]
+            claims = port_token.parse("defaultencryptionkey", body["token"])
+            out["claims"][device] = {
+                "user_id": ",".join(sorted(
+                    norm(part.split(":")[0]) + ":" + part.split(":")[1]
+                    for part in claims.user_id.split(",")
+                )),
+                "username": claims.username,
+                "kind": claims.vars["kind"],
+                "node": claims.vars["node"],
+                "mid_node": claims.vars["mid"].rsplit(".", 1)[1],
+                "ttl_s": round(claims.expires_at) - round(claims.expires_at - 30),
+            }
+            users = sorted(norm(body["users"]), key=lambda u: u["presence"]["user_id"])
+            out["matched"][device] = {
+                "ticket": norm(body["ticket"]), "self": norm(body["self"]),
+                "users": users,
+            }
+    for device, (ws, log, _, _) in clients.items():
+        out["ws"][device] = [
+            norm(e) for e in log if "stream_presence_event" not in e
+        ]
+        await ws.close()
+    await asyncio.sleep(0.05)
+    store = server.matchmaker.store
+    out["pool_after"] = sorted(
+        norm(store.ticket_at[s].ticket) for s in store.live_slots()
+    )
+    scrape = await wsproto.request(HOST, server.metrics_port if key == "torch"
+                                   else server.console.metrics_port,
+                                   "GET", "/metrics")
+    assert scrape.status == 200
+    out["metrics"] = parse(scrape.body)
+    return out
+
+
+async def test_same_script_same_answers_as_the_jax_server(tmp_path):
+    jax = await jax_server(tmp_path / "jax")
+    try:
+        want = await run_script(jax, "jax")
+    finally:
+        await jax.stop()
+    port = await torch_server(tmp_path / "torch")
+    try:
+        got = await run_script(port, "torch")
+    finally:
+        await port.stop()
+    assert got["http"] == want["http"]
+    assert got["logout_close"] == want["logout_close"] == (4001, "session not valid")
+    assert got["status_follow"] == want["status_follow"]
+    assert got["ws"] == want["ws"]
+    assert got["matched"] == want["matched"]
+    assert len(got["matched"]) == 8
+    assert got["claims"] == want["claims"]
+    assert got["pool_after"] == want["pool_after"]
+    assert got["channel_join"] == {"code": 3, "message": "channel_join not available"}
+    # The scrapes: the same families and the same unlabeled series
+    # (values differ with each server's own components and timings, and
+    # labeled series appear with the backend's activity: the JAX
+    # server's host oracle records no device transfers).
+    assert set(got["metrics"][0]) == set(want["metrics"][0])
+    unlabeled = [{s[0] for s in m["metrics"][2] if not s[1]} for m in (got, want)]
+    assert unlabeled[0] == unlabeled[1]
+    assert "nakama_matchmaker_tickets" in unlabeled[0]
+
+
+def test_check_and_parse_args_agree_on_the_shared_sections():
+    shared = [
+        "logger", "metrics", "session", "socket", "database", "matchmaker",
+        "tracker", "overload", "tracing", "recovery", "devobs",
+    ]
+    argv = [
+        "--name", "node-7", "--data_dir", "/tmp/x", "--shutdown_grace_sec", "5",
+        "--logger.format", "logfmt", "--metrics.prometheus_port", "-1",
+        "--session.token_expiry_sec", "120", "--socket.port", "0",
+        "--socket.max_message_size_bytes", "8192",
+        "--database.address", "a.db,b.db", "--matchmaker.interval_sec", "1",
+        "--matchmaker.backend", "cpu", "--tracker.event_queue_size", "64", "--overload.rate_limit_rps", "2.5",
+        "--tracing.sample_rate", "1.5", "--recovery.checkpoint_interval_sec", "9",
+        "--devobs.warmup_intervals", "1",
+    ]
+    port = port_config.parse_args(argv)
+    jax = jax_config.parse_args(argv)
+    pd = port_config.config_to_dict(port)
+    jd = jax_config.config_to_dict(jax)
+    for name in ("name", "data_dir", "shutdown_grace_sec"):
+        assert pd[name] == jd[name]
+    for section in shared:
+        common = set(pd[section]) & set(jd[section])
+        assert {k: pd[section][k] for k in common} == {
+            k: jd[section][k] for k in common}
+        # The port adds no field of its own; the JAX fields it drops
+        # are the ones its config docstring names.
+        assert set(pd[section]) <= set(jd[section])
+    assert port.check() == [
+        w for w in jax.check() if not w.startswith("console.")
+    ]
+    for bad in (["--name", "a.b"], ["--matchmaker.interval_sec", "0"]):
+        with pytest.raises(ValueError) as p_err:
+            port_config.parse_args(bad).check()
+        with pytest.raises(ValueError) as j_err:
+            jax_config.parse_args(bad).check()
+        assert str(p_err.value) == str(j_err.value)
+    for bad in (["--cluster.enabled", "true"], ["--socket.prot", "1"]):
+        with pytest.raises(ValueError, match="unknown config flag"):
+            port_config.parse_args(bad)
+    with pytest.raises(ValueError, match="expected an integer"):
+        port_config.parse_args(["--socket.port", "x"])
+
+
+def test_tokens_parse_across_packages():
+    token, claims = port_token.generate("k", "u1", "name", 60, vars={"a": "b"})
+    back = jax_token.parse("k", token)
+    assert (back.user_id, back.username, back.vars, back.token_id) == (
+        "u1", "name", {"a": "b"}, claims.token_id)
+    token, claims = jax_token.generate("k", "u2", "n2", 60)
+    assert port_token.parse("k", token).user_id == "u2"
+    with pytest.raises(port_token.TokenError):
+        port_token.parse("other", token)
+
+
+# ------------------------------------------------- python -m, subprocess
+
+
+def _start(tmp, extra=()):
+    env = dict(os.environ)
+    env.pop("JAX_PLATFORMS", None)
+    env["PYTHONPATH"] = REPO
+    cmd = [
+        sys.executable, "-X", "importtime", "-m", "nakama_tpu_torch",
+        "--matchmaker.backend", "cpu", "--socket.port", "0",
+        "--matchmaker.interval_sec", "1", "--matchmaker.pool_capacity", "2048",
+        "--database.address", os.path.join(tmp, "server.db"),
+        "--data_dir", tmp, "--logger.level", "info", *extra,
+    ]
+    # stderr (the -X importtime report, ~100 KB) goes to a file: a pipe
+    # nobody reads while the server boots would block the child.
+    err = open(os.path.join(tmp, f"stderr-{time.monotonic_ns()}.txt"), "w+")
+    proc = subprocess.Popen(
+        cmd, cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=err, text=True,
+    )
+    proc.err_file = err
+    return proc
+
+
+def _stderr(proc) -> str:
+    proc.err_file.seek(0)
+    return proc.err_file.read()
+
+
+def _boot_lines(proc, until_msg: str, timeout: float = 60.0) -> list[dict]:
+    """JSON log lines on stdout up to the one whose msg is `until_msg`
+    (a thread reads the pipe, so no line waits in a buffer)."""
+    if not hasattr(proc, "lines"):
+        proc.lines = queue.Queue()
+
+        def pump():
+            for raw in proc.stdout:
+                proc.lines.put(raw)
+            proc.lines.put(None)
+
+        threading.Thread(target=pump, daemon=True).start()
+    lines = []
+    end = time.monotonic() + timeout
+    while True:
+        try:
+            raw = proc.lines.get(timeout=max(0.01, end - time.monotonic()))
+        except queue.Empty:
+            raw = None
+        if raw is None:
+            break
+        try:
+            rec = json.loads(raw)
+        except ValueError:
+            continue
+        lines.append(rec)
+        if rec.get("msg") == until_msg:
+            return lines
+    proc.kill()
+    err = [ln for ln in _stderr(proc).splitlines()
+           if not ln.startswith("import time:")]
+    raise AssertionError(f"no {until_msg!r} line; stderr: {err[-30:]}")
+
+
+def _stop(proc) -> tuple[int, str]:
+    proc.send_signal(signal.SIGTERM)
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise
+    return proc.returncode, _stderr(proc)
+
+
+# Packages the port must never import: JAX and the JAX package, and the
+# libraries the JAX server needs that the card's machine lacks (PyYAML
+# only when a --config file is given).
+_FOREIGN = ("jax", "nakama_tpu", "aiohttp", "websockets", "google.protobuf",
+            "prometheus_client", "grpc", "yaml")
+
+
+def _foreign_imports(importtime: str) -> list[str]:
+    bad = []
+    for line in importtime.splitlines():
+        if not line.startswith("import time:"):
+            continue
+        name = line.rsplit("|", 1)[-1].strip()
+        if any(name == f or name.startswith(f + ".") for f in _FOREIGN):
+            bad.append(name)
+    return bad
+
+
+async def _client(port, device):
+    r = await wsproto.request(
+        HOST, port, "POST", "/v2/account/authenticate/device", headers=basic(),
+        body={"account": {"id": device}},
+    )
+    return await wsproto.connect(HOST, port, f"/ws?token={r.json()['token']}")
+
+
+def test_python_m_serves_matches_and_recovers_on_restart(tmp_path):
+    tmp = str(tmp_path)
+    proc = _start(tmp)
+    try:
+        lines = _boot_lines(proc, "server listening")
+        port = lines[-1]["port"]
+
+        async def drive():
+            a = await _client(port, "device-sub-a1")
+            b = await _client(port, "device-sub-b1")
+            lonely = [await _client(port, f"device-sub-l{i}") for i in range(2)]
+            for ws in (a, b):
+                await ws.send(json.dumps({"matchmaker_add": {
+                    "min_count": 2, "max_count": 2,
+                    "query": "+properties.mode:duo",
+                    "string_properties": {"mode": "duo"}}}))
+            for i, ws in enumerate(lonely):
+                await ws.send(json.dumps({"matchmaker_add": {
+                    "min_count": 2, "max_count": 2,
+                    "query": f"+properties.mode:none{i}",
+                    "string_properties": {"mode": f"alone{i}"}}}))
+            for ws in (a, b, *lonely):
+                await recv_until(ws, "matchmaker_ticket", [])
+            got = [await recv_until(ws, "matchmaker_matched", [], timeout=20)
+                   for ws in (a, b)]
+            return got, (a, b, *lonely)
+
+        async def first_leg():
+            got, sockets = await drive()
+            proc.send_signal(signal.SIGTERM)
+            closes = []
+            for ws in sockets[2:]:
+                with pytest.raises(wsproto.ConnectionClosed) as e:
+                    while True:
+                        await asyncio.wait_for(ws.recv(), 20)
+                closes.append(e.value.code)
+            return got, closes
+
+        got, closes = asyncio.run(first_leg())
+        assert len(got) == 2
+        assert {u["presence"]["username"] for u in
+                got[0]["matchmaker_matched"]["users"]} == {
+            u["presence"]["username"] for u in got[1]["matchmaker_matched"]["users"]}
+        assert closes == [1012, 1012]
+        proc.wait(timeout=60)
+        err = _stderr(proc)
+        assert proc.returncode == 0, err[-2000:]
+        assert _foreign_imports(err) == []
+        assert "nakama_tpu_torch.server" in err  # importtime did record
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    proc = _start(tmp)
+    try:
+        lines = _boot_lines(proc, "server listening")
+        boot = [r for r in lines if r.get("msg") == "crash recovery enabled"]
+        assert boot and boot[0]["recovered_tickets"] == 2
+        assert boot[0]["held_tickets"] == 2
+        code, err = _stop(proc)
+        assert code == 0, err[-2000:]
+        assert _foreign_imports(err) == []
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+
+
+async def test_a_graceful_stop_keeps_connected_players_tickets(tmp_path):
+    """Difference by design (ROADMAP.md §C): a stop closes each session
+    with 1012 (kind "shutdown"); the JAX acceptor's close path removes
+    the session's tickets, so the final checkpoint and the restart have
+    lost every connected player's ticket. The port keeps them and its
+    restart holds them out of the pool: a live player is not matched
+    with a held ticket, a player who comes back gets their ticket again
+    under the new session and is told of its match, and what nobody
+    claims is released. The JAX server's sessions are closed as `stop()`
+    closes them, before the stop itself: over aiohttp, a JAX stop with a
+    live socket first waits out its listener's shutdown."""
+    add = {"matchmaker_add": {
+        "min_count": 2, "max_count": 2, "query": "+properties.mode:x",
+        "string_properties": {"mode": "x"}}}
+
+    async def player(server, device):
+        r = await wsproto.request(
+            HOST, server.port, "POST", "/v2/account/authenticate/device",
+            headers=basic(), body={"account": {"id": device}},
+        )
+        return await wsproto.connect(
+            HOST, server.port, f"/ws?token={r.json()['token']}")
+
+    recovered, pooled, servers = {}, {}, {}
+    for name, make, parse_args in (
+        ("jax", lambda c: JaxServer(c, quiet_logger()), jax_config.parse_args),
+        ("torch", lambda c: NakamaServer(c, port_logger()), port_config.parse_args),
+    ):
+        data = tmp_path / name
+        data.mkdir()
+        cfg = parse_args(FLAGS + [
+            "--matchmaker.backend", "cpu", "--data_dir", str(data),
+            "--database.address", str(data / "server.db"),
+        ])
+        server = make(cfg)
+        await server.start()
+        try:
+            sockets = [await player(server, f"device-stop-{name}-{i}")
+                       for i in range(2)]
+            tickets = []
+            for ws in sockets:
+                await ws.send(json.dumps(add))
+                ack = await recv_until(ws, "matchmaker_ticket", [])
+                tickets.append(ack["matchmaker_ticket"]["ticket"])
+            assert len(server.matchmaker) == 2
+            if name == "jax":
+                for session in server.session_registry.all():
+                    await session.close(
+                        "server shutting down", code=1012, kind="shutdown",
+                        retry_after_sec=3.0,
+                    )
+        finally:
+            await server.stop()
+        for ws in sockets:
+            with pytest.raises(wsproto.ConnectionClosed) as closed:
+                while True:
+                    await asyncio.wait_for(ws.recv(), 10)
+            assert closed.value.code == 1012
+        pooled[name] = len(server.matchmaker)
+        again = make(cfg)
+        await again.start()
+        # The JAX server keeps no recover() result; its pool is all.
+        recovered[name] = (
+            again.recovered["tickets"] if name == "torch" else len(again.matchmaker))
+        servers[name] = again
+    try:
+        assert pooled == recovered == {"jax": 0, "torch": 2}
+        again = servers["torch"]
+        held = again.recovery.held
+        assert len(again.matchmaker) == 0 and held.ticket_ids() == set(tickets)
+        assert again._release_held is not None
+        # A live player whose ticket would match a held one stays
+        # unmatched: the held player is not there.
+        live = await player(again, "device-stop-live")
+        await live.send(json.dumps(add))
+        await recv_until(live, "matchmaker_ticket", [])
+        assert len(again.matchmaker.process()) == 0
+        # The first player comes back: their ticket returns under the new
+        # session, and both are told of the match.
+        back = await player(again, "device-stop-torch-0")
+        assert len(again.matchmaker) == 2 and held.ticket_ids() == {tickets[1]}
+        assert len(again.matchmaker.process()) == 1
+        got = [await recv_until(ws, "matchmaker_matched", []) for ws in (live, back)]
+        assert got[1]["matchmaker_matched"]["ticket"] == tickets[0]
+        assert {u["presence"]["session_id"]
+                for u in got[0]["matchmaker_matched"]["users"]} == {
+            s.id for s in again.session_registry.all()}
+        # The second player never comes back: the window's end drops it.
+        held.release()
+        assert len(held) == 0 and len(again.matchmaker) == 0
+        await live.close()
+        await back.close()
+    finally:
+        for server in servers.values():
+            await server.stop()
+    assert not os.path.exists(held.path)
+
+
+@pytest.mark.parametrize("plane", ["overload", "recovery"])
+async def test_a_server_without_the_plane_still_serves(tmp_path, plane):
+    """`overload.enabled false` builds no admission, deadlines or ladder;
+    `recovery.enabled false` no journal and no checkpoint. Either way
+    the server authenticates, acknowledges and matches."""
+    cfg = port_config.parse_args(FLAGS + [
+        "--matchmaker.backend", "cpu", "--data_dir", str(tmp_path),
+        "--database.address", str(tmp_path / "server.db"),
+        f"--{plane}.enabled", "false",
+    ])
+    server = NakamaServer(cfg, port_logger())
+    assert getattr(server, plane) is None
+    await server.start()
+    try:
+        sockets = []
+        for i in range(2):
+            r = await wsproto.request(
+                HOST, server.port, "POST", "/v2/account/authenticate/device",
+                headers=basic(), body={"account": {"id": f"device-{plane}-{i}"}},
+            )
+            assert r.status == 200
+            ws = await wsproto.connect(
+                HOST, server.port, f"/ws?token={r.json()['token']}")
+            await ws.send(json.dumps({"matchmaker_add": {
+                "min_count": 2, "max_count": 2, "query": "*"}}))
+            await recv_until(ws, "matchmaker_ticket", [])
+            sockets.append(ws)
+        assert len(server.matchmaker.process()) == 1
+        for ws in sockets:
+            await recv_until(ws, "matchmaker_matched", [])
+            await ws.close()
+    finally:
+        await server.stop()
+    assert (server.recovered is None) == (plane == "recovery")
+    ckpts = [f for f in os.listdir(tmp_path) if f.endswith(".ckpt")]
+    assert bool(ckpts) == (plane == "overload")
+
+
+def test_cli_subcommands_answer_as_the_jax_cli(tmp_path, capsys):
+    """`--version`, `check` and `migrate up|status` of `python -m
+    nakama_tpu_torch` print what the JAX package's CLI prints (the JAX
+    `check` is given a console password: the port has no console)."""
+    from nakama_tpu import __main__ as jax_main
+    from nakama_tpu_torch import __main__ as port_main
+
+    outputs = {}
+    for name, cli, extra in (
+        ("jax", jax_main, ["--console.password", "pw2"]),
+        ("torch", port_main, []),
+    ):
+        db = str(tmp_path / f"{name}.db")
+        seen = []
+        for argv in (
+            ["--version"],
+            ["check", "--socket.server_key", "k2", "--database.address", db,
+             *extra],
+            ["migrate", "status", "--database.address", db],
+            ["migrate", "up", "--database.address", db],
+            ["migrate", "status", "--database.address", db],
+        ):
+            assert cli.main(argv) == 0
+            seen.append(capsys.readouterr().out)
+        outputs[name] = seen
+    assert outputs["torch"] == outputs["jax"]
+    assert "config ok (1 warnings)" in outputs["torch"][1]  # the session key
+    assert "applied" in outputs["torch"][4] and "pending" in outputs["torch"][2]
+
+
+def test_cuda_backend_without_a_card_raises_at_construction():
+    """The server reaches stage 1 only through CudaBackend: with the
+    default backend and no CUDA device, construction raises (no quiet
+    fallback to the host oracle)."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = port_config.parse_args(["--socket.port", "0"])
+    assert cfg.matchmaker.backend == "cuda"
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        NakamaServer(cfg, port_logger())
+
+
+def test_yaml_config_needs_pyyaml_only_when_given(tmp_path, monkeypatch):
+    path = tmp_path / "c.yml"
+    path.write_text("socket:\n  port: 7777\nmatchmaker:\n  backend: cpu\n")
+    cfg = port_config.parse_args(["--config", str(path), "--socket.port", "7778"])
+    assert (cfg.socket.port, cfg.matchmaker.backend) == (7778, "cpu")
+    (tmp_path / "bad.yml").write_text("cluster:\n  enabled: true\n")
+    with pytest.raises(ValueError, match="unknown config key: cluster"):
+        port_config.parse_args(["--config", str(tmp_path / "bad.yml")])
+    monkeypatch.setitem(sys.modules, "yaml", None)  # PyYAML absent
+    with pytest.raises(RuntimeError, match="PyYAML"):
+        port_config.parse_args(["--config", str(path)])
+    assert port_config.parse_args(["--socket.port", "1"]).socket.port == 1
+
+
+def test_setup_logging_writes_the_jax_formats(tmp_path, monkeypatch):
+    from nakama_tpu import logger as jax_logger
+    from nakama_tpu_torch import logger as port_log
+
+    # The node name is process-wide, set by whichever server was built
+    # last in this process: the same one for both packages here.
+    for mod in (jax_logger, port_log):
+        monkeypatch.setattr(mod, "_NODE_NAME", "node-log")
+    lines = {}
+    for name, mod, cfg_mod in (("jax", jax_logger, jax_config),
+                               ("torch", port_log, port_config)):
+        out = []
+        for fmt in ("json", "logfmt", "stackdriver", "text"):
+            path = tmp_path / f"{name}-{fmt}.log"
+            cfg = cfg_mod.LoggerConfig(
+                format=fmt, stdout=False, file=str(path), rotation=True,
+                level="warn",
+            )
+            log = mod.setup_logging(cfg)
+            log.info("dropped")
+            log.with_fields(subsystem="t").warn("kept", n=1, s="a b")
+            for line in path.read_text().splitlines():
+                out.append(re.sub(r'("ts": |ts=|"timestamp": ")[0-9T:.+\-]+', "TS", line))
+        lines[name] = out
+    assert lines["torch"] == lines["jax"]
+    assert len(lines["torch"]) == 4
