@@ -19,10 +19,17 @@ the card's busy share), and a 32,768-ticket pool driven through the
 breaker ladder with armed faults. Then crash recovery (a checkpoint and
 journal tail recovered; SIGKILLed children that lose no acknowledged
 ticket) and the server: `NakamaServer` warm-restarts the 100,000-ticket
-pool and serves 256 socket clients (HTTP auth, /ws, matchmaker adds),
-stops and restarts with the same pool, and `python -m nakama_tpu_torch`
-serves and stops on SIGTERM in a subprocess. Every phase but the fault
-phase asserts that the breaker stayed closed with no backend failure. Every
+pool and serves 256 socket clients (HTTP auth, /ws, matchmaker adds; the
+matched pairs join their match by token and relay data, each client
+writes a record to a 100,000-record board on the card and reads its
+haystack), stops and restarts with the same pool and the same ranks,
+and `python -m nakama_tpu_torch` serves and stops on SIGTERM in a
+subprocess. Then matches and parties on a fresh server (party
+matchmaking, token joins, an authoritative Python match found through
+`GET /v2/match`), and the leaderboard rank engine on the card over a
+10,000,000-record board against the host oracle, with its fault legs
+and each device program timed beside its bound. Every phase but the
+fault phases asserts that the breaker stayed closed with no failure. Every
 phase prints one JSON line; any failure raises and the script exits
 non-zero without a result line. The last line is the device summary.
 
@@ -1940,6 +1947,11 @@ def phase_assembler() -> dict:
 SERVER_CLIENTS = 256
 SERVER_INTERVAL_S = 1
 SERVER_KEY = "defaultkey"
+# The server phase's leaderboard: created by the build and seeded with
+# 100,000 records in the database, above `device_min_board_size`, so
+# `start()` adopts it onto the card.
+SERVER_BOARD = "smoke-arena"
+SERVER_BOARD_RECORDS = 100_000
 
 
 class ServerLog:
@@ -2012,29 +2024,63 @@ async def build_server_checkpoint(pickled: bytes, cfg) -> dict:
         StrictLogger(), node=cfg.name,
     )
     stats = await ckpt.checkpoint(mm)
+    from nakama_tpu_torch.leaderboard import LeaderboardRankCache, Leaderboards
+
+    boards = Leaderboards(StrictLogger(), db, LeaderboardRankCache())
+    await boards.load()
+    await boards.create(SERVER_BOARD, sort_order="desc")
     await db.close()
     check_backend_clean(mm, "server build")
     mm.stop()
     if stats is None:
         raise AssertionError("the server phase's checkpoint failed")
+    t0 = time.perf_counter()
+    seed_board(cfg.database.address[0], SERVER_BOARD, SERVER_BOARD_RECORDS)
     return {"restore_s": restore_s, "tickets": len(queries), "checkpoint": stats,
-            "queries": queries}
+            "queries": queries, "board_seed_s": time.perf_counter() - t0}
+
+
+def seed_board(path: str, board: str, n: int) -> None:
+    """`n` records of `board` written straight into the server's SQLite
+    file, one transaction (ties on score, distinct update times so the
+    load order is fixed)."""
+    import sqlite3
+
+    rng = np.random.default_rng(12)
+    scores = rng.integers(0, 20_000, size=n).tolist()
+    subs = rng.integers(0, 10, size=n).tolist()
+    t0 = time.time() - n * 1e-3
+    con = sqlite3.connect(path)
+    try:
+        con.executemany(
+            "INSERT INTO leaderboard_record (leaderboard_id, owner_id,"
+            " username, score, subscore, num_score, metadata, create_time,"
+            " update_time, expiry_time, max_num_score)"
+            " VALUES (?, ?, ?, ?, ?, 1, '{}', ?, ?, 0, 0)",
+            ((board, f"seed-{i:06d}", f"seed{i}", scores[i], subs[i],
+              t0 + i * 1e-3, t0 + i * 1e-3) for i in range(n)),
+        )
+        con.commit()
+    finally:
+        con.close()
 
 
 async def server_client(server, ticks: list, added: dict, delivered: dict,
-                        i: int, results: list):
+                        i: int, results: list, shared: dict):
     """One player: device auth over HTTP, /ws, one north-star
-    matchmaker_add, then recv-until-key loops for the ticket and the
-    match. The server's side counts its intervals (`ticks[0]`) and
-    stamps each client ticket with the interval count when it was added
-    (`added`) and when its match was delivered (`delivered`): a ticket
-    must be matched by a cohort of one of the 3 intervals after its add,
-    or still be in the pool after them. The socket stays open for the
-    stop."""
-    from nakama_tpu_torch.api import wsproto
+    matchmaker_add, then waits for the ticket and the match. The
+    server's side counts its intervals (`ticks[0]`) and stamps each
+    client ticket with the interval count when it was added (`added`)
+    and when its match was delivered (`delivered`): a ticket must be
+    matched by a cohort of one of the 3 intervals after its add, or
+    still be in the pool after them. A matched player redeems its token
+    with `match_join`. Then it plays a relayed match with its partner
+    client `i ^ 1` (`play_match`) and writes one leaderboard record.
+    The socket stays open for the stop."""
+    from nakama_tpu_torch.api import session_token, wsproto
 
-    rng = np.random.default_rng(5000 + i)
-    q, strs, nums = north_star_ticket(rng)
+    q, strs, nums = north_star_ticket(np.random.default_rng(5000 + i))
+    rng = np.random.default_rng(7000 + i)
     device = f"smoke-device-{i:04d}"
     rec: dict = {"i": i, "query": q, "device": device}
     t0 = time.perf_counter()
@@ -2048,31 +2094,27 @@ async def server_client(server, ticks: list, added: dict, delivered: dict,
     rec["auth_ms"] = (rec["auth_at"][1] - t0) * 1e3
     if r.status != 200:
         raise AssertionError(f"client {i}: auth {r.status} {r.body[:200]!r}")
+    key = server.config.session.encryption_key
+    rec["token"] = r.json()["token"]
+    rec["user_id"] = session_token.parse(key, rec["token"]).user_id
     ws = await wsproto.connect(
-        "127.0.0.1", server.port, f"/ws?token={r.json()['token']}")
+        "127.0.0.1", server.port, f"/ws?token={rec['token']}")
     rec["ws"] = ws
-
-    async def until(key, timeout):
-        async def loop():
-            while True:
-                env = json.loads(await ws.recv())
-                if key in env:
-                    return env
-        return await asyncio.wait_for(loop(), timeout)
-
+    inbox = Inbox(ws)
     t_add = time.perf_counter()
     await ws.send(json.dumps({"cid": f"c{i}", "matchmaker_add": {
         "min_count": 2, "max_count": 2, "query": q,
         "string_properties": strs, "numeric_properties": nums,
     }}))
-    ack = await until("matchmaker_ticket", 30)
+    ack = await inbox.take(lambda e: "matchmaker_ticket" in e, 30)
     rec["add_to_ticket_ms"] = (time.perf_counter() - t_add) * 1e3
     tid = rec["ticket"] = ack["matchmaker_ticket"]["ticket"]
     rec["matched"] = None
     t_end = time.perf_counter() + 60
     while time.perf_counter() < t_end:
         try:
-            env = await until("matchmaker_matched", 0.25)
+            env = await inbox.take(lambda e: e.get(
+                "matchmaker_matched", {}).get("ticket") == tid, 0.25)
         except asyncio.TimeoutError:
             # The 4th interval since the add has begun and no match was
             # delivered: the ticket must be in the pool.
@@ -2082,25 +2124,143 @@ async def server_client(server, ticks: list, added: dict, delivered: dict,
                         f"client {i}: neither matched nor in the pool") from None
                 break
             continue
-        rec["add_to_matched_ms"] = (time.perf_counter() - t_add) * 1e3
-        rec["intervals_to_match"] = delivered[tid] - added[tid]
+        rec["matched_at"] = time.perf_counter()
+        rec["add_to_matched_ms"] = (rec["matched_at"] - t_add) * 1e3
         rec["matched"] = env["matchmaker_matched"]
+        # Parsed now: the token expires before the leg ends.
+        rec["claims"] = session_token.parse(key, rec["matched"]["token"])
+        await join_by_token(rec, inbox)
         break
     else:
         raise AssertionError(f"client {i}: no match and no 4th interval in 60 s")
+    await play_match(rec, inbox, shared)
+    t0 = time.perf_counter()
+    r = await wsproto.request(
+        "127.0.0.1", server.port, "POST", f"/v2/leaderboard/{SERVER_BOARD}",
+        headers={"Authorization": f"Bearer {rec['token']}"},
+        body={"record": {"score": int(rng.integers(0, 20_000)), "subscore": i % 10}},
+    )
+    rec["write_ms"] = (time.perf_counter() - t0) * 1e3
+    if r.status != 200:
+        raise AssertionError(f"client {i}: record write {r.status} {r.body[:200]!r}")
     results.append(rec)
 
 
-def check_client_groups(results: list, queries_by_session: dict, key: str) -> dict:
+class Inbox:
+    """A client socket's envelopes, each kept until a `take` wants it."""
+
+    def __init__(self, ws):
+        self.ws = ws
+        self.kept: list = []
+
+    async def take(self, want, timeout: float = 30.0) -> dict:
+        for j, env in enumerate(self.kept):
+            if want(env):
+                return self.kept.pop(j)
+
+        async def loop():
+            while True:
+                env = json.loads(await self.ws.recv())
+                if want(env):
+                    return env
+                self.kept.append(env)
+
+        return await asyncio.wait_for(loop(), timeout)
+
+
+async def join_by_token(rec: dict, inbox: Inbox) -> None:
+    """The matched player redeems its match token with `match_join`: the
+    answer names the match the token names, with this player as `self`.
+    Its partner is a restored ticket whose player is not connected, or
+    another client, which may join too. Times matched -> joined."""
+    await inbox.ws.send(json.dumps({"cid": "token", "match_join": {
+        "token": rec["matched"]["token"]}}))
+    env = await inbox.take(lambda e: e.get("cid") == "token")
+    rec["matched_to_joined_ms"] = (time.perf_counter() - rec["matched_at"]) * 1e3
+    joined = env.get("match")
+    if (joined is None or joined["match_id"] != rec["claims"].vars.get("mid")
+            or joined["self"]["user_id"] != rec["user_id"]):
+        raise AssertionError(f"client {rec['i']}: token join answered {env}")
+    rec["token_match"] = joined["match_id"]
+
+
+async def play_match(rec: dict, inbox: Inbox, shared: dict) -> None:
+    """Clients `2k` and `2k + 1` play one relayed match: the first
+    creates it (`match_create`), the second joins it by id; each sees
+    the other among the match's presences (in its join's answer, or in a
+    presence event when the other joins later), sends one
+    `match_data_send` and receives the other's. Times the relay from
+    the partner's send to this receipt."""
+    i, k = rec["i"], rec["i"] // 2
+    loop = asyncio.get_running_loop()
+    created = shared["created"].setdefault(k, loop.create_future())
+    if i % 2 == 0:
+        await inbox.ws.send(json.dumps({"cid": "play", "match_create": {}}))
+        joined = (await inbox.take(lambda e: e.get("cid") == "play"))["match"]
+        created.set_result(joined["match_id"])
+    else:
+        mid = await asyncio.wait_for(created, 120)
+        await inbox.ws.send(json.dumps({"cid": "play", "match_join": {
+            "match_id": mid}}))
+        joined = (await inbox.take(lambda e: e.get("cid") == "play"))["match"]
+    mid = joined["match_id"]
+    partner = shared["users"].setdefault(i ^ 1, loop.create_future())
+    me = shared["users"].setdefault(i, loop.create_future())
+    me.set_result(rec["user_id"])
+    partner_id = await asyncio.wait_for(partner, 120)
+    if partner_id not in {p["user_id"] for p in joined["presences"]}:
+        await inbox.take(lambda e: e.get("match_presence_event", {}).get(
+            "match_id") == mid and partner_id in {
+                p["user_id"] for p in e["match_presence_event"].get("joins", ())})
+    shared["relay_sent"][rec["user_id"]] = time.perf_counter()
+    await inbox.ws.send(json.dumps({"match_data_send": {
+        "match_id": mid, "op_code": 1,
+        "data": base64.b64encode(rec["device"].encode()).decode()}}))
+    got = (await inbox.take(lambda e: e.get("match_data", {}).get(
+        "match_id") == mid))["match_data"]
+    rec["relay_ms"] = (time.perf_counter() - shared["relay_sent"][partner_id]) * 1e3
+    if got["presence"]["user_id"] != partner_id:
+        raise AssertionError(f"client {i}: relayed {got}")
+    rec["partner_device"] = base64.b64decode(got["data"]).decode()
+
+
+async def haystack_ranks(port: int, token: str, owner: str) -> tuple[float, list]:
+    """`GET /v2/leaderboard/{board}/owner/{owner}`: its time and the
+    (owner, rank) pairs of the window."""
+    from nakama_tpu_torch.api import wsproto
+
+    t0 = time.perf_counter()
+    r = await wsproto.request(
+        "127.0.0.1", port, "GET",
+        f"/v2/leaderboard/{SERVER_BOARD}/owner/{owner}?limit=10",
+        headers={"Authorization": f"Bearer {token}"})
+    ms = (time.perf_counter() - t0) * 1e3
+    if r.status != 200:
+        raise AssertionError(f"haystack {r.status} {r.body[:200]!r}")
+    return ms, [(x["owner_id"], x["rank"]) for x in r.json()["records"]]
+
+
+def check_ranks(server, windows: list) -> None:
+    """Every rank of every window is the host oracle's (1-based)."""
+    oracle = server.leaderboards.ranks
+    for window in windows:
+        if not window:
+            raise AssertionError("an empty haystack window")
+        for owner, rank in window:
+            if oracle.get(SERVER_BOARD, 0.0, owner) + 1 != rank:
+                raise AssertionError(
+                    f"{owner}: rank {rank}, the oracle's "
+                    f"{oracle.get(SERVER_BOARD, 0.0, owner) + 1}")
+
+
+def check_client_groups(results: list, queries_by_session: dict) -> dict:
     """Every group that names a client: each member's query accepts every
     other member's properties (the port's evaluator over the envelope's
-    properties), the match token parses with the server's key and names
-    every member."""
-    from nakama_tpu_torch.api import session_token
+    properties), and the match token, parsed with the server's key when
+    it arrived, names every member."""
     from nakama_tpu_torch.matchmaker.query import matches, parse_query
 
-    client_query = {r["matched"]["self"]["presence"]["session_id"]: r["query"]
-                    for r in results if r["matched"]}
+    client_query = {r["user_id"]: r["query"] for r in results}
     groups = 0
     for r in results:
         m = r["matched"]
@@ -2110,8 +2270,8 @@ def check_client_groups(results: list, queries_by_session: dict, key: str) -> di
         if len(users) != 2 or m["ticket"] != r["ticket"]:
             raise AssertionError(f"client {r['i']}: bad match envelope {m}")
         for a in users:
-            sid = a["presence"]["session_id"]
-            q = client_query.get(sid) or queries_by_session[sid]
+            q = (client_query.get(a["presence"]["user_id"])
+                 or queries_by_session[a["presence"]["session_id"]])
             for b in users:
                 if b is a:
                     continue
@@ -2120,7 +2280,7 @@ def check_client_groups(results: list, queries_by_session: dict, key: str) -> di
                             for k, v in b["numeric_properties"].items()})
                 if not matches(parse_query(q), doc):
                     raise AssertionError(f"client {r['i']}: {q!r} rejects {b}")
-        claims = session_token.parse(key, m["token"])
+        claims = r["claims"]
         named = {part.split(":")[0] for part in claims.user_id.split(",")}
         if claims.vars.get("kind") != "match_token" or named != {
             u["presence"]["user_id"] for u in users
@@ -2196,15 +2356,20 @@ def phase_server(pickled: bytes) -> dict:
     (device auth over HTTP, /ws, one north-star matchmaker_add each)
     served by 1 s pipelined intervals; each client's ticket acknowledged,
     matched within 3 intervals or still in the pool, its group valid, its
-    match token the server's. The breaker stays closed, the ladder at OK;
-    stage 1 runs on stage1_wgmma only. Then stop() (drain to durable), a
-    second server on the same data_dir recovers exactly the pool the
-    first held at stop, and `python -m nakama_tpu_torch` serves, stops on
-    SIGTERM and recovers in a subprocess."""
+    match token the server's and redeemed with `match_join`. Then each
+    pair of clients plays a relayed match (create, join by id, presence,
+    data both ways), and each client writes a record to a 100,000-record
+    board on the card and reads its haystack, every rank the oracle's.
+    The breaker stays closed, the ladder at OK; stage 1 runs on
+    stage1_wgmma only. Then stop() (drain to durable), a second server on
+    the same data_dir recovers exactly the pool the first held at stop
+    and answers the same haystacks, and `python -m nakama_tpu_torch`
+    serves, stops on SIGTERM and recovers in a subprocess."""
     import shutil
 
     from nakama_tpu_torch import kernels
     from nakama_tpu_torch.api import wsproto
+    from nakama_tpu_torch.leaderboard import cuda as b8
     from nakama_tpu_torch.server import NakamaServer
 
     out_dir = os.path.join(OUT_DIR, "chip_smoke", "server")
@@ -2222,6 +2387,7 @@ def phase_server(pickled: bytes) -> dict:
         log = ServerLog(os.path.join(out_dir, "server.log"))
         for k in kernels.KERNELS:
             k.launches = 0
+        b8.reset_launches()
         t0 = time.perf_counter()
         server = NakamaServer(cfg, log.logger)
         if server.matchmaker.backend.device != DEVICE:
@@ -2341,13 +2507,25 @@ def phase_server(pickled: bytes) -> dict:
 
         beat = asyncio.get_running_loop().create_task(heartbeat())
         results: list = []
+        # Each pair's relayed match, each client's user id, and when it
+        # sent its match data.
+        shared: dict = {"created": {}, "users": {}, "relay_sent": {}}
         commits0 = scrape_db(server.metrics.scrape())
         t0 = time.perf_counter()
         await asyncio.gather(*(
-            server_client(server, ticks, added, delivered, i, results)
+            server_client(server, ticks, added, delivered, i, results, shared)
             for i in range(SERVER_CLIENTS)
         ))
         res["client_leg_s"] = time.perf_counter() - t0
+        # Haystack reads once every write is in: past the flush interval
+        # (the staleness contract), the first read flushes the board.
+        await asyncio.sleep(cfg.leaderboard.device_flush_interval_sec)
+        lb_device = server.leaderboards.device
+        reads0, lex0 = lb_device.device_reads, kernels.LEX_RANKS.launches
+        hay = await asyncio.gather(*(
+            haystack_ranks(server.port, r["token"], r["user_id"]) for r in results))
+        check_ranks(server, [w for _, w in hay])
+        windows = {r["i"]: w for r, (_, w) in zip(results, hay)}
         beat.cancel()
         try:
             await beat
@@ -2362,19 +2540,30 @@ def phase_server(pickled: bytes) -> dict:
             results, auth_server, auth_db, admit_waits, beats,
             {k: commits1[k] - commits0[k] for k in commits1})
         mm = server.matchmaker
+        for r in results:
+            if r["matched"]:
+                r["intervals_to_match"] = delivered[r["ticket"]] - added[r["ticket"]]
         unmatched = [r for r in results if r["matched"] is None]
-        late = [r["i"] for r in results if r.get("intervals_to_match", 0) > 3]
+        late = [r["i"] for r in results
+                if r["matched"] and r["intervals_to_match"] > 3]
         if len(results) != SERVER_CLIENTS or late:
             raise AssertionError(
                 f"{len(results)} clients served; matched after 3 intervals: {late}")
+        client_users = {r["user_id"] for r in results}
         res["clients"] = {
             "n": len(results), "acknowledged": sum("ticket" in r for r in results),
             "matched": len(results) - len(unmatched), "still_pooled": len(unmatched),
+            # Matched with another client rather than a restored ticket.
+            "matched_with_a_client": sum(
+                any(u["presence"]["user_id"] in client_users
+                    for u in r["matched"]["users"]
+                    if u["presence"]["user_id"] != r["user_id"])
+                for r in results if r["matched"]),
+            "joined_by_token": sum("token_match" in r for r in results),
             "intervals_to_match": dict(collections.Counter(
                 r["intervals_to_match"] for r in results if r["matched"])),
         }
-        res["client_groups"] = check_client_groups(
-            results, queries_by_session, cfg.session.encryption_key)
+        res["client_groups"] = check_client_groups(results, queries_by_session)
         def pcts(samples):
             return {k: v for k, v in ms_stats(samples).items() if k != "samples_ms"}
 
@@ -2382,6 +2571,33 @@ def phase_server(pickled: bytes) -> dict:
         res["add_to_ticket"] = pcts([r["add_to_ticket_ms"] for r in results])
         res["add_to_matched"] = pcts(
             [r["add_to_matched_ms"] for r in results if r["matched"]])
+        res["matched_to_joined"] = pcts(
+            [r["matched_to_joined_ms"] for r in results if r["matched"]])
+        res["relay"] = pcts([r["relay_ms"] for r in results])
+        res["record_write"] = pcts([r["write_ms"] for r in results])
+        res["haystack"] = pcts([ms for ms, _ in hay])
+        board = lb_device._boards.get((SERVER_BOARD, 0.0))
+        res["leaderboard"] = {
+            "relays": sum(r["partner_device"] == f"smoke-device-{r['i'] ^ 1:04d}"
+                          for r in results),
+            "board_entries": board.count if board is not None else None,
+            "device": str(lb_device.device),
+            "rank_device_calls": lb_device.device_reads - reads0,
+            "lex_ranks_launches": kernels.LEX_RANKS.launches - lex0,
+            "flushes": lb_device.flushes,
+            "fallbacks": lb_device.fallbacks,
+            "breaker_failures": lb_device.breaker.failures,
+            "haystack": res["haystack"],
+            "b8_launches": dict(b8.LAUNCHES),
+        }
+        if (res["leaderboard"]["relays"] != SERVER_CLIENTS
+                or res["leaderboard"]["rank_device_calls"] <= 0
+                or res["leaderboard"]["lex_ranks_launches"] <= 0
+                or board is None
+                or board.count != SERVER_BOARD_RECORDS + SERVER_CLIENTS
+                or lb_device.device != DEVICE or lb_device.fallbacks
+                or lb_device.breaker.failures):
+            raise AssertionError(f"the server's matches and board: {res['leaderboard']}")
         crumbs = [c for c in mm.backend.tracing.breadcrumbs if "actives" in c]
         res["intervals"] = [
             {"actives": c["actives"],
@@ -2454,6 +2670,25 @@ def phase_server(pickled: bytes) -> dict:
             k: v for k, v in again.recovered.items()
             if k not in ("unpublished_lsns", "repooled_ids")}
         res["restart_held"] = len(again.recovery.held)
+        # The same haystack reads, by the same players signed in again,
+        # give the same ranks.
+        relogged = await asyncio.gather(*(
+            wsproto.request(
+                "127.0.0.1", again.port, "POST",
+                "/v2/account/authenticate/device",
+                headers={"Authorization": "Basic " + base64.b64encode(
+                    f"{SERVER_KEY}:".encode()).decode()},
+                body={"account": {"id": r["device"]}})
+            for r in results))
+        hay2 = await asyncio.gather(*(
+            haystack_ranks(again.port, rl.json()["token"], r["user_id"])
+            for r, rl in zip(results, relogged)))
+        if [w for _, w in hay2] != [windows[r["i"]] for r in results]:
+            raise AssertionError("the restart's haystack ranks differ")
+        check_ranks(again, [w for _, w in hay2])
+        res["restart_haystack"] = pcts([ms for ms, _ in hay2])
+        res["restart_board_restored"] = (
+            again.leaderboards.device._boards.get((SERVER_BOARD, 0.0)) is not None)
         await again.stop()
         if pool != sorted(held) or again.recovered["tickets"] != len(held):
             raise AssertionError(
@@ -2614,6 +2849,585 @@ def server_module_leg(out_dir: str, backend: str = "cuda") -> dict:
     return out
 
 
+# ------------------------------------------------------------- leaderboard
+
+LB_POOL = 10_000_000  # the JAX bench's chip pool (bench.py:3462-3466)
+LB_BATCH = 1024
+LB_ROUNDS = 30
+LB_CUP = 8192  # the sweep's tournament board (>= device_min_board_size)
+
+
+def lb_oracle(n: int, board: str, seed: int, prefix: str):
+    """`n` owners of a desc board built in bulk: scores as the JAX
+    bench draws them, seqs in write order, and the host oracle rebuilt
+    through `restore_board` from entries already in key order (no 10M
+    `insort`s). Returns the oracle, the owners and the build's split."""
+    from nakama_tpu_torch.leaderboard import LeaderboardRankCache
+
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    scores = rng.integers(0, max(10, n * 4), size=n)
+    subs = rng.integers(0, 1000, size=n)
+    seq = np.arange(1, n + 1)
+    order = np.lexsort((seq, -subs, -scores))
+    owners = [f"{prefix}{i}" for i in range(n)]
+    entries = list(zip(
+        [owners[i] for i in order.tolist()], (-scores[order]).tolist(),
+        (-subs[order]).tolist(), seq[order].tolist(),
+    ))
+    t1 = time.perf_counter()
+    oracle = LeaderboardRankCache()
+    oracle.restore_board(board, 0.0, 1, entries)
+    del entries
+    return oracle, owners, {"entries_s": t1 - t0,
+                            "restore_board_s": time.perf_counter() - t1}
+
+
+def lb_routed(engine, oracle, board, batch):
+    got = engine.get_many(board, 0.0, batch)
+    return got if got is not None else oracle.get_many(board, 0.0, batch)
+
+
+def b8_timings(engine, board, batch) -> dict:
+    """CUDA-event medians of each B8 program at the board's shape (the
+    engine's own device tensors), each beside its bound: the bytes it
+    must move (each input read once, each output written once; the
+    binary search reads one key row per query per step) over the
+    card's HBM rate; and the same program on the host's CPU tensors.
+    `lex_ranks` is the hand kernel: it is also held against its plain
+    PyTorch version on the same inputs on the card (exact) and timed
+    beside it. Its search needs ceil(log2(C + 1)) dependent loads a
+    query, so beside the bytes bound it gets a latency bound: that many
+    steps times one step's measured load latency (`search_step_latency`)."""
+    from nakama_tpu_torch.leaderboard import cuda as b8
+
+    b = engine._boards[(board, 0.0)]
+    c = b.capacity
+    keys = b.device_keys
+    q = torch.from_numpy(np.asarray(
+        [k[:3] for k in engine.oracle.keys_for(board, 0.0, batch) if k],
+        dtype=np.int64).astype(np.int32))
+    qd = q.to(DEVICE)
+    iters = b8.n_search_iters(c)
+    # The steps a lower bound over [0, C] needs (the kernel stops there;
+    # `iters` is the program's fixed depth, one more).
+    steps = c.bit_length()
+    u = LB_BATCH
+    idx = torch.randperm(c, generator=torch.Generator().manual_seed(4))[:u]
+    rows = keys[idx.to(DEVICE)].cpu()
+    idx_d, rows_d = idx.to(DEVICE), rows.to(DEVICE)
+    scratch = keys.clone()
+    keys_c, perm_c = keys.cpu(), b.perm.cpu()
+    sorted_c = b.sorted_keys.cpu()
+    progs = {
+        "scatter_keys": (
+            lambda: b8.scatter_keys(scratch, idx_d, rows_d),
+            lambda: b8.scatter_keys(keys_c.clone(), idx, rows),
+            (8 + 12 + 12) * u),
+        "sort_boards": (
+            lambda: b8.sort_boards(keys[None]),
+            lambda: b8.sort_boards(keys_c[None]),
+            (12 + 12 + 4) * c),
+        "lex_ranks": (
+            lambda: b8.lex_ranks(b.sorted_keys, qd, iters),
+            lambda: b8.lex_ranks(sorted_c, q, iters),
+            (12 + 12 * steps + 4) * len(q)),
+        "rank_of_slots": (
+            lambda: b8.rank_of_slots(b.perm[None]),
+            lambda: b8.rank_of_slots(perm_c[None]),
+            (4 + 4) * c),
+        "window_slots": (
+            lambda: b8.window_slots(b.perm, c // 2, 100).clone(),
+            lambda: b8.window_slots(perm_c, c // 2, 100).clone(),
+            (4 + 4) * 100),
+    }
+    out = {}
+    for name, (card, host, nbytes) in progs.items():
+        ms = cuda_time_ms(card, 20)
+        t0 = time.perf_counter()
+        host()
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        out[name] = {"ms": ms, "cpu_ms": cpu_ms,
+                     "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+                     "bytes": nbytes}
+    got = b8.lex_ranks(b.sorted_keys, qd, iters)
+    want = b8.lex_ranks_plain(b.sorted_keys, qd, iters)
+    lex = out["lex_ranks"]
+    lex["max_abs_err"] = int((got.long() - want.long()).abs().max())
+    lex["plain_ms"] = cuda_time_ms(
+        lambda: b8.lex_ranks_plain(b.sorted_keys, qd, iters), 20)
+    lex["queries"] = len(q)
+    lex["steps"] = steps
+    lex["step_latency"] = search_step_latency(b.sorted_keys, qd[:1], iters)
+    lex["latency_bound_ms"] = steps * lex["step_latency"]["ms"]
+    del scratch
+    return out
+
+
+def search_step_latency(sorted_keys, q1, iters: int) -> dict:
+    """One step of the binary search on the card, as latency: one query
+    searched alone with L2 evicted first (a 256 MiB write), at its full
+    depth and at one step, CUDA-event medians; the difference over the
+    extra steps the query takes is one dependent load's latency from
+    device memory (the launch and the query's own load cancel)."""
+    from nakama_tpu_torch import kernels
+
+    c = sorted_keys.shape[0]
+    rank = int(kernels.lex_ranks(sorted_keys, q1, iters)[0])
+    lo, hi, taken = 0, c, 0
+    while lo < hi:  # the kernel's walk, for this query's answer
+        mid = (lo + hi) >> 1
+        lo, hi = (mid + 1, hi) if mid < rank else (lo, mid)
+        taken += 1
+    evict = torch.empty(256 << 20, dtype=torch.uint8, device=DEVICE)
+
+    def cold_ms(n: int) -> float:
+        times = []
+        for _ in range(30):
+            evict.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            kernels.lex_ranks(sorted_keys, q1, n)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    full, one = cold_ms(iters), cold_ms(1)
+    del evict
+    return {"ms": (full - one) / max(1, taken - 1), "steps_taken": taken,
+            "full_ms": full, "one_step_ms": one}
+
+
+def phase_leaderboard() -> dict:
+    """The port's second device workload at the JAX bench's chip size:
+    `DeviceRankEngine` on cuda:0 over one 10,000,000-record board
+    (16,777,216 slots), the host oracle built in bulk. 30 rounds of
+    1,024-owner `get_many` equal the oracle's ranks in every round;
+    `rank_window` (top 100, around an owner) and `percentile` agree; a
+    threshold of upserts and deletes is absorbed, flushed, and read
+    back equal; `sweep_many` over an 8,192-entry tournament board equals
+    the oracle's standings; the engine's `snapshot_state` restored into
+    a fresh engine gives the same ranks; armed `leaderboard.rank` and
+    `leaderboard.flush` faults (raise, stall, drop) degrade to the
+    oracle and the half-open probe closes the breaker, which otherwise
+    stays closed with no failure. Prints each B8 program's CUDA-event
+    median beside its bound, and the `leaderboard.boards` ledger row."""
+    from nakama_tpu_torch import faults, kernels
+    from nakama_tpu_torch.config import LeaderboardConfig
+    from nakama_tpu_torch.devobs import DEVOBS
+    from nakama_tpu_torch.leaderboard import DeviceRankEngine
+    from nakama_tpu_torch.leaderboard import cuda as b8
+
+    for k in kernels.KERNELS:
+        k.launches = 0
+    res: dict = {"pool": LB_POOL}
+    cfg = LeaderboardConfig(device_breaker_cooldown_ms=150)
+    oracle, owners, res["oracle_build"] = lb_oracle(LB_POOL, "bench", 3, "u")
+    engine = DeviceRankEngine(cfg, StrictLogger(), oracle=oracle)
+    if engine.device != DEVICE:
+        raise AssertionError(f"the rank engine is on {engine.device}")
+    b8.reset_launches()
+    t0 = time.perf_counter()
+    if not engine.adopt_board("bench", 0.0, 1):
+        raise AssertionError("the board was not adopted")
+    res["adopt_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if not engine.flush_all():
+        raise AssertionError("the first flush failed")
+    torch.cuda.synchronize()
+    res["first_flush_s"] = time.perf_counter() - t0
+    board = engine._boards[("bench", 0.0)]
+    res["capacity"] = board.capacity
+    res["ledger_boards_bytes"] = DEVOBS.memory_by_owner().get("leaderboard.boards")
+    if res["ledger_boards_bytes"] != b8.board_device_bytes(board.capacity):
+        raise AssertionError(f"ledger row {res['ledger_boards_bytes']}")
+    emit({"phase": "leaderboard_build", **res})
+
+    def check_clean(leg):
+        br = engine.breaker
+        if br.state != "closed" or br.failures or br.opens or engine.fallbacks:
+            raise AssertionError(
+                f"{leg}: breaker {br.state}, {br.failures} failures, "
+                f"{engine.fallbacks} fallbacks")
+
+    rng = np.random.default_rng(5)
+    batches = [[owners[j] for j in rng.integers(0, LB_POOL, size=LB_BATCH)]
+               for _ in range(LB_ROUNDS)]
+    host_us, dev_us, parity = [], [], 0
+    for batch in batches:
+        t0 = time.perf_counter()
+        want = oracle.get_many("bench", 0.0, batch)
+        host_us.append((time.perf_counter() - t0) / LB_BATCH * 1e6)
+        t0 = time.perf_counter()
+        got = engine.get_many("bench", 0.0, batch)
+        dev_us.append((time.perf_counter() - t0) / LB_BATCH * 1e6)
+        parity += got != want
+    if parity:
+        raise AssertionError(f"get_many disagreed with the oracle in {parity} rounds")
+    res["rank"] = {
+        "rounds": LB_ROUNDS, "batch": LB_BATCH,
+        "device_us_per_query": {"median": statistics.median(dev_us),
+                                "p99": max(dev_us), "samples": dev_us},
+        "host_us_per_query": {"median": statistics.median(host_us),
+                              "p99": max(host_us)},
+    }
+    owner = batches[0][0]
+    rank = oracle.get("bench", 0.0, owner)
+    windows = {"top100": (0, 100), "around": (max(0, rank - 50), 100)}
+    for name, (start, limit) in windows.items():
+        t0 = time.perf_counter()
+        got = engine.rank_window("bench", 0.0, start, limit)
+        res[f"window_{name}_ms"] = (time.perf_counter() - t0) * 1e3
+        if got != oracle.rank_window("bench", 0.0, start, limit):
+            raise AssertionError(f"rank_window {name} disagreed")
+    pct = engine.percentile("bench", 0.0, owner)
+    if pct != (rank, LB_POOL, (rank + 1) / LB_POOL):
+        raise AssertionError(f"percentile {pct}")
+    check_clean("reads")
+    # Write absorb: one dirty threshold of upserts and deletes of distinct
+    # owners, staged in O(1) each, then the read that flushes them.
+    n_w = engine.dirty_threshold
+    t0 = time.perf_counter()
+    for j in rng.choice(LB_POOL, size=n_w, replace=False).tolist():
+        o = owners[j]
+        if j % 4 == 0:
+            oracle.delete("bench", 0.0, o)
+            engine.record_delete("bench", 0.0, o)
+        else:
+            oracle.insert("bench", 0.0, 1, o, int(rng.integers(0, 4 * LB_POOL)), 0)
+            engine.record_upsert("bench", 0.0, 1, o)
+    res["absorb"] = {"writes": n_w, "writes_with_oracle_s": time.perf_counter() - t0,
+                     "dirty": len(board.dirty)}
+    batch = batches[1]
+    t0 = time.perf_counter()
+    got = engine.get_many("bench", 0.0, batch)
+    res["absorb"]["read_with_flush_ms"] = (time.perf_counter() - t0) * 1e3
+    res["absorb"]["flush_lag_ms"] = engine.last_flush_lag_s * 1e3
+    if got != oracle.get_many("bench", 0.0, batch) or board.dirty:
+        raise AssertionError("the absorbed writes did not read back")
+    # The timing launches are not the main path's.
+    counted = dict(b8.LAUNCHES), kernels.LEX_RANKS.launches
+    res["b8"] = b8_timings(engine, "bench", batch)
+    b8.LAUNCHES.update(counted[0])
+    kernels.LEX_RANKS.launches = counted[1]
+    # Reward sweep over a tournament board.
+    cup_oracle, cup_owners, _ = lb_oracle(LB_CUP, "cup", 8, "c")
+    cup = DeviceRankEngine(cfg, StrictLogger(), oracle=cup_oracle)
+    if not cup.adopt_board("cup", 0.0, 1):
+        raise AssertionError("the tournament board was not adopted")
+    t0 = time.perf_counter()
+    swept = cup.sweep_many([("cup", 0.0)])
+    res["sweep_ms"] = (time.perf_counter() - t0) * 1e3
+    if swept.get(("cup", 0.0)) != cup_oracle.standings("cup", 0.0):
+        raise AssertionError("sweep_many disagreed with the oracle")
+    # Snapshot into a fresh engine (and a fresh oracle).
+    t0 = time.perf_counter()
+    snap = engine.snapshot_state()
+    res["snapshot_s"] = time.perf_counter() - t0
+    from nakama_tpu_torch.leaderboard import LeaderboardRankCache
+
+    fresh = DeviceRankEngine(cfg, StrictLogger(), oracle=LeaderboardRankCache())
+    t0 = time.perf_counter()
+    if fresh.restore_state(snap) != 1:
+        raise AssertionError("restore_state restored no board")
+    res["restore_s"] = time.perf_counter() - t0
+    del snap
+    for batch in batches[:3]:
+        if fresh.get_many("bench", 0.0, batch) != oracle.get_many("bench", 0.0, batch):
+            raise AssertionError("the restored engine disagreed")
+    del fresh
+    gc.collect()
+    check_clean("writes, sweep, snapshot")
+    res["device_reads"] = engine.device_reads
+    res["flushes"] = engine.flushes
+    # The degradation ladder: every armed fault serves the oracle's ranks.
+    batch = batches[2][:512]
+    legs = {}
+
+    def served(leg, n=4):
+        want = oracle.get_many("bench", 0.0, batch)
+        for _ in range(n):
+            if lb_routed(engine, oracle, "bench", batch) != want:
+                raise AssertionError(f"{leg}: a degraded read lost parity")
+
+    def cooled():
+        time.sleep(engine.breaker.cooldown_s + 0.05)
+
+    try:
+        faults.arm("leaderboard.rank", "raise")
+        served("rank_raise")
+        legs["rank_raise"] = engine.breaker.state
+        if engine.breaker.state != "open":
+            raise AssertionError(f"rank raise: breaker {engine.breaker.state}")
+        faults.disarm()
+        cooled()
+        if engine.get_many("bench", 0.0, batch) is None or (
+                engine.breaker.state != "closed"):
+            raise AssertionError("the half-open probe did not close the breaker")
+        faults.arm("leaderboard.rank", "stall", stall_s=0.02, count=2)
+        served("rank_stall")
+        faults.arm("leaderboard.rank", "drop", count=3)
+        served("rank_drop")
+        faults.disarm()
+        for o in batch[:64]:
+            oracle.insert("bench", 0.0, 1, o, 999_999_999, 0)
+            engine.record_upsert("bench", 0.0, 1, o)
+        board.sorted_valid = False
+        faults.arm("leaderboard.flush", "raise")
+        served("flush_raise")
+        faults.disarm()
+        cooled()
+        if engine.get_many("bench", 0.0, batch) != oracle.get_many("bench", 0.0, batch):
+            raise AssertionError("the flush did not reconverge")
+        board.sorted_valid = False
+        faults.arm("leaderboard.flush", "drop")
+        served("flush_drop")
+        faults.disarm()
+        cooled()
+        if engine.get_many("bench", 0.0, batch) != oracle.get_many("bench", 0.0, batch):
+            raise AssertionError("the dropped flush did not reconverge")
+    finally:
+        faults.disarm()
+    launches = dict(b8.LAUNCHES)
+    res["faults"] = {"breaker_opens": engine.breaker.opens,
+                     "failures": engine.breaker.failures,
+                     "fallbacks": engine.fallbacks,
+                     "final_state": engine.breaker.state}
+    if engine.breaker.state != "closed" or not engine.breaker.opens:
+        raise AssertionError(f"the fault legs: {res['faults']}")
+    del engine, cup, oracle, owners, board
+    gc.collect()
+    torch.cuda.empty_cache()
+    stage1 = {k.name: k.launches for k in kernels.KERNELS}
+    emit({"phase": "leaderboard", **res, "b8_launches": launches,
+          "launches": stage1})
+    if stage1["lex_ranks"] <= 0 or res["b8"]["lex_ranks"]["max_abs_err"]:
+        raise AssertionError(f"lex_ranks on the leaderboard path: {stage1}, "
+                             f"{res['b8']['lex_ranks']}")
+    return stage1, res["b8"]["lex_ranks"]
+
+
+# ------------------------------------------------------------------ match
+
+
+class EchoMatch:
+    """An authoritative match handler in Python (the runtime that
+    registers Lua and JS ones is a later slice): 20 ticks a second, each
+    message echoed to every presence with op_code + 1, the label from
+    the create params."""
+
+    def match_init(self, ctx, params):
+        return {"echoed": 0}, 20, json.dumps({"mode": params.get("mode", "")})
+
+    def match_join_attempt(self, ctx, dispatcher, tick, state, presence, md):
+        return state, True, ""
+
+    def match_join(self, ctx, dispatcher, tick, state, presences):
+        return state
+
+    def match_leave(self, ctx, dispatcher, tick, state, presences):
+        return state
+
+    def match_loop(self, ctx, dispatcher, tick, state, messages):
+        for m in messages:
+            state["echoed"] += 1
+            dispatcher.broadcast_message(m.op_code + 1, m.data, sender=m.sender)
+        return state
+
+    def match_terminate(self, ctx, dispatcher, tick, state, grace):
+        state["terminated"] = True
+        return state
+
+    def match_signal(self, ctx, dispatcher, tick, state, data):
+        return state, data
+
+
+async def smoke_player(port: int, device: str) -> dict:
+    """Device auth over HTTP and a socket: the player's token, user id,
+    socket and inbox."""
+    from nakama_tpu_torch.api import session_token, wsproto
+
+    r = await wsproto.request(
+        "127.0.0.1", port, "POST", "/v2/account/authenticate/device",
+        headers={"Authorization": "Basic " + base64.b64encode(
+            f"{SERVER_KEY}:".encode()).decode()},
+        body={"account": {"id": device}})
+    if r.status != 200:
+        raise AssertionError(f"{device}: auth {r.status}")
+    token = r.json()["token"]
+    ws = await wsproto.connect("127.0.0.1", port, f"/ws?token={token}")
+    user = session_token.parse("defaultencryptionkey", token).user_id
+    return {"device": device, "token": token, "user_id": user, "ws": ws,
+            "inbox": Inbox(ws)}
+
+
+async def see_all(player: dict, joined: dict, others: set) -> None:
+    """Wait until every user of `others` is among the match's presences
+    (the join's answer, then presence events)."""
+    seen = {p["user_id"] for p in joined["presences"]}
+    while not others <= seen:
+        env = await player["inbox"].take(lambda e: "match_presence_event" in e)
+        seen |= {p["user_id"] for p in env["match_presence_event"].get("joins", ())}
+
+
+def phase_match() -> dict:
+    """A fresh `NakamaServer` on the card with an empty pool. 8 players
+    form 4 closed parties of 2 (`party_create`, `party_join`, the
+    leader's `party_accept`), and each leader adds its party with
+    `party_matchmaker_add` at min = max = 4: 2 matches of two parties
+    each. Every member is told of its match, naming both parties' users,
+    joins it with the token and receives each other member's
+    `match_data_send`. Then one authoritative match of a Python handler
+    registered on `server.match_registry` (`EchoMatch`): created by
+    name, 4 players join by id, each sends data and receives the loop's
+    echo, and `GET /v2/match` finds it by a label query. `stop()` ends
+    the match (`stop_all`); the server logs no error."""
+    import shutil
+
+    from nakama_tpu_torch import kernels
+    from nakama_tpu_torch.api import wsproto
+    from nakama_tpu_torch.server import NakamaServer
+
+    out_dir = os.path.join(OUT_DIR, "chip_smoke", "match")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    cfg = server_config(out_dir)
+    res: dict = {}
+
+    async def run():
+        log = ServerLog(os.path.join(out_dir, "server.log"))
+        for k in kernels.KERNELS:
+            k.launches = 0
+        server = NakamaServer(cfg, log.logger)
+        if server.matchmaker.backend.device != DEVICE:
+            raise AssertionError(f"backend on {server.matchmaker.backend.device}")
+        server.match_registry.register("echo", EchoMatch)
+        await server.start()
+        try:
+            players = [await smoke_player(server.port, f"smoke-party-{i}")
+                       for i in range(8)]
+            parties = []
+            t0 = time.perf_counter()
+            for k in range(4):
+                leader, member = players[2 * k], players[2 * k + 1]
+                await leader["ws"].send(json.dumps({"cid": "pc", "party_create": {
+                    "open": False, "max_size": 2}}))
+                pid = (await leader["inbox"].take(lambda e: "party" in e))[
+                    "party"]["party_id"]
+                await member["ws"].send(json.dumps({"cid": "pj", "party_join": {
+                    "party_id": pid}}))
+                req = await leader["inbox"].take(lambda e: "party_join_request" in e)
+                await leader["ws"].send(json.dumps({"cid": "pa", "party_accept": {
+                    "party_id": pid,
+                    "presence": req["party_join_request"]["presences"][0]}}))
+                party = (await member["inbox"].take(lambda e: "party" in e))["party"]
+                if {p["user_id"] for p in party["presences"]} != {
+                        leader["user_id"], member["user_id"]}:
+                    raise AssertionError(f"party {k}: {party}")
+                parties.append((pid, {leader["user_id"], member["user_id"]}))
+            res["parties_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for k, (pid, _) in enumerate(parties):
+                leader = players[2 * k]
+                await leader["ws"].send(json.dumps({"cid": "pm",
+                    "party_matchmaker_add": {
+                        "party_id": pid, "min_count": 4, "max_count": 4,
+                        "query": "*"}}))
+                await leader["inbox"].take(lambda e: "party_matchmaker_ticket" in e)
+            matched = [(await p["inbox"].take(lambda e: "matchmaker_matched" in e,
+                                              timeout=60))["matchmaker_matched"]
+                       for p in players]
+            res["party_add_to_matched_s"] = time.perf_counter() - t0
+            party_of = {u: k for k, (_, us) in enumerate(parties) for u in us}
+            for p, m in zip(players, matched):
+                users = {u["presence"]["user_id"] for u in m["users"]}
+                mine = party_of[p["user_id"]]
+                other = {party_of[u] for u in users} - {mine}
+                if len(users) != 4 or len(other) != 1 or users != (
+                        parties[mine][1] | parties[other.pop()][1]):
+                    raise AssertionError(f"{p['device']}: matched {users}")
+            tokens = {m["token"] for m in matched}
+            if len(tokens) != 2:
+                raise AssertionError(f"{len(tokens)} party matches, want 2")
+            # Join by token and relay.
+            joined = []
+            for p, m in zip(players, matched):
+                await p["ws"].send(json.dumps({"cid": "j", "match_join": {
+                    "token": m["token"]}}))
+                joined.append((await p["inbox"].take(lambda e: "match" in e))["match"])
+            for p, m, j in zip(players, matched, joined):
+                await see_all(p, j, {u["presence"]["user_id"] for u in m["users"]}
+                              - {p["user_id"]})
+                await p["ws"].send(json.dumps({"match_data_send": {
+                    "match_id": j["match_id"], "op_code": 2,
+                    "data": base64.b64encode(p["device"].encode()).decode()}}))
+            relays = 0
+            for p, m in zip(players, matched):
+                senders = set()
+                for _ in range(3):
+                    got = (await p["inbox"].take(lambda e: "match_data" in e))[
+                        "match_data"]
+                    senders.add(got["presence"]["user_id"])
+                if senders != {u["presence"]["user_id"] for u in m["users"]} - {
+                        p["user_id"]}:
+                    raise AssertionError(f"{p['device']}: data from {senders}")
+                relays += len(senders)
+            res["party_match_relays"] = relays
+            # The authoritative echo match.
+            four = players[:4]
+            await four[0]["ws"].send(json.dumps({"cid": "c", "match_create": {
+                "name": "echo", "params": {"mode": "smoke"}}}))
+            created = (await four[0]["inbox"].take(lambda e: "match" in e))["match"]
+            mid = created["match_id"]
+            if not created["authoritative"]:
+                raise AssertionError(f"match_create: {created}")
+            for p in four[1:]:
+                await p["ws"].send(json.dumps({"cid": "j", "match_join": {
+                    "match_id": mid}}))
+                got = (await p["inbox"].take(lambda e: "match" in e))["match"]
+                if got["match_id"] != mid:
+                    raise AssertionError(f"match_join: {got}")
+            handler = server.match_registry.get(mid)
+            t0 = time.perf_counter()
+            for p in four:
+                await p["ws"].send(json.dumps({"match_data_send": {
+                    "match_id": mid, "op_code": 5,
+                    "data": base64.b64encode(p["device"].encode()).decode()}}))
+            for p in four:
+                echoed = set()
+                while p["device"] not in echoed:
+                    got = (await p["inbox"].take(
+                        lambda e: e.get("match_data", {}).get("op_code") == 6))
+                    echoed.add(base64.b64decode(got["match_data"]["data"]).decode())
+            res["echo_s"] = time.perf_counter() - t0
+            r = await wsproto.request(
+                "127.0.0.1", server.port, "GET",
+                "/v2/match?query=%2Blabel.mode%3Asmoke",
+                headers={"Authorization": f"Bearer {four[0]['token']}"})
+            listed = r.json().get("matches", [])
+            if r.status != 200 or [(m["match_id"], m["size"]) for m in listed] != [
+                    (mid, 4)]:
+                raise AssertionError(f"GET /v2/match: {r.status} {listed}")
+            res["listed"] = listed
+            res["echoed"] = handler.state["echoed"]
+        finally:
+            await server.stop()
+        res["matches_after_stop"] = len(server.match_registry)
+        res["terminated"] = handler.state.get("terminated", False)
+        if res["matches_after_stop"] or not res["terminated"]:
+            raise AssertionError(f"stop() left the match: {res}")
+        errors = log.errors()
+        if errors:
+            raise AssertionError(f"the match server logged errors: {errors[:5]}")
+
+    asyncio.run(run())
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    emit({"phase": "match", **res, "launches": launches})
+    return launches
+
+
 def kernel_line(kernel, launches: int, err: int, timing: dict, ms_key: str,
                 bound_key: str) -> dict:
     return {
@@ -2653,6 +3467,9 @@ def main() -> int:
     del snap
     paths.append(phase_crash(recovery))
     paths.append(phase_server(pickled))
+    paths.append(phase_match())
+    lb_launches, lex = phase_leaderboard()
+    paths.append(lb_launches)
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 1)})
     total = {k.name: sum(p[k.name] for p in paths) for k in kernels.KERNELS}
     err = timing["max_err"]
@@ -2661,6 +3478,18 @@ def main() -> int:
                     "first_ms", "bound_bf16"),
         kernel_line(kernels.STAGE1_WGMMA, total["stage1_wgmma"],
                     err["stage1_wgmma"], north, "wgmma_ms", "bound_int8"),
+        {
+            "name": kernels.LEX_RANKS.name, "route": "cuda",
+            "source": "nakama_tpu_torch/csrc/" + kernels.LEX_RANKS.source,
+            "replaces": kernels.LEX_RANKS.replaces,
+            "launches": total["lex_ranks"], "max_abs_err": lex["max_abs_err"],
+            "ms": lex["ms"], "plain_ms": lex["plain_ms"],
+            "bound_ms": lex["bound_ms"], "bound_by": lex["bound_by"],
+            # Its chain of dependent loads: steps x one load's latency.
+            "latency_bound_ms": lex["latency_bound_ms"],
+            # No one PyTorch call searches three key columns at once.
+            "library_ms": None,
+        },
     ]})
     print(info["nvidia_smi"])
     emit({"ok": True, "device": {

@@ -1,10 +1,11 @@
 """HTTP request/response API + the /ws socket on one port.
 
 Parity with the reference ApiServer (reference server/api.go:87-226) for
-this slice of the port: the JAX package's `api/http.py` routes `/`,
-`/healthcheck` and `/v2/healthcheck`, `/ws`, the device, email and
+the slices of the port so far: the JAX package's `api/http.py` routes
+`/`, `/healthcheck` and `/v2/healthcheck`, `/ws`, the device, email and
 custom `/v2/account/authenticate/*` routes (server-key Basic auth),
-`/v2/account/session/refresh` and `/v2/session/logout`, behind the same
+`/v2/account/session/refresh` and `/v2/session/logout`, `/v2/match`,
+and the leaderboard and tournament record routes, behind the same
 overload middleware (admission classes, exempt paths, 429 +
 Retry-After, 504, the `traceparent` echo) and with the same error
 bodies (`{"error", "message", "code"}`) and status codes (`_map_error`).
@@ -25,12 +26,14 @@ import asyncio
 import base64
 import re
 import time
+import urllib.parse
 from typing import Any
 
 from .. import overload
 from .. import tracing as trace_api
 from ..core import authenticate as core_auth
 from ..core.authenticate import AuthError
+from ..leaderboard import LeaderboardError
 from . import session_token
 from .wsproto import HttpRequest, HttpResponse, HttpServer, json_response
 
@@ -70,15 +73,7 @@ _LATER_ROUTES = (
         ("PUT", "/v2/storage/delete"), ("GET", "/v2/storage/{collection}"),
         ("GET", "/v2/storage/{collection}/{user_id}"),
         ("POST", "/v2/rpc/{id}"), ("GET", "/v2/rpc/{id}"),
-        ("POST", "/v2/event"), ("GET", "/v2/match"),
-        ("GET", "/v2/leaderboard/{id}"), ("POST", "/v2/leaderboard/{id}"),
-        ("DELETE", "/v2/leaderboard/{id}"),
-        ("GET", "/v2/leaderboard/{id}/owner/{owner_id}"),
-        ("GET", "/v2/channel/{channel_id}"), ("GET", "/v2/tournament"),
-        ("GET", "/v2/tournament/{id}"), ("POST", "/v2/tournament/{id}"),
-        ("POST", "/v2/tournament/{id}/join"),
-        ("DELETE", "/v2/tournament/{id}"),
-        ("GET", "/v2/tournament/{id}/owner/{owner_id}"),
+        ("POST", "/v2/event"), ("GET", "/v2/channel/{channel_id}"),
         ("GET", "/v2/friend"), ("POST", "/v2/friend"),
         ("DELETE", "/v2/friend"), ("POST", "/v2/friend/block"),
         ("POST", "/v2/friend/facebook"), ("POST", "/v2/friend/steam"),
@@ -149,6 +144,10 @@ class ApiServer:
             max_request_size=sc.max_request_size_bytes,
             idle_timeout_s=sc.idle_timeout_ms / 1000.0,
             logger=self.logger,
+            # An oversized request reaches the handler unread; its JSON parse
+            # refuses it as the JAX server's does (400 "invalid JSON
+            # body"); a route that reads no body answers as usual.
+            oversize_to_handler=True,
         )
         self._metrics_http: HttpServer | None = None
         self.port: int | None = None
@@ -166,6 +165,21 @@ class ApiServer:
                 "POST", f"/v2/account/authenticate/{provider}",
                 self._make_authenticate(provider),
             ))
+        routes += [
+            ("GET", "/v2/match", self._h_match_list),
+            ("GET", "/v2/leaderboard/{id}", self._h_lb_records_list),
+            ("POST", "/v2/leaderboard/{id}", self._h_lb_record_write),
+            ("DELETE", "/v2/leaderboard/{id}", self._h_lb_record_delete),
+            ("GET", "/v2/leaderboard/{id}/owner/{owner_id}",
+             self._h_lb_haystack),
+            ("GET", "/v2/tournament", self._h_tournament_list),
+            ("GET", "/v2/tournament/{id}", self._h_t_records_list),
+            ("POST", "/v2/tournament/{id}", self._h_t_record_write),
+            ("POST", "/v2/tournament/{id}/join", self._h_t_join),
+            ("DELETE", "/v2/tournament/{id}", self._h_t_record_delete),
+            ("GET", "/v2/tournament/{id}/owner/{owner_id}",
+             self._h_lb_haystack),
+        ]
         routes += [(m, p, self._h_unimplemented) for m, p in _LATER_ROUTES]
         self._routes = [(m, _pattern(p), h) for m, p, h in routes]
 
@@ -426,6 +440,10 @@ class ApiServer:
         return {"token": token, "refresh_token": refresh}
 
     async def _json(self, request: HttpRequest) -> dict:
+        if request.body_too_large:
+            raise ApiError(
+                "invalid JSON body", 400, GRPC_INVALID_ARGUMENT
+            )
         if not request.body:
             return {}
         try:
@@ -567,6 +585,167 @@ class ApiServer:
         except Exception as e:
             return self._map_error(e)
 
+    # ------------------------------------------------------------- matches
+
+    async def _h_match_list(self, request: HttpRequest):
+        try:
+            self._session(request)
+            q = request.query
+            limit = _limit(q, default=10)
+            matches = self.server.match_registry.list_matches(
+                limit,
+                label=q.get("label") or None,
+                min_size=int(q["min_size"]) if "min_size" in q else None,
+                max_size=int(q["max_size"]) if "max_size" in q else None,
+                query=q.get("query") or None,
+            )
+            return json_response({"matches": matches})
+        except Exception as e:
+            return self._map_error(e)
+
+    # ----------------------------------------- leaderboards / tournaments
+
+    def _id(self, request: HttpRequest, index: int = 2) -> str:
+        """The `{id}` (index 2) or `{owner_id}` (index 4) path segment."""
+        return urllib.parse.unquote(request.path.split("/")[index + 1])
+
+    async def _h_lb_record_write(self, request: HttpRequest):
+        """Reference WriteLeaderboardRecord (api_leaderboard.go): client
+        writes are refused on authoritative boards. (The JAX server runs
+        a runtime before-hook first; the port has no runtime yet.)"""
+        try:
+            claims = self._session(request)
+            body = await self._json(request)
+            record = body.get("record", body)
+            result = await self.server.leaderboards.record_write(
+                self._id(request),
+                claims.user_id,
+                claims.username,
+                int(record.get("score", 0)),
+                int(record.get("subscore", 0)),
+                record.get("metadata"),
+                override_operator=record.get("operator"),
+                caller_authoritative=False,
+            )
+            return json_response(result)
+        except Exception as e:
+            return self._map_error(e)
+
+    async def _h_lb_records_list(self, request: HttpRequest):
+        try:
+            self._session(request)
+            q = request.query
+            result = await self.server.leaderboards.records_list(
+                self._id(request),
+                limit=_limit(q),
+                cursor=q.get("cursor", ""),
+                owner_ids=request.query_all("owner_ids") or None,
+                expiry_override=(
+                    float(q["expiry"]) if "expiry" in q else None
+                ),
+            )
+            return json_response(result)
+        except Exception as e:
+            return self._map_error(e)
+
+    async def _h_t_record_delete(self, request: HttpRequest):
+        """Reference DeleteTournamentRecord (apigrpc.proto:300): the
+        caller deletes their own current-window record; authoritative
+        tournaments reject client deletes (core_tournament.go:661)."""
+        try:
+            claims = self._session(request)
+            await self.server.tournaments.record_delete(
+                self._id(request),
+                claims.user_id,
+                caller_authoritative=False,
+            )
+            return json_response({})
+        except Exception as e:
+            return self._map_error(e)
+
+    async def _h_lb_record_delete(self, request: HttpRequest):
+        try:
+            claims = self._session(request)
+            await self.server.leaderboards.record_delete(
+                self._id(request),
+                claims.user_id,
+                caller_authoritative=False,
+            )
+            return json_response({})
+        except Exception as e:
+            return self._map_error(e)
+
+    async def _h_lb_haystack(self, request: HttpRequest):
+        """Around-owner window (reference
+        ListLeaderboardRecordsAroundOwner)."""
+        try:
+            self._session(request)
+            result = await self.server.leaderboards.records_haystack(
+                self._id(request),
+                self._id(request, 4),
+                limit=_limit(request.query),
+            )
+            return json_response(result)
+        except Exception as e:
+            return self._map_error(e)
+
+    async def _h_tournament_list(self, request: HttpRequest):
+        try:
+            self._session(request)
+            q = request.query
+            categories = [int(c) for c in request.query_all("category")]
+            return json_response(
+                {
+                    "tournaments": self.server.tournaments.list(
+                        categories=categories or None,
+                        active_only=_parse_bool(q.get("active", "false")),
+                    )
+                }
+            )
+        except Exception as e:
+            return self._map_error(e)
+
+    async def _h_t_records_list(self, request: HttpRequest):
+        try:
+            self._session(request)
+            q = request.query
+            result = await self.server.tournaments.records_list(
+                self._id(request),
+                limit=_limit(q),
+                cursor=q.get("cursor", ""),
+            )
+            return json_response(result)
+        except Exception as e:
+            return self._map_error(e)
+
+    async def _h_t_record_write(self, request: HttpRequest):
+        try:
+            claims = self._session(request)
+            body = await self._json(request)
+            record = body.get("record", body)
+            result = await self.server.tournaments.record_write(
+                self._id(request),
+                claims.user_id,
+                claims.username,
+                int(record.get("score", 0)),
+                int(record.get("subscore", 0)),
+                record.get("metadata"),
+                caller_authoritative=False,
+            )
+            return json_response(result)
+        except Exception as e:
+            return self._map_error(e)
+
+    async def _h_t_join(self, request: HttpRequest):
+        try:
+            claims = self._session(request)
+            await self.server.tournaments.join(
+                self._id(request), claims.user_id, claims.username
+            )
+            return json_response({})
+        except Exception as e:
+            return self._map_error(e)
+
     # ------------------------------------------------------------- errors
 
     def _map_error(self, e: Exception) -> HttpResponse:
@@ -582,7 +761,7 @@ class ApiServer:
                 str(e), 429, GRPC_RESOURCE_EXHAUSTED,
                 headers={"Retry-After": str(int(e.retry_after_sec))},
             )
-        if isinstance(e, AuthError):
+        if isinstance(e, (AuthError, LeaderboardError)):
             status, code = _AUTH_CODE_TO_HTTP.get(
                 getattr(e, "code", ""), (400, GRPC_INVALID_ARGUMENT)
             )
@@ -602,3 +781,19 @@ def _parse_bool(value: Any) -> bool:
     if isinstance(value, bool):
         return value
     return str(value).lower() in ("true", "1", "yes", "")
+
+
+def _limit(q, default: int = 100, hi: int = 1000) -> int:
+    """Clamp a `limit` query param to [1, hi]. A negative or huge limit
+    must never reach storage/leaderboard unvalidated, and a non-numeric
+    one is the client's 400, not our 500."""
+    raw = q.get("limit", default)
+    try:
+        value = int(raw)
+    except (TypeError, ValueError):
+        raise ApiError(
+            f"limit must be an integer, got {raw!r}",
+            400,
+            GRPC_INVALID_ARGUMENT,
+        )
+    return max(1, min(hi, value))

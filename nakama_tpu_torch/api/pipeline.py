@@ -3,27 +3,47 @@
 Parity with the reference Pipeline (reference server/pipeline.go:63-189):
 every incoming envelope is validated to exactly one known variant and
 dispatched to its handler. The port's copy of the JAX package's
-`api/pipeline.py` for this slice: the same `process` → realtime-class
-admission and deadline → `_dispatch` path with one trace root span per
-envelope, and the handlers of `ping`/`pong`, `matchmaker_add`/`remove`
-and `status_follow`/`unfollow`/`update`. Every other request key
-(`channel_*`, `match_*`, `party_*`, `rpc`) answers what the JAX
-`_dispatch` answers for a key without a handler: BAD_INPUT
-"{key} not available" (ROADMAP.md §A lists them as later slices).
+`api/pipeline.py`: the same `process` → realtime-class admission and
+deadline → `_dispatch` path with one trace root span per envelope, and
+the handlers of `ping`/`pong`, `matchmaker_add`/`remove`,
+`status_follow`/`unfollow`/`update`, `match_*` and `party_*` (one node:
+the JAX package's cross-node join and data branches are left out).
+`channel_*` and `rpc` answer what the JAX `_dispatch` answers for a key
+without a handler: BAD_INPUT "{key} not available" (ROADMAP.md §A lists
+them as later slices).
 """
 
 from __future__ import annotations
 
 import asyncio
+import base64
+import binascii
 from dataclasses import dataclass
 from typing import Any
 
 from .. import overload
 from .. import tracing as trace_api
 from ..logger import Logger
+from ..match.party import PartyError
 from ..metrics import Metrics
 from ..realtime import PresenceMeta, Stream, StreamMode
 from .envelope import REQUEST_KEYS, ErrorCode, error, message_key
+
+
+def _b64_bytes(data) -> bytes:
+    """Decode an envelope bytes field from its JSON representation.
+    The proto3 JSON mapping accepts both base64 alphabets (protobuf's
+    parser normalizes -_ to +/) and missing padding, so this does too."""
+    if isinstance(data, (bytes, bytearray)):
+        return bytes(data)
+    if not isinstance(data, str):
+        raise PipelineError("data must be a base64 string")
+    normalized = data.replace("-", "+").replace("_", "/")
+    normalized += "=" * (-len(normalized) % 4)
+    try:
+        return base64.b64decode(normalized, validate=True)
+    except (binascii.Error, ValueError) as e:
+        raise PipelineError("data must be base64") from e
 
 
 @dataclass
@@ -34,7 +54,11 @@ class Components:
     config: Any
     tracker: Any
     status_registry: Any
+    router: Any = None
     matchmaker: Any = None
+    match_registry: Any = None
+    party_registry: Any = None
+    session_registry: Any = None
     db: Any = None  # user resolution (status follow)
     metrics: Metrics | None = None
     overload: Any = None  # OverloadController (overload.py); None in tests
@@ -300,6 +324,473 @@ class Pipeline:
         if cid:
             out["cid"] = cid
             session.send(out)
+
+
+    # --------------------------------------------------------------- match
+
+    def _presence_for(self, session, stream: Stream, hidden=False):
+        from ..realtime import Presence, PresenceID
+
+        return Presence(
+            id=PresenceID(self.c.config.name, session.id),
+            stream=stream,
+            user_id=session.user_id,
+            meta=PresenceMeta(
+                format=session.format,
+                username=session.username,
+                hidden=hidden,
+            ),
+        )
+
+    async def _h_match_create(self, session, cid, body):
+        """Client match creation (reference pipeline_match.go:37): with a
+        registered handler name → authoritative; bare → relayed."""
+        name = (body.get("name") or "").strip()
+        if name:
+            registry = _require(self.c.match_registry, "match registry")
+            from ..match import MatchError
+
+            try:
+                match_id = registry.create_match(name, body.get("params") or {})
+            except MatchError as e:
+                raise PipelineError(str(e)) from e
+            await self._join_authoritative(session, cid, match_id, {})
+            return
+        import uuid
+
+        match_id = f"{uuid.uuid4()}.{self.c.config.name}"
+        self._join_relayed(session, cid, match_id)
+
+    async def _h_match_join(self, session, cid, body):
+        metadata = body.get("metadata") or {}
+        match_id = body.get("match_id", "")
+        token = body.get("token", "")
+        if token:
+            from . import session_token
+
+            try:
+                claims = session_token.parse(
+                    self.c.config.session.encryption_key, token
+                )
+            except session_token.TokenError as e:
+                raise PipelineError(f"invalid match token: {e}") from e
+            if claims.vars.get("kind") != "match_token":
+                raise PipelineError("invalid match token")
+            match_id = claims.vars.get("mid", "")
+        if not match_id or "." not in match_id:
+            raise PipelineError("match id or token required")
+
+        registry = self.c.match_registry
+        handler = registry.get(match_id) if registry is not None else None
+        if handler is not None:
+            await self._join_authoritative(session, cid, match_id, metadata)
+            return
+        self._join_relayed(session, cid, match_id)
+
+    def _leave_other_matches(self, session, joining_id: str):
+        """session.single_match: joining a match leaves any previous one
+        (reference SessionConfig SingleMatch). The match being joined is
+        excluded — a self-rejoin must stay an idempotent no-op, not a
+        leave+join that reaches the match loop and other clients."""
+        if not self.c.config.session.single_match:
+            return
+        for stream in list(
+            self.c.tracker.get_local_by_session(session.id)
+        ):
+            if stream.mode in (
+                StreamMode.MATCH_RELAYED, StreamMode.MATCH_AUTHORITATIVE
+            ) and stream.subject != joining_id:
+                self.c.tracker.untrack(session.id, stream)
+
+    def _leave_other_parties(self, session_id: str, joining_id: str):
+        """session.single_party: joining/creating a party leaves any
+        previous one (reference SessionConfig SingleParty). Excludes the
+        party being joined (self-rejoin would otherwise destroy a
+        single-member party / reassign leaders via the async leave)."""
+        if not self.c.config.session.single_party:
+            return
+        for stream in list(self.c.tracker.get_local_by_session(session_id)):
+            if (
+                stream.mode == StreamMode.PARTY
+                and stream.subject != joining_id
+            ):
+                self.c.tracker.untrack(session_id, stream)
+
+    async def _join_authoritative(self, session, cid, match_id, metadata):
+        registry = _require(self.c.match_registry, "match registry")
+        stream = Stream(StreamMode.MATCH_AUTHORITATIVE, subject=match_id)
+        presence = self._presence_for(session, stream)
+        allow, reason, handler = await registry.join_attempt(
+            match_id, presence, metadata
+        )
+        if allow:
+            self._leave_other_matches(session, match_id)
+        if not allow:
+            session.send(
+                error(
+                    ErrorCode.MATCH_JOIN_REJECTED,
+                    reason or "join rejected",
+                    cid,
+                )
+            )
+            return
+        existing = [
+            p.as_dict() for p in handler.presences.list()
+        ]
+        self.c.tracker.track(
+            session.id, stream, session.user_id, presence.meta
+        )
+        out = {
+            "match": {
+                "match_id": match_id,
+                "authoritative": True,
+                "label": handler.label,
+                "presences": existing,
+                "self": presence.as_dict(),
+            }
+        }
+        if cid:
+            out["cid"] = cid
+        session.send(out)
+
+    def _join_relayed(self, session, cid, match_id):
+        self._leave_other_matches(session, match_id)
+        stream = Stream(StreamMode.MATCH_RELAYED, subject=match_id)
+        presence = self._presence_for(session, stream)
+        existing = [
+            p.as_dict()
+            for p in self.c.tracker.list_by_stream(stream)
+        ]
+        self.c.tracker.track(
+            session.id, stream, session.user_id, presence.meta
+        )
+        out = {
+            "match": {
+                "match_id": match_id,
+                "authoritative": False,
+                "presences": existing,
+                "self": presence.as_dict(),
+            }
+        }
+        if cid:
+            out["cid"] = cid
+        session.send(out)
+
+    def _h_match_leave(self, session, cid, body):
+        match_id = body.get("match_id", "")
+        if not match_id:
+            raise PipelineError("match id required")
+        for mode in (StreamMode.MATCH_RELAYED, StreamMode.MATCH_AUTHORITATIVE):
+            self.c.tracker.untrack(
+                session.id, Stream(mode, subject=match_id)
+            )
+        out: dict = {}
+        if cid:
+            out["cid"] = cid
+            session.send(out)
+
+    def _h_match_data_send(self, session, cid, body):
+        """Reference pipeline_match.go:338-366.
+
+        The envelope's `data` field is bytes (rtapi MatchDataSend.data,
+        both here and in the reference realtime.proto); in the JSON
+        representation bytes fields are base64 text per the proto3 JSON
+        mapping, which json_format applies when bridging protobuf-mode
+        sockets. The authoritative path decodes here so match cores see
+        raw bytes."""
+        match_id = body.get("match_id", "")
+        op_code = int(body.get("op_code", 0))
+        data = body.get("data", "")
+        registry = self.c.match_registry
+        handler = registry.get(match_id) if registry is not None else None
+        if handler is not None:
+            stream = Stream(StreamMode.MATCH_AUTHORITATIVE, subject=match_id)
+            presence = self.c.tracker.get_by_stream_user(stream, session.id)
+            if presence is None:
+                raise PipelineError("not in match")
+            raw = _b64_bytes(data)
+            registry.send_data(
+                match_id,
+                presence,
+                op_code,
+                raw,
+                bool(body.get("reliable", True)),
+            )
+            return
+        stream = Stream(StreamMode.MATCH_RELAYED, subject=match_id)
+        sender = self.c.tracker.get_by_stream_user(stream, session.id)
+        if sender is None:
+            raise PipelineError("not in match")
+        # Validate + canonicalize on the relayed path too: a non-base64
+        # payload relayed verbatim would blow up json_format.ParseDict
+        # (bytes field) in a protobuf-format recipient's writer and kill
+        # *their* socket.
+        envelope = {
+            "match_data": {
+                "match_id": match_id,
+                "presence": sender.as_dict(),
+                "op_code": op_code,
+                "data": base64.b64encode(_b64_bytes(data)).decode("ascii"),
+            }
+        }
+        targets = [
+            p.id
+            for p in self.c.tracker.list_by_stream(stream)
+            if p.id.session_id != session.id
+        ]
+        self.c.router.send_to_presence_ids(targets, envelope)
+
+    # --------------------------------------------------------------- party
+
+    def _party(self, party_id: str):
+        registry = _require(self.c.party_registry, "party registry")
+        handler = registry.get(party_id)
+        if handler is None:
+            raise PipelineError("party not found")
+        return handler
+
+    def _note_party_op(self, op: str, handler=None):
+        """Party-operation accounting, as the JAX pipeline counts it (a
+        single node never crosses to a remote authority)."""
+        m = self.c.metrics
+        if m is None:
+            return
+        m.cluster_party_ops.labels(op=op, crossed="false").inc()
+
+    def _h_party_create(self, session, cid, body):
+        """Reference pipeline_party.go partyCreate."""
+        registry = _require(self.c.party_registry, "party registry")
+
+        try:
+            handler = registry.create(
+                bool(body.get("open", True)),
+                int(body.get("max_size", 256) or 256),
+            )
+        except PartyError as e:
+            raise PipelineError(str(e)) from e
+        self._leave_other_parties(session.id, handler.party_id)
+        presence = self._presence_for(session, handler.stream)
+        self.c.tracker.track(
+            session.id, handler.stream, session.user_id, presence.meta
+        )
+        handler.on_joins([presence])
+        self._note_party_op("create", handler)
+        out = {"party": {**handler.as_dict(), "self": presence.as_dict()}}
+        if cid:
+            out["cid"] = cid
+        session.send(out)
+
+    async def _h_party_join(self, session, cid, body):
+        """Reference pipeline_party.go partyJoin: the party's admission
+        check, then the track."""
+        handler = self._party(body.get("party_id", ""))
+
+        stream = handler.stream
+        presence = self._presence_for(session, stream)
+        try:
+            allowed = await _maybe_await(handler.request_join(presence))
+        except PartyError as e:
+            raise PipelineError(str(e)) from e
+        self._note_party_op("join", handler)
+        if allowed:
+            self._leave_other_parties(session.id, handler.party_id)
+            self.c.tracker.track(
+                session.id, stream, session.user_id, presence.meta
+            )
+            handler.on_joins([presence])
+            pd = handler.as_dict()
+            out = {"party": {**pd, "self": presence.as_dict()}}
+            if cid:
+                out["cid"] = cid
+            session.send(out)
+        elif cid:
+            session.send({"cid": cid})
+
+    def _h_party_leave(self, session, cid, body):
+        handler = self._party(body.get("party_id", ""))
+        self._note_party_op("leave", handler)
+        self.c.tracker.untrack(session.id, handler.stream)
+        if cid:
+            session.send({"cid": cid})
+
+    async def _h_party_promote(self, session, cid, body):
+        handler = self._party(body.get("party_id", ""))
+
+        try:
+            await _maybe_await(
+                handler.promote(session.id, body.get("presence") or {})
+            )
+        except PartyError as e:
+            raise PipelineError(str(e)) from e
+        self._note_party_op("promote", handler)
+        if cid:
+            session.send({"cid": cid})
+
+    async def _h_party_accept(self, session, cid, body):
+        handler = self._party(body.get("party_id", ""))
+
+        try:
+            presence = await _maybe_await(
+                handler.accept(session.id, body.get("presence") or {})
+            )
+        except PartyError as e:
+            raise PipelineError(str(e)) from e
+        self._note_party_op("accept", handler)
+        if presence is not None:
+            target = (
+                self.c.session_registry.get(presence.id.session_id)
+                if self.c.session_registry is not None
+                else None
+            )
+            if target is None:
+                raise PipelineError("accepted session gone")
+            self._leave_other_parties(
+                presence.id.session_id, handler.party_id
+            )
+            self.c.tracker.track(
+                presence.id.session_id,
+                handler.stream,
+                presence.user_id,
+                presence.meta,
+            )
+            handler.on_joins([presence])
+            target.send(
+                {
+                    "party": {
+                        **handler.as_dict(),
+                        "self": presence.as_dict(),
+                    }
+                }
+            )
+        if cid:
+            session.send({"cid": cid})
+
+    async def _h_party_remove(self, session, cid, body):
+        handler = self._party(body.get("party_id", ""))
+
+        try:
+            removed = await _maybe_await(
+                handler.remove(session.id, body.get("presence") or {})
+            )
+        except PartyError as e:
+            raise PipelineError(str(e)) from e
+        self._note_party_op("remove", handler)
+        if removed is not None:
+            self.c.party_registry.untrack_presence(
+                removed, handler.stream
+            )
+        if cid:
+            session.send({"cid": cid})
+
+    async def _h_party_close(self, session, cid, body):
+        handler = self._party(body.get("party_id", ""))
+
+        try:
+            await _maybe_await(handler.close(session.id, self.c.tracker))
+        except PartyError as e:
+            raise PipelineError(str(e)) from e
+        self._note_party_op("close", handler)
+        self.c.party_registry.remove(handler.party_id)
+        if cid:
+            session.send({"cid": cid})
+
+    async def _h_party_join_request_list(self, session, cid, body):
+        handler = self._party(body.get("party_id", ""))
+
+        try:
+            pending = await _maybe_await(
+                handler.join_request_list(session.id)
+            )
+        except PartyError as e:
+            raise PipelineError(str(e)) from e
+        self._note_party_op("list_requests", handler)
+        out = {
+            "party_join_request": {
+                "party_id": handler.party_id,
+                "presences": [
+                    p if isinstance(p, dict) else p.as_dict()
+                    for p in pending
+                ],
+            }
+        }
+        if cid:
+            out["cid"] = cid
+        session.send(out)
+
+    async def _h_party_matchmaker_add(self, session, cid, body):
+        handler = self._party(body.get("party_id", ""))
+        from ..matchmaker import MatchmakerError
+
+        min_count, max_count, multiple = _validate_counts(body)
+        try:
+            ticket = await _maybe_await(
+                handler.matchmaker_add(
+                    session.id,
+                    body.get("query") or "*",
+                    min_count,
+                    max_count,
+                    multiple,
+                    {
+                        k: str(v)
+                        for k, v in (
+                            body.get("string_properties") or {}
+                        ).items()
+                    },
+                    {
+                        k: float(v)
+                        for k, v in (
+                            body.get("numeric_properties") or {}
+                        ).items()
+                    },
+                )
+            )
+        except (PartyError, MatchmakerError) as e:
+            raise PipelineError(str(e) or type(e).__name__) from e
+        self._note_party_op("mm_add", handler)
+        out = {
+            "party_matchmaker_ticket": {
+                "party_id": handler.party_id,
+                "ticket": ticket,
+            }
+        }
+        if cid:
+            out["cid"] = cid
+        session.send(out)
+
+    async def _h_party_matchmaker_remove(self, session, cid, body):
+        handler = self._party(body.get("party_id", ""))
+        from ..matchmaker import MatchmakerError
+
+        try:
+            await _maybe_await(
+                handler.matchmaker_remove(
+                    session.id, body.get("ticket", "")
+                )
+            )
+        except (PartyError, MatchmakerError) as e:
+            raise PipelineError(str(e) or type(e).__name__) from e
+        self._note_party_op("mm_remove", handler)
+        if cid:
+            session.send({"cid": cid})
+
+    async def _h_party_data_send(self, session, cid, body):
+        handler = self._party(body.get("party_id", ""))
+
+        try:
+            # Same bytes-field contract as match data: validate and
+            # canonicalize the base64 before relaying to members.
+            await _maybe_await(
+                handler.data_send(
+                    session.id,
+                    int(body.get("op_code", 0)),
+                    base64.b64encode(
+                        _b64_bytes(body.get("data", ""))
+                    ).decode("ascii"),
+                )
+            )
+        except PartyError as e:
+            raise PipelineError(str(e)) from e
+        self._note_party_op("data", handler)
 
 
 async def _existing_user_ids(db, user_ids: list[str], usernames: list[str]) -> set[str]:

@@ -9,7 +9,12 @@ transport in their place. It has no counterpart in the JAX package.
 Server side (`HttpServer`):
 - HTTP/1.1 requests with keep-alive (closed after `idle_timeout_s` of
   silence between requests), `Content-Length` bodies only, 413 above
-  `max_request_size`, JSON responses (`json_response`);
+  `max_request_size` (or, with `oversize_to_handler`, the request handed
+  on unread and marked `body_too_large`, as `aiohttp` hands a handler a
+  request whose body it then refuses to read; the answer closes the
+  connection, after at most `_DISCARD_MAX` bytes of the body, each read
+  within `idle_timeout_s`, are discarded so the peer reads the answer
+  and not a reset), JSON responses (`json_response`);
 - the WebSocket upgrade (`HttpRequest.accept_websocket`: the
   `Sec-WebSocket-Accept` handshake, no extensions or subprotocols).
 
@@ -151,6 +156,8 @@ class HttpRequest:
     _reader: asyncio.StreamReader | None = field(default=None, repr=False)
     _writer: asyncio.StreamWriter | None = field(default=None, repr=False)
     websocket: "WebSocket | None" = field(default=None, repr=False)
+    # The body was above the server's `max_request_size` and dropped.
+    body_too_large: bool = False
 
     @property
     def path(self) -> str:
@@ -163,6 +170,13 @@ class HttpRequest:
             urllib.parse.urlsplit(self.target).query, keep_blank_values=True
         )
         return {k: v[0] for k, v in qs.items()}
+
+    def query_all(self, name: str) -> list[str]:
+        """Every value of one query parameter, in order."""
+        qs = urllib.parse.parse_qs(
+            urllib.parse.urlsplit(self.target).query, keep_blank_values=True
+        )
+        return qs.get(name, [])
 
     def json(self) -> Any:
         return json.loads(self.body)
@@ -255,9 +269,11 @@ class HttpServer:
         max_request_size: int,
         idle_timeout_s: float = 60.0,
         logger=None,
+        oversize_to_handler: bool = False,
     ):
         self.handler = handler
         self.max_request_size = max_request_size
+        self.oversize_to_handler = oversize_to_handler
         self.idle_timeout_s = idle_timeout_s
         self.logger = logger
         self._server: asyncio.base_events.Server | None = None
@@ -341,18 +357,22 @@ class HttpServer:
                     raise HttpError(400, "bad content-length") from None
                 if length < 0:
                     raise HttpError(400, "bad content-length")
-                if length > self.max_request_size:
+                too_large = length > self.max_request_size
+                if too_large and not self.oversize_to_handler:
                     raise HttpError(413, "request body too large")
             except HttpError as e:
                 await self._refuse(writer, e.status, str(e))
                 return
             self._conns[task] = "busy"
-            body = await reader.readexactly(length) if length else b""
+            body = b""
+            if length and not too_large:
+                body = await reader.readexactly(length)
             request = HttpRequest(
-                method, target, version, headers, body, remote, reader, writer
+                method, target, version, headers, body, remote, reader,
+                writer, body_too_large=too_large,
             )
             conn = headers.get("connection", "").lower()
-            close = "close" in conn or (
+            close = too_large or "close" in conn or (
                 version == "HTTP/1.0" and "keep-alive" not in conn
             )
             try:
@@ -364,8 +384,26 @@ class HttpServer:
                 return
             writer.write(response.encode(close))
             await writer.drain()
+            if too_large:
+                await self._discard(reader, length)
             if close:
                 return
+
+    async def _discard(self, reader, length: int) -> None:
+        """Read and drop what the peer still sends of an unread body:
+        at most `_DISCARD_MAX` bytes and no more than the declared
+        `length`, each read within `idle_timeout_s`."""
+        left = min(length, _DISCARD_MAX)
+        while left > 0:
+            try:
+                chunk = await asyncio.wait_for(
+                    reader.read(min(left, 1 << 16)), self.idle_timeout_s
+                )
+            except asyncio.TimeoutError:
+                return
+            if not chunk:
+                return
+            left -= len(chunk)
 
     @staticmethod
     async def _refuse(writer, status: int, message: str) -> None:

@@ -5,15 +5,17 @@ Field names, defaults and comments follow the JAX package's `config.py`
 section for section (reference server/config.go:35-1073), for the
 sections the port serves so far: the server's own fields (`name`,
 `data_dir`, `shutdown_grace_sec`), `logger`, `metrics`, `session`,
-`socket`, `database`, `matchmaker`, `tracker`, `overload`, `tracing`,
-`recovery` and `devobs`. The matchmaker section drops the mesh-sharding
+`socket`, `database`, `matchmaker`, `match`, `tracker`, `leaderboard`,
+`overload`, `tracing`, `recovery` and `devobs`. The matchmaker section drops the mesh-sharding
 knobs (the port runs on one card); `socket` has no `grpc_port` and
 `database` no `group_commit` (the port has neither path), and fields no
 port code reads yet are left out until the code that reads them lands
-(the metrics section's `reporting_freq_sec`, `session.single_match`,
-`single_party`, `single_session`, `socket.read_buffer_size_bytes`,
+(the metrics section's `reporting_freq_sec`,
+`session.single_session`, `socket.read_buffer_size_bytes`,
 `write_buffer_size_bytes`, `ping_backoff_threshold`, `database.driver`,
-`conn_max_lifetime_ms`). A section the
+`conn_max_lifetime_ms`), and `leaderboard` drops
+`device_read_budget_ms` (the port's rank engine reads a board on the
+card whatever a request's deadline has left). A section the
 port does not have yet (`cluster`, `console`, `runtime`, ...) is an
 unknown key to `load_config`, as a typo is. `--config file.yml` imports
 PyYAML only when a file is given; flags alone need nothing outside the
@@ -60,6 +62,8 @@ class SessionConfig:
     refresh_encryption_key: str = "defaultrefreshencryptionkey"
     refresh_token_expiry_sec: int = 3600
     single_socket: bool = False
+    single_match: bool = False
+    single_party: bool = False
 
 
 @dataclass
@@ -100,8 +104,40 @@ class DatabaseConfig:
 
 
 @dataclass
+class MatchConfig:
+    """Queue sizes mirror reference server/config.go:893-902."""
+
+    input_queue_size: int = 128
+    call_queue_size: int = 128
+    signal_queue_size: int = 10
+    join_attempt_queue_size: int = 128
+    deferred_queue_size: int = 128
+    join_marker_deadline_ms: int = 15_000
+    max_empty_sec: int = 0
+    label_update_interval_ms: int = 1000
+
+
+@dataclass
 class TrackerConfig:
     event_queue_size: int = 1024
+
+
+@dataclass
+class LeaderboardConfig:
+    blacklist_rank_cache: list[str] = field(default_factory=list)
+    callback_queue_size: int = 65_536
+    callback_queue_workers: int = 8
+    # Device rank engine (leaderboard/device.py): boards at or past
+    # device_min_board_size mirror onto the card for batched rank
+    # reads; smaller boards stay host-only (the bisect oracle wins
+    # there). Write staging flushes at the dirty threshold or the
+    # interval, whichever trips first — that pair bounds read staleness.
+    device_enabled: bool = True
+    device_min_board_size: int = 4096
+    device_flush_dirty_threshold: int = 1024
+    device_flush_interval_sec: float = 2.0
+    device_breaker_threshold: int = 3
+    device_breaker_cooldown_ms: int = 30_000
 
 
 @dataclass
@@ -308,7 +344,9 @@ class Config:
     socket: SocketConfig = field(default_factory=SocketConfig)
     database: DatabaseConfig = field(default_factory=DatabaseConfig)
     matchmaker: MatchmakerConfig = field(default_factory=MatchmakerConfig)
+    match: MatchConfig = field(default_factory=MatchConfig)
     tracker: TrackerConfig = field(default_factory=TrackerConfig)
+    leaderboard: LeaderboardConfig = field(default_factory=LeaderboardConfig)
     overload: OverloadConfig = field(default_factory=OverloadConfig)
     tracing: TracingConfig = field(default_factory=TracingConfig)
     recovery: RecoveryConfig = field(default_factory=RecoveryConfig)

@@ -50,6 +50,8 @@ FAULT_POINTS = (
     "journal.append",    # TicketJournal flush (recovery.py), per batch
     "journal.replay",    # warm-restart journal replay (recovery.py)
     "checkpoint.write",  # pool snapshot write (recovery.py), per attempt
+    "leaderboard.flush",  # DeviceRankEngine staging flush, per board
+    "leaderboard.rank",  # DeviceRankEngine rank/window/sweep read
 )
 
 

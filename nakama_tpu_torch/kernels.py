@@ -60,7 +60,15 @@ STAGE1_WGMMA = Kernel(
     source="stage1_wgmma.cu",
     replaces="nakama_tpu/matchmaker/device2.py:302",
 )
-KERNELS = [STAGE1, STAGE1_WGMMA]
+# B8's batched rank search: a jax.jit program in the JAX package (not a
+# Pallas kernel), given a hand kernel because its plain version is
+# launch-bound (PERF.md).
+LEX_RANKS = Kernel(
+    name="lex_ranks",
+    source="lex_ranks.cu",
+    replaces="nakama_tpu/leaderboard/tpu.py:67",
+)
+KERNELS = [STAGE1, STAGE1_WGMMA, LEX_RANKS]
 # What stage1_wgmma.cu takes: winners per block, operand width (resident
 # row tile of 5 128-byte chunks), embedding width (one bf16 k16 step).
 WGMMA_MAX_M = 4
@@ -155,6 +163,13 @@ def _bind(kernel: Kernel, lib: ctypes.CDLL) -> None:
             + [ctypes.c_int] * 2
             + [ctypes.c_void_p]
         )
+    elif kernel is LEX_RANKS:
+        f = lib.lex_ranks_launch
+        f.restype = ctypes.c_int
+        f.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ]
 
 
 def _check(x: torch.Tensor, name: str, dtype, device, shape) -> None:
@@ -326,4 +341,35 @@ def stage1_wgmma(
     if rc != 0:
         raise RuntimeError(f"stage1_wgmma kernel launch failed: error {rc}")
     STAGE1_WGMMA.launches += 1
+    return out
+
+
+def lex_ranks(
+    sorted_keys: torch.Tensor, q: torch.Tensor, n_iters: int
+) -> torch.Tensor:
+    """Launch csrc/lex_ranks.cu on CUDA tensors: for each query key of q
+    (int32 [Q, 3]) the count of rows of sorted_keys (int32 [C, 3],
+    lexicographically ascending) below it, by a binary search of at most
+    `n_iters` steps. Returns int32 [Q]."""
+    dev = sorted_keys.device
+    if dev.type != "cuda":
+        raise ValueError(f"lex_ranks kernel needs CUDA tensors, got {dev}")
+    c, n_q = sorted_keys.shape[0], q.shape[0]
+    _check(sorted_keys, "sorted_keys", torch.int32, dev, (c, 3))
+    _check(q, "q", torch.int32, dev, (n_q, 3))
+    if c >= 2**31 // 3:
+        raise ValueError(f"lex_ranks kernel takes C < 2^31 / 3 rows, got {c}")
+    out = torch.empty(n_q, dtype=torch.int32, device=dev)
+    if n_q == 0:
+        return out
+    lib = _load(LEX_RANKS)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.lex_ranks_launch(
+            sorted_keys.data_ptr(), c, q.data_ptr(), n_q, int(n_iters),
+            out.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"lex_ranks kernel launch failed: CUDA error {rc}")
+    LEX_RANKS.launches += 1
     return out

@@ -21,8 +21,11 @@ Stage 2 (`_stage2`, plain PyTorch): the per-block winners are gathered and
 re-checked exactly — full interval/term/forbidden compares, count range,
 party/self/pool/validity, mutual (rev) when on, exact should-boost and
 embedding scores — then ordered by (-score, created). Stage-1 false
-positives die here; true candidates are never lost because stage 1 is a
-superset filter.
+positives die here. Stage 1 is a superset filter, but it keeps only m
+winners a block: where a block holds more than m passers (tickets whose
+fields collide by bucket included), a true candidate in it can lose its
+slot to one that stage 2 then rejects, and a min = max ticket, active
+for one interval only, can stay pooled for good with its only partner.
 
 `pair_partners` forms 1v1 pairs on the device with a propose-accept
 handshake, so pure-1v1 pools never ship their candidate matrix to the

@@ -76,12 +76,19 @@ OP_MATCHED = "matched"
 OP_UNPUBLISHED = "unpublished"
 
 SNAPSHOT_VERSION = 1
+# The checkpoint section of the leaderboard device boards.
+LEADERBOARD_SECTION = "leaderboard_device"
 
 
 def ticket_payload(ticket) -> dict:
-    """JSON-able journal payload for one ticket — the MatchmakerExtract
-    handover shape (types.py), which `payload_to_extract` inverts and
-    `LocalMatchmaker.insert` re-registers."""
+    """JSON-able journal payload for one ticket (a `MatchmakerTicket`,
+    or a `MatchmakerExtract`: the held-tickets file) — the
+    MatchmakerExtract handover shape (types.py), which
+    `payload_to_extract` inverts and `LocalMatchmaker.insert`
+    re-registers."""
+    presences = getattr(ticket, "presences", None)
+    if presences is None:
+        presences = [e.presence for e in ticket.entries]
     return {
         "ticket": ticket.ticket,
         "query": ticket.query,
@@ -92,12 +99,12 @@ def ticket_payload(ticket) -> dict:
         "party_id": ticket.party_id,
         "presences": [
             {
-                "user_id": e.presence.user_id,
-                "session_id": e.presence.session_id,
-                "username": e.presence.username,
-                "node": e.presence.node,
+                "user_id": p.user_id,
+                "session_id": p.session_id,
+                "username": p.username,
+                "node": p.node,
             }
-            for e in ticket.entries
+            for p in presences
         ],
         "string_properties": dict(ticket.string_properties),
         "numeric_properties": dict(ticket.numeric_properties),
@@ -490,6 +497,12 @@ class Checkpointer:
         # here, so a stale row is reconciled before the truncation that
         # would otherwise preserve it forever).
         self.pre_hook = None
+        # The leaderboard `DeviceRankEngine` whose board columns ride
+        # every checkpoint as its `leaderboard_device` section (the JAX
+        # package's name and shape), snapshot inline with the pool so
+        # the two agree; None writes no section. A failing snapshot is
+        # logged and the section skipped — never the whole checkpoint.
+        self.rank_engine = None
         self.checkpoints = 0  # ledger total (tests/console)
         self.last_lsn = 0
 
@@ -554,6 +567,19 @@ class Checkpointer:
             snap["version"] = SNAPSHOT_VERSION
             snap["journal_lsn"] = lsn
             snap["node"] = self.node
+            if self.rank_engine is not None:
+                snap["extras"] = {}
+                try:
+                    snap["extras"][LEADERBOARD_SECTION] = (
+                        self.rank_engine.snapshot_state()
+                    )
+                except Exception as e:
+                    if faults.from_card(e):
+                        raise
+                    self.logger.warn(
+                        "checkpoint extra section failed; skipped",
+                        section=LEADERBOARD_SECTION, error=str(e),
+                    )
             tickets = int(snap.get("tickets_total", 0))
             path, tmp = self.path, self.path + ".tmp"
 
@@ -647,14 +673,17 @@ class Checkpointer:
 
 
 async def recover(
-    mm, db, path: str, node: str, logger, journal=None
+    mm, db, path: str, node: str, logger, journal=None, rank_engine=None
 ) -> dict:
     """Warm restart: snapshot load + journal-tail replay + the pool's
     copy to the card, in LSN order, idempotent. Returns recovery stats.
     A storage failure degrades to whatever earlier phases recovered
     (worst case a cold empty pool), logged loudly; an error from the
     card raises (faults.from_card), so no node serves a pool it could
-    not put on the card."""
+    not put on the card. `rank_engine`, when given, restores the
+    checkpoint's `leaderboard_device` section right after the pool
+    (None when the checkpoint has none), before the leaderboards'
+    database load."""
     import gc
 
     # Restore allocates ~5 objects per ticket in one burst; automatic
@@ -668,13 +697,17 @@ async def recover(
     gc_was_enabled = gc.isenabled()
     gc.disable()
     try:
-        return await _recover_impl(mm, db, path, node, logger, journal)
+        return await _recover_impl(
+            mm, db, path, node, logger, journal, rank_engine
+        )
     finally:
         if gc_was_enabled:
             gc.enable()
 
 
-async def _recover_impl(mm, db, path, node, logger, journal) -> dict:
+async def _recover_impl(
+    mm, db, path, node, logger, journal, rank_engine=None
+) -> dict:
     t0 = time.perf_counter()
     log = logger.with_fields(subsystem="recovery")
     out = {
@@ -717,6 +750,21 @@ async def _recover_impl(mm, db, path, node, logger, journal) -> dict:
             ckpt_lsn = int(row["lsn"])
             out["checkpoint_lsn"] = ckpt_lsn
             out["checkpoint_tickets"] = len(mm.store)
+            # The leaderboard device boards, fenced on their own: a bad
+            # section costs the rank engine its warm start, never the
+            # pool's.
+            if rank_engine is not None:
+                try:
+                    rank_engine.restore_state(
+                        snap.get("extras", {}).get(LEADERBOARD_SECTION)
+                    )
+                except Exception as e:
+                    if faults.from_card(e):
+                        raise
+                    log.warn(
+                        "extra checkpoint section restore failed",
+                        section=LEADERBOARD_SECTION, error=str(e),
+                    )
         except Exception as e:
             if faults.from_card(e):
                 raise
@@ -842,23 +890,53 @@ class HeldTickets:
     them. The next start takes the named tickets out of the pool
     (`load`), so no live player is matched with a player who is not
     there, and hands each back to its user's next session (`reown`),
-    under that session's id, so its match reaches the player. What no
-    player claims within the window is dropped (`release`). Tickets
-    held across a crash are not named, and the restart serves them as
-    the JAX package's does. Held tickets live in memory only: a crash
-    while they are held loses them."""
+    under that session's id and within `max_tickets`, so its match
+    reaches the player. What no player claims within the window is
+    dropped (`release`).
+
+    The file holds each ticket's whole payload and, once a start has
+    begun the hold, the hold's end (wall clock). It stays on disk until
+    every ticket it names has been reowned or released, and is
+    rewritten as they go, so a crash during the hold loses none: the
+    restart holds the same tickets again, taken from the pool where the
+    journal still has them and rebuilt from the file where it does not,
+    for what remains of the window. Tickets recovered after a crash
+    that no graceful stop named are not held, as in the JAX package."""
 
     def __init__(self, matchmaker, path: str, logger):
         self.matchmaker = matchmaker
         self.path = path
         self.logger = logger
         self._by_user: dict[str, list] = {}
+        # Wall-clock end of the hold; None until a start begins it.
+        self.until: float | None = None
 
     def __len__(self) -> int:
         return sum(len(v) for v in self._by_user.values())
 
     def ticket_ids(self) -> set[str]:
         return {ex.ticket for v in self._by_user.values() for ex in v}
+
+    def _write(self, entries: dict) -> None:
+        """Rewrite the file atomically; remove it when nothing is left."""
+        if not entries:
+            try:
+                os.remove(self.path)
+            except FileNotFoundError:
+                pass
+            return
+        tmp = self.path + ".tmp"
+        with open(tmp, "w") as fh:
+            json.dump({"until": self.until, "tickets": entries}, fh)
+            fh.flush()
+            os.fsync(fh.fileno())
+        os.replace(tmp, self.path)
+
+    def _persist(self) -> None:
+        self._write({
+            ex.ticket: {"user": user, "payload": ticket_payload(ex)}
+            for user, v in self._by_user.items() for ex in v
+        })
 
     def save(self, sessions) -> int:
         """At stop, after the matchmaker stopped and before the sessions
@@ -873,37 +951,63 @@ class HeldTickets:
         for session in sessions:
             for t in mm.store.session_tickets(session.id):
                 named[t.ticket] = session.user_id
-        if named:
-            tmp = self.path + ".tmp"
-            with open(tmp, "w") as fh:
-                json.dump(named, fh)
-                fh.flush()
-                os.fsync(fh.fileno())
-            os.replace(tmp, self.path)
+        self.until = None
+        self._write({
+            ex.ticket: {"user": named[ex.ticket],
+                        "payload": ticket_payload(ex)}
+            for ex in mm.extract(list(named))
+        })
         return len(named)
 
-    def load(self) -> int:
-        """At start, after the warm restart: take the named tickets out
-        of the pool (a journaled removal) and hold them by user."""
+    def load(self, window_s: float) -> int:
+        """At start, after the warm restart: hold the named tickets by
+        user — taken out of the pool (a journaled removal) where it has
+        them, rebuilt from the file where it does not — until the end of
+        the hold (`window_s` from a graceful stop's file; what remains
+        of it after a crash during the hold). A hold that already ended
+        drops them."""
         try:
             with open(self.path) as fh:
                 named = json.load(fh)
         except FileNotFoundError:
             return 0
+        until = named.get("until")
+        self.until = time.time() + window_s if until is None else until
+        entries = named.get("tickets", {})
         mm = self.matchmaker
-        held = mm.extract(list(named))
-        mm.remove([ex.ticket for ex in held])
-        for ex in held:
-            self._by_user.setdefault(named[ex.ticket], []).append(ex)
-        os.remove(self.path)
-        return len(held)
+        if self.until <= time.time():
+            mm.remove(list(entries))
+            self.until = None
+            self._write({})
+            return 0
+        pooled = {ex.ticket: ex for ex in mm.extract(list(entries))}
+        for tid, entry in entries.items():
+            ex = pooled.get(tid) or payload_to_extract(entry["payload"])
+            self._by_user.setdefault(entry["user"], []).append(ex)
+        # The file first: a crash between the two steps finds the
+        # tickets in the pool and holds them again.
+        self._persist()
+        mm.remove(list(pooled))
+        return len(self)
+
+    def remaining_s(self) -> float:
+        """Seconds left in the hold (0 when none is running)."""
+        if self.until is None:
+            return 0.0
+        return max(0.0, self.until - time.time())
 
     def reown(self, session) -> int:
         """A session of a user whose tickets are held: they return to
-        the pool under this session's id."""
+        the pool under this session's id, as far as `max_tickets` lets
+        `add` take them (per session and per party); the rest are
+        dropped, so the client that adds again meets its quota as it
+        would have without the restart."""
         held = self._by_user.pop(session.user_id, None)
         if not held:
             return 0
+        mm = self.matchmaker
+        max_tickets = mm.config.max_tickets
+        back = 0
         for ex in held:
             ex.session_id = session.id
             ex.presences = [
@@ -912,13 +1016,24 @@ class HeldTickets:
                 else p
                 for p in ex.presences
             ]
-        self.matchmaker.insert(held)
+            if mm.store.session_ticket_count(session.id) >= max_tickets or (
+                ex.party_id
+                and mm.store.party_ticket_count(ex.party_id) >= max_tickets
+            ):
+                self.logger.info(
+                    "held ticket dropped: its player is at max_tickets",
+                    user_id=session.user_id, ticket=ex.ticket,
+                )
+                continue
+            mm.insert([ex])
+            back += 1
+        self._persist()
         self.logger.info(
             "held tickets returned to their player",
             user_id=session.user_id,
-            tickets=len(held),
+            tickets=back,
         )
-        return len(held)
+        return back
 
     def release(self) -> None:
         """The hold's window ended: drop what no player claimed."""
@@ -927,6 +1042,8 @@ class HeldTickets:
                 "held tickets released unclaimed", tickets=len(self)
             )
         self._by_user.clear()
+        self.until = None
+        self._write({})
 
 
 class RecoveryPlane:
@@ -998,6 +1115,7 @@ class RecoveryPlane:
                     self.node,
                     self.logger,
                     journal=self.journal,
+                    rank_engine=self.checkpointer.rank_engine,
                 )
         finally:
             self.journal.suspended = False

@@ -2,13 +2,14 @@
 
 Parity with the reference main() (reference main.go:64-282) for the
 components the port has: metrics → session registry/caches → tracker →
-router → matchmaker (`CudaBackend` on the card) → recovery plane →
-tracing and device telemetry → overload plane → pipeline → socket
-acceptor → API server — and graceful shutdown in reverse, ending with
-drain-to-durable. The port's copy of the JAX package's `server.py` for
-this slice; the cluster, runtime, match and party registries, social,
-leaderboards, IAP, console and gRPC of the JAX server come with their
-own slices (ROADMAP.md §A).
+router → match registry → matchmaker (`CudaBackend` on the card) →
+recovery plane → tracing and device telemetry → overload plane → party
+registry → leaderboards (the `DeviceRankEngine` on the matchmaker's
+device) → pipeline → socket acceptor → API server — and graceful
+shutdown in reverse, ending with drain-to-durable. The port's copy of
+the JAX package's `server.py`; the cluster, runtime, channels and the
+rest of `core/`, social, IAP, console and gRPC of the JAX server come
+with their own slices (ROADMAP.md §A).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from .api.pipeline import Components, Pipeline
 from .api.socket import SocketAcceptor
 from .config import Config, apply_observability, parse_args
 from .logger import Logger, set_node_name, setup_logging
+from .match import LocalMatchRegistry, LocalPartyRegistry
 from .matchmaker import LocalMatchmaker
 from .metrics import Metrics
 from .realtime import (
@@ -95,6 +97,13 @@ class NakamaServer:
         )
         self.stream_manager = LocalStreamManager(
             log, self.session_registry, self.tracker
+        )
+        self.match_registry = LocalMatchRegistry(
+            log, config.match, self.router, node, self.metrics,
+            tracker=self.tracker,
+        )
+        self.tracker.add_listener(
+            StreamMode.MATCH_AUTHORITATIVE, self.match_registry.join_listener()
         )
         self.matchmaker = LocalMatchmaker(
             log,
@@ -184,13 +193,24 @@ class NakamaServer:
             node,
             config.session.encryption_key,
         )
+        self.party_registry = LocalPartyRegistry(
+            log, self.tracker, self.router, self.matchmaker, node
+        )
+        self.tracker.add_listener(
+            StreamMode.PARTY, self.party_registry.join_listener()
+        )
+        self._build_leaderboards(config, log)
         self.pipeline = Pipeline(
             log,
             Components(
                 config=config,
                 tracker=self.tracker,
+                router=self.router,
                 status_registry=self.status_registry,
                 matchmaker=self.matchmaker,
+                match_registry=self.match_registry,
+                party_registry=self.party_registry,
+                session_registry=self.session_registry,
                 db=self.db,
                 metrics=self.metrics,
                 overload=self.overload,
@@ -216,9 +236,51 @@ class NakamaServer:
         self.recovered: dict | None = None
         self._release_held: asyncio.TimerHandle | None = None
 
+    def _build_leaderboards(self, config: Config, log: Logger) -> None:
+        """Leaderboards over the host rank cache (the oracle) and, with
+        `leaderboard.device_enabled`, the `DeviceRankEngine` on the
+        matchmaker backend's device: cuda:0 under `CudaBackend` (the
+        default), the host when the backend runs there (the host oracle
+        of `matchmaker.backend cpu`, a `CudaBackend(device="cpu")`)."""
+        from .leaderboard import (
+            DeviceRankEngine,
+            LeaderboardScheduler,
+            Leaderboards,
+            Tournaments,
+            rank_cache_from_config,
+        )
+
+        lb_rank_cache = rank_cache_from_config(config.leaderboard)
+        lb_device = None
+        if config.leaderboard.device_enabled:
+            lb_device = DeviceRankEngine(
+                config.leaderboard,
+                log,
+                metrics=self.metrics,
+                oracle=lb_rank_cache,
+                device=getattr(self.matchmaker.backend, "device", "cpu"),
+            )
+        self.leaderboards = Leaderboards(
+            log, self.db, lb_rank_cache, device_engine=lb_device
+        )
+        if self.recovery is not None:
+            # Board columns ride the checkpoint: staged keys (seq
+            # included) snapshot with the pool and restore before
+            # load()'s DB re-inserts, preserving tie-break order across
+            # a warm restart.
+            self.recovery.checkpointer.rank_engine = lb_device
+        self.tournaments = Tournaments(self.leaderboards)
+        # No runtime yet (ROADMAP.md §A): resets run without hooks.
+        self.leaderboard_scheduler = LeaderboardScheduler(
+            log, self.leaderboards, self.tournaments, runtime=None
+        )
+        self.leaderboards.on_change = self.leaderboard_scheduler.update
+
     # ------------------------------------------------------------ lifecycle
 
     async def start(self):
+        # Match tasks always land on this loop.
+        self.match_registry.loop = asyncio.get_running_loop()
         if not self._db_connected:
             await self.db.connect()
             self._db_connected = True
@@ -230,8 +292,12 @@ class NakamaServer:
             recovered = await self.recovery.recover()
             self.recovered = recovered
             # The tickets the last graceful stop kept for its players
-            # leave the pool until their players return.
-            held = self.recovery.held.load()
+            # leave the pool until their players return, for as long as
+            # they would have stayed active in it.
+            mm_cfg = self.config.matchmaker
+            held = self.recovery.held.load(
+                mm_cfg.max_intervals * mm_cfg.interval_sec
+            )
             rc = self.config.recovery
             self.logger.info(
                 "crash recovery enabled",
@@ -243,14 +309,13 @@ class NakamaServer:
                 held_tickets=held,
                 recovery_ms=round(recovered["duration_s"] * 1000, 1),
             )
+        await self.leaderboards.load()
+        self.leaderboard_scheduler.start()
         self.tracker.start()
         self.matchmaker.start()
         if self.recovery is not None and len(self.recovery.held):
-            # A held ticket waits for its player as long as it would
-            # have stayed active in the pool.
-            mm_cfg = self.config.matchmaker
             self._release_held = asyncio.get_running_loop().call_later(
-                mm_cfg.max_intervals * mm_cfg.interval_sec,
+                self.recovery.held.remaining_s(),
                 self.recovery.held.release,
             )
         if self.overload is not None:
@@ -374,6 +439,8 @@ class NakamaServer:
             # requests — the crash-only-software front half.
             self.overload.enter_drain()
         await self.api.stop()
+        await self.match_registry.stop_all(grace)
+        self.leaderboard_scheduler.stop()
         # In-flight cohorts publish inside the grace window: the
         # delivery loop is still live, so poll the pipeline until it
         # empties or the deadline passes. (The journal's

@@ -1,5 +1,7 @@
 """The stage-1 CUDA kernels of the PyTorch/CUDA port against their plain
-version, on the card.
+version, on the card; the leaderboard device programs (B8,
+`leaderboard/cuda.py`) on cuda:0 against the same programs on the CPU,
+and the `DeviceRankEngine` on the card against the host oracle.
 
 This file imports no JAX, so it runs on a machine with a CUDA device and
 PyTorch alone: `python -m pytest tests/test_torch_kernels_cuda.py`. On a
@@ -321,3 +323,112 @@ def test_server_on_the_card_launches_stage1_wgmma(tmp_path):
     assert after[1] == before[1]
     assert len(matched) == 2
     assert matched[0]["token"] == matched[1]["token"]
+
+
+def _b8_keys(rng, b, c):
+    """[B, C, 3] int32 board keys: a live share with ties on (k0, k1),
+    unique seqs, PAD_KEY rows, shuffled over the slots."""
+    from nakama_tpu_torch.leaderboard import cuda as b8
+
+    keys = np.full((b, c, 3), b8.PAD_KEY, dtype=np.int32)
+    for i in range(b):
+        live = int(rng.integers(c // 2, c + 1))
+        keys[i, :live, 0] = rng.integers(-50, 50, size=live)
+        keys[i, :live, 1] = rng.integers(0, 4, size=live)
+        keys[i, :live, 2] = rng.permutation(live) + 1
+        keys[i] = keys[i, rng.permutation(c)]
+    return keys
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c", [(1, 8), (3, 8), (1, 1000), (3, 1000),
+                                 (1, 4096), (3, 4096), (1, 1_000_000)])
+def test_b8_programs_on_card_match_the_cpu(b, c):
+    """Each leaderboard program on cuda:0 gives exactly its CPU result:
+    the segmented sort (keys and permutation), the inverse permutation,
+    batched lower-bound ranks (present keys, absent keys, PAD_KEY: the
+    hand kernel csrc/lex_ranks.cu, also held against its plain version
+    on the card), windows and the dirty-row scatter."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from nakama_tpu_torch import kernels
+    from nakama_tpu_torch.leaderboard import cuda as b8
+
+    dev = torch.device("cuda:0")
+    rng = np.random.default_rng(c + b)
+    keys = _b8_keys(rng, b, c)
+    before = dict(b8.LAUNCHES), kernels.LEX_RANKS.launches
+    sk_c, perm_c = b8.sort_boards(torch.from_numpy(keys))
+    sk_g, perm_g = b8.sort_boards(torch.from_numpy(keys).to(dev))
+    assert torch.equal(perm_g.cpu(), perm_c) and torch.equal(sk_g.cpu(), sk_c)
+    assert torch.equal(b8.rank_of_slots(perm_g).cpu(), b8.rank_of_slots(perm_c))
+    iters = b8.n_search_iters(c)
+    for i in range(b):
+        q = np.concatenate([
+            keys[i, rng.integers(0, c, size=1024)],
+            np.stack([rng.integers(-60, 60, 64), rng.integers(0, 5, 64),
+                      rng.integers(0, c + 2, 64)], axis=1),
+            np.full((2, 3), b8.PAD_KEY),
+        ]).astype(np.int32)
+        got = b8.lex_ranks(sk_g[i], torch.from_numpy(q).to(dev), iters)
+        assert torch.equal(got.cpu(), b8.lex_ranks(sk_c[i], torch.from_numpy(q), iters))
+        plain = b8.lex_ranks_plain(sk_g[i], torch.from_numpy(q).to(dev), iters)
+        assert torch.equal(got, plain)
+        for start, limit in ((0, min(c, 100)), (c // 2, 1), (c - 1, 1)):
+            assert torch.equal(b8.window_slots(perm_g[i], start, limit).cpu(),
+                               b8.window_slots(perm_c[i], start, limit))
+    u = max(1, c // 8)
+    idx = torch.from_numpy(rng.choice(c, size=u, replace=False))
+    rows = torch.from_numpy(_b8_keys(rng, 1, u)[0])
+    want = b8.scatter_keys(torch.from_numpy(keys[0].copy()), idx, rows)
+    got = b8.scatter_keys(torch.from_numpy(keys[0]).to(dev), idx.to(dev), rows.to(dev))
+    assert torch.equal(got.cpu(), want)
+    assert kernels.LEX_RANKS.launches == before[1] + b
+    assert b8.LAUNCHES["sort_boards"] == before[0]["sort_boards"] + 1
+
+
+@pytest.mark.cuda
+def test_rank_engine_on_the_card_matches_the_oracle():
+    """`DeviceRankEngine` on cuda:0 (its default) over a 20,000-entry
+    board: ranks, windows and a sweep equal the host oracle's, through
+    a write/delete stream, with the breaker closed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from nakama_tpu_torch.config import LeaderboardConfig
+    from nakama_tpu_torch.leaderboard import DeviceRankEngine, LeaderboardRankCache
+    from nakama_tpu_torch.logger import test_logger
+
+    rng = np.random.default_rng(2)
+    oracle = LeaderboardRankCache()
+    n = 20_000
+    owners = [f"o{i}" for i in range(n)]
+    oracle.restore_board("b", 0.0, 1, [
+        (o, int(-s), 0, i + 1)
+        for i, (o, s) in enumerate(zip(owners, rng.integers(0, 500, n)))])
+    engine = DeviceRankEngine(
+        LeaderboardConfig(device_flush_dirty_threshold=1), test_logger(),
+        oracle=oracle)
+    assert engine.device == torch.device("cuda:0")
+    assert engine.adopt_board("b", 0.0, 1) and engine.flush_all()
+    for _ in range(3):
+        for j in rng.integers(0, n, 300):
+            if rng.random() < 0.2:
+                oracle.delete("b", 0.0, owners[j])
+                engine.record_delete("b", 0.0, owners[j])
+            else:
+                oracle.insert("b", 0.0, 1, owners[j], int(rng.integers(0, 500)), 0)
+                engine.record_upsert("b", 0.0, 1, owners[j])
+        batch = [owners[j] for j in rng.integers(0, n, 1024)]
+        assert engine.get_many("b", 0.0, batch) == oracle.get_many("b", 0.0, batch)
+        assert engine.rank_window("b", 0.0, 100, 50) == oracle.rank_window(
+            "b", 0.0, 100, 50)
+    assert engine.sweep_many([("b", 0.0)])[("b", 0.0)] == oracle.standings("b", 0.0)
+    # A request with 1 ms left still launches the kernel.
+    from nakama_tpu_torch import kernels
+    from nakama_tpu_torch.overload import Deadline, deadline_scope
+
+    before = kernels.LEX_RANKS.launches
+    with deadline_scope(Deadline(0.001)):
+        assert engine.get_many("b", 0.0, batch) == oracle.get_many("b", 0.0, batch)
+    assert kernels.LEX_RANKS.launches == before + 1 and engine.fallbacks == 0
+    assert engine.breaker.state == "closed" and engine.breaker.failures == 0

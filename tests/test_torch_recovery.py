@@ -167,6 +167,54 @@ async def test_checkpoint_and_tail_recover_in_either_package(tmp_path, src):
     assert got["port"] and got["port"] == got["jax"]
 
 
+@pytest.mark.parametrize("src", ["jax", "port"])
+async def test_the_leaderboard_section_recovers_in_either_package(
+    tmp_path, src
+):
+    """One package checkpoints its pool with its rank engine's boards as
+    the `leaderboard_device` section; each package's `recover()` hands
+    the section to its own engine, and both engines then answer the
+    source's ranks."""
+    from test_torch_leaderboard import engines
+
+    (jc, je), (pc, pe) = engines()
+    cache, engine = {"jax": (jc, je), "port": (pc, pe)}[src]
+    rng = np.random.default_rng(3)
+    owners = [f"c{i}" for i in range(60)]
+    for owner in owners:
+        cache.insert("ck", 0.0, 1, owner, int(rng.integers(0, 8)), 0)
+        engine.record_upsert("ck", 0.0, 1, owner)
+    path = str(tmp_path / "r.ckpt")
+    db = await open_db(src, tmp_path / "r.db")
+    mm = make(PKG[src][3])
+    journal = attach(src, mm, db)
+    populate(src, mm, seed=5)
+    ckpt = PKG[src][0].Checkpointer(
+        journal, db, path, quiet_logger(), interval_sec=1
+    )
+    if src == "jax":
+        ckpt.extra_providers["leaderboard_device"] = je.snapshot_state
+    else:
+        ckpt.rank_engine = pe
+    assert await ckpt.checkpoint(mm) is not None
+    want = cache.get_many("ck", 0.0, owners)
+    mm.stop()
+    await db.close()
+    (_, je2), (_, pe2) = engines()
+    for dst, restored in (("jax", je2), ("port", pe2)):
+        db = await open_db(dst, tmp_path / "r.db")
+        fresh = make(PKG[dst][3])
+        kw = ({"extras": {"leaderboard_device": je2.restore_state}}
+              if dst == "jax" else {"rank_engine": pe2})
+        await PKG[dst][0].recover(
+            fresh, db, path, "local", quiet_logger(), **kw
+        )
+        fresh.stop()
+        await db.close()
+        assert restored.flush_all()
+        assert restored.get_many("ck", 0.0, owners) == want
+
+
 async def test_recover_is_idempotent(tmp_path):
     db = await open_db("port", tmp_path / "i.db")
     mm = make(False)

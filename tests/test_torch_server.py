@@ -123,12 +123,20 @@ class Normaliser:
     def learn(self, value: str, name: str):
         self.names[value] = name
 
+    def text(self, value: str) -> str:
+        """`value` with every known id inside it replaced."""
+        for raw, name in self.names.items():
+            value = value.replace(raw, name)
+        return value
+
     def __call__(self, obj):
         if isinstance(obj, dict):
             out = {}
             for k, v in obj.items():
                 if k in ("token", "refresh_token") and isinstance(v, str):
                     out[k] = "<token>"
+                elif k in ("create_time", "update_time", "receive_time_ms"):
+                    out[k] = "<time>"
                 else:
                     out[k] = self(v)
             return out
@@ -137,6 +145,39 @@ class Normaliser:
         if isinstance(obj, str):
             return self.names.get(obj, obj)
         return obj
+
+
+class EchoMatch:
+    """An authoritative match that echoes each message back to every
+    presence with op_code + 1 (a Python handler: the runtime that
+    registers Lua/JS ones is a later slice)."""
+
+    def match_init(self, ctx, params):
+        return {}, 20, json.dumps({"mode": params.get("mode", "duel")})
+
+    def match_join_attempt(self, ctx, dispatcher, tick, state, presence, md):
+        return state, True, ""
+
+    def match_join(self, ctx, dispatcher, tick, state, presences):
+        return state
+
+    def match_leave(self, ctx, dispatcher, tick, state, presences):
+        return state
+
+    def match_loop(self, ctx, dispatcher, tick, state, messages):
+        for m in messages:
+            dispatcher.broadcast_message(m.op_code + 1, m.data, sender=m.sender)
+        return state
+
+    def match_terminate(self, ctx, dispatcher, tick, state, grace):
+        return state
+
+    def match_signal(self, ctx, dispatcher, tick, state, data):
+        return state, data
+
+
+# One tournament start for both servers.
+T0 = float(int(time.time()) - 100)
 
 
 async def recv_until(ws, key, log, timeout=10.0):
@@ -153,7 +194,14 @@ async def run_script(server, key: str) -> dict:
     """The shared script; returns what a client sees, ids normalised."""
     port = server.port
     norm = Normaliser()
-    out: dict = {"http": [], "ws": {}, "matched": {}, "claims": {}}
+    out: dict = {"http": [], "ws": {}, "matched": {}, "claims": {},
+                 "play": []}
+    server.match_registry.register("echo", EchoMatch)
+    await server.leaderboards.create("arena", sort_order="desc")
+    await server.leaderboards.create("locked", authoritative=True)
+    await server.tournaments.create(
+        "cup", duration=3600, start_time=T0, join_required=True,
+        max_num_score=2)
 
     async def call(method, path, headers=None, body=None):
         r = await wsproto.request(HOST, port, method, path, headers=headers, body=body)
@@ -161,12 +209,19 @@ async def run_script(server, key: str) -> dict:
             payload = r.json()
         except ValueError:
             payload = r.body.decode()
-        out["http"].append((method, path, r.status, norm(payload)))
+        out["http"].append((method, norm.text(path), r.status, norm(payload)))
         return r.status, payload
 
     await call("GET", "/healthcheck")
     await call("GET", "/v2/healthcheck")
     await call("GET", "/")
+    # Bodies above socket.max_request_size_bytes: a JSON route refuses
+    # it at its parse, a route that reads no body answers as usual.
+    oversized = b'{"account": {"id": "' + b"x" * 300_000 + b'"}}'
+    await call("POST", "/v2/account/authenticate/device", basic(), oversized)
+    await call("POST", "/v2/account/authenticate/device", basic("wrong"),
+               oversized)
+    await call("GET", "/v2/healthcheck", None, oversized)
     await call("POST", "/v2/account/authenticate/device", basic("wrong"),
                {"account": {"id": "device-abcdef"}})
     await call("POST", "/v2/account/authenticate/device", basic(),
@@ -208,6 +263,7 @@ async def run_script(server, key: str) -> dict:
 
     plan = ticket_plan(11, n_pairs=4, n_single=2)
     clients = {}
+    tokens = {}
     for device, props, query in plan:
         status, body = await call(
             "POST", f"/v2/account/authenticate/device?username={device}",
@@ -221,6 +277,7 @@ async def run_script(server, key: str) -> dict:
         claims = port_token.parse("defaultencryptionkey", body["token"])
         assert port_token.parse("defaultencryptionkey", again["token"]).user_id == claims.user_id
         norm.learn(claims.user_id, f"user:{device}")
+        tokens[device] = (body["token"], claims.user_id)
         ws = await wsproto.connect(HOST, port, f"/ws?token={body['token']}")
         log: list = []
         clients[device] = (ws, log, props, query)
@@ -311,9 +368,13 @@ async def run_script(server, key: str) -> dict:
                 "ticket": norm(body["ticket"]), "self": norm(body["self"]),
                 "users": users,
             }
+    await play(server, norm, out, clients, tokens, call)
     for device, (ws, log, _, _) in clients.items():
         out["ws"][device] = [
-            norm(e) for e in log if "stream_presence_event" not in e
+            norm(e) for e in log
+            if not {"stream_presence_event", "match_presence_event",
+                    "party_presence_event", "match_data", "match",
+                    "party", "party_data"} & set(e)
         ]
         await ws.close()
     await asyncio.sleep(0.05)
@@ -327,6 +388,117 @@ async def run_script(server, key: str) -> dict:
     assert scrape.status == 200
     out["metrics"] = parse(scrape.body)
     return out
+
+
+def _sorted_presences(env):
+    """A `match`/`party` envelope with its presence list in user order."""
+    env = json.loads(json.dumps(env))
+    for key in ("match", "party"):
+        if key in env and "presences" in env[key]:
+            env[key]["presences"].sort(key=lambda p: p["user_id"])
+    return env
+
+
+async def play(server, norm, out, clients, tokens, call):
+    """The matched players play: every pair redeems its match token and
+    relays data; one pair plays an authoritative `echo` match found
+    through `GET /v2/match`; two players party up and matchmake as a
+    party; then leaderboard and tournament records over HTTP."""
+    pairs = {}
+    for device, matched in out["claims"].items():
+        pairs.setdefault(matched["user_id"], []).append(device)
+    plays = out["play"]
+    for users in sorted(pairs):
+        a, b = sorted(pairs[users])
+        mids = set()
+        for device in (a, b):
+            ws, log, _, _ = clients[device]
+            env = [e for e in log if "matchmaker_matched" in e][0]
+            token = env["matchmaker_matched"]["token"]
+            mid = port_token.parse("defaultencryptionkey", token).vars["mid"]
+            norm.learn(mid, f"match:{a}")
+            mids.add(mid)
+            await ws.send(json.dumps({"cid": "j", "match_join": {"token": token}}))
+            plays.append(_sorted_presences(norm(await recv_until(ws, "match", log))))
+        assert len(mids) == 1
+        ws_a, log_a = clients[a][:2]
+        ws_b, log_b = clients[b][:2]
+        data = base64.b64encode(a.encode()).decode()
+        await ws_a.send(json.dumps({"match_data_send": {
+            "match_id": mid, "op_code": 4, "data": data}}))
+        plays.append(norm(await recv_until(ws_b, "match_data", log_b)))
+        await ws_b.send(json.dumps({"cid": "l", "match_leave": {"match_id": mid}}))
+        plays.append(norm(await recv_until(ws_b, "cid", log_b)))
+    a, b = sorted(d for d in clients if d.startswith("device-pair"))[:2]
+    (ws_a, log_a), (ws_b, log_b) = clients[a][:2], clients[b][:2]
+    await ws_a.send(json.dumps({"cid": "c", "match_create": {
+        "name": "echo", "params": {"mode": "duel"}}}))
+    created = await recv_until(ws_a, "match", log_a)
+    mid = created["match"]["match_id"]
+    norm.learn(mid, "match:echo")
+    plays.append(norm(created))
+    await ws_b.send(json.dumps({"cid": "j", "match_join": {"match_id": mid}}))
+    plays.append(_sorted_presences(norm(await recv_until(ws_b, "match", log_b))))
+    await ws_b.send(json.dumps({"cid": "x", "match_create": {"name": "nope"}}))
+    plays.append(norm(await recv_until(ws_b, "error", log_b)))
+    await ws_a.send(json.dumps({"match_data_send": {
+        "match_id": mid, "op_code": 6, "data": "aGk="}}))
+    for ws, log in ((ws_a, log_a), (ws_b, log_b)):
+        plays.append(norm(await recv_until(ws, "match_data", log)))
+    for query in ("?query=%2Blabel.mode%3Aduel", "?limit=1", "?min_size=3"):
+        await call("GET", f"/v2/match{query}", bearer(tokens[a][0]))
+    await call("GET", "/v2/match")
+    # A party of two matchmakes as one ticket.
+    await ws_a.send(json.dumps({"cid": "p1", "party_create": {"open": True}}))
+    party = await recv_until(ws_a, "party", log_a)
+    pid = party["party"]["party_id"]
+    norm.learn(pid, "party:ab")
+    plays.append(norm(party))
+    await ws_b.send(json.dumps({"cid": "p2", "party_join": {"party_id": pid}}))
+    plays.append(_sorted_presences(norm(await recv_until(ws_b, "party", log_b))))
+    await ws_a.send(json.dumps({"cid": "p3", "party_matchmaker_add": {
+        "party_id": pid, "min_count": 2, "max_count": 2, "query": "*"}}))
+    ticket = await recv_until(ws_a, "party_matchmaker_ticket", log_a)
+    norm.learn(ticket["party_matchmaker_ticket"]["ticket"], "ticket:party")
+    plays.append(norm(ticket))
+    pooled = server.matchmaker.store.party_tickets(pid)
+    plays.append(sorted(norm(e.presence.user_id) for t in pooled
+                        for e in t.entries))
+    await ws_b.send(json.dumps({"cid": "p4", "party_data_send": {
+        "party_id": pid, "op_code": 1, "data": "eA=="}}))
+    plays.append(norm(await recv_until(ws_a, "party_data", log_a)))
+    await ws_a.send(json.dumps({"cid": "p5", "party_close": {"party_id": pid}}))
+    plays.append(norm(await recv_until(ws_a, "cid", log_a)))
+    plays.append(len(server.matchmaker.store.party_tickets(pid)))
+    # Leaderboards and tournaments.
+    writers = sorted(tokens)[:6]
+    for i, device in enumerate(writers):
+        token, _ = tokens[device]
+        await call("POST", "/v2/leaderboard/arena", bearer(token),
+                   {"record": {"score": (i * 7) % 5, "subscore": i}})
+        await call("POST", "/v2/tournament/cup/join", bearer(token), {})
+        await call("POST", "/v2/tournament/cup", bearer(token),
+                   {"score": 10 - i, "metadata": {"i": i}})
+    token, uid = tokens[writers[2]]
+    await call("POST", "/v2/leaderboard/arena", bearer(token), {"score": 1})
+    await call("POST", "/v2/leaderboard/locked", bearer(token), {"score": 1})
+    await call("POST", "/v2/leaderboard/none", bearer(token), {"score": 1})
+    await call("POST", "/v2/leaderboard/arena", None, {"score": 1})
+    await call("GET", "/v2/leaderboard/arena?limit=4", bearer(token))
+    await call("GET", f"/v2/leaderboard/arena?owner_ids={uid}"
+               f"&owner_ids={tokens[writers[0]][1]}", bearer(token))
+    await call("GET", f"/v2/leaderboard/arena/owner/{uid}?limit=3",
+               bearer(token))
+    await call("DELETE", "/v2/leaderboard/arena", bearer(token))
+    await call("GET", "/v2/leaderboard/arena", bearer(token))
+    await call("GET", "/v2/tournament", bearer(token))
+    await call("GET", "/v2/tournament/cup?limit=3", bearer(token))
+    await call("GET", f"/v2/tournament/cup/owner/{uid}?limit=2", bearer(token))
+    await call("POST", "/v2/tournament/cup", bearer(tokens[writers[-1]][0]),
+               {"score": 99})
+    await call("DELETE", "/v2/tournament/cup", bearer(token))
+    await call("GET", "/v2/tournament/cup", bearer(token))
+    await call("GET", "/v2/leaderboard/arena?limit=x", bearer(token))
 
 
 async def test_same_script_same_answers_as_the_jax_server(tmp_path):
@@ -349,6 +521,10 @@ async def test_same_script_same_answers_as_the_jax_server(tmp_path):
     assert got["claims"] == want["claims"]
     assert got["pool_after"] == want["pool_after"]
     assert got["channel_join"] == {"code": 3, "message": "channel_join not available"}
+    assert got["play"] == want["play"]
+    relays = [p for p in got["play"] if isinstance(p, dict) and "match_data" in p]
+    assert len(relays) == 4 + 2  # each pair's relay, the echo to both
+    assert got["play"][-1] == 0  # the closed party's ticket left the pool
     # The scrapes: the same families and the same unlabeled series
     # (values differ with each server's own components and timings, and
     # labeled series appear with the backend's activity: the JAX
@@ -362,7 +538,8 @@ async def test_same_script_same_answers_as_the_jax_server(tmp_path):
 def test_check_and_parse_args_agree_on_the_shared_sections():
     shared = [
         "logger", "metrics", "session", "socket", "database", "matchmaker",
-        "tracker", "overload", "tracing", "recovery", "devobs",
+        "match", "tracker", "leaderboard", "overload", "tracing", "recovery",
+        "devobs",
     ]
     argv = [
         "--name", "node-7", "--data_dir", "/tmp/x", "--shutdown_grace_sec", "5",
@@ -372,7 +549,11 @@ def test_check_and_parse_args_agree_on_the_shared_sections():
         "--database.address", "a.db,b.db", "--matchmaker.interval_sec", "1",
         "--matchmaker.backend", "cpu", "--tracker.event_queue_size", "64", "--overload.rate_limit_rps", "2.5",
         "--tracing.sample_rate", "1.5", "--recovery.checkpoint_interval_sec", "9",
-        "--devobs.warmup_intervals", "1",
+        "--devobs.warmup_intervals", "1", "--match.input_queue_size", "64",
+        "--match.max_empty_sec", "30", "--session.single_match", "true",
+        "--leaderboard.blacklist_rank_cache", "a,b",
+        "--leaderboard.device_min_board_size", "100",
+        "--leaderboard.device_flush_interval_sec", "0.5",
     ]
     port = port_config.parse_args(argv)
     jax = jax_config.parse_args(argv)
@@ -799,3 +980,128 @@ def test_setup_logging_writes_the_jax_formats(tmp_path, monkeypatch):
         lines[name] = out
     assert lines["torch"] == lines["jax"]
     assert len(lines["torch"]) == 4
+
+
+# ---------------------------------------------- held tickets (ROADMAP §C)
+
+
+async def _player(server, device):
+    r = await wsproto.request(
+        HOST, server.port, "POST", "/v2/account/authenticate/device",
+        headers=basic(), body={"account": {"id": device}},
+    )
+    return await wsproto.connect(
+        HOST, server.port, f"/ws?token={r.json()['token']}")
+
+
+def _held_cfg(data, extra=()):
+    return port_config.parse_args(FLAGS + [
+        "--matchmaker.backend", "cpu", "--data_dir", str(data),
+        "--database.address", str(data / "server.db"), *extra,
+    ])
+
+
+async def _stop_with_tickets(cfg, adds) -> list[str]:
+    """A server whose players each add one ticket (device, query),
+    stopped gracefully with the players still connected."""
+    server = NakamaServer(cfg, port_logger())
+    await server.start()
+    tickets = []
+    try:
+        for device, mode in adds:
+            ws = await _player(server, device)
+            await ws.send(json.dumps({"matchmaker_add": {
+                "min_count": 2, "max_count": 2,
+                "query": f"+properties.mode:{mode}",
+                "string_properties": {"mode": f"not-{mode}"}}}))
+            ack = await recv_until(ws, "matchmaker_ticket", [])
+            tickets.append(ack["matchmaker_ticket"]["ticket"])
+    finally:
+        await server.stop()
+    return tickets
+
+
+async def test_held_tickets_survive_a_sigkill_during_the_hold(tmp_path):
+    """A SIGKILL while a restart holds its players' tickets loses none
+    of them: the next start holds the same tickets again, for what
+    remains of the window (the held-tickets file stays until every
+    ticket is reowned or released)."""
+    tickets = await _stop_with_tickets(
+        _held_cfg(tmp_path), [("device-hold-0", "a"), ("device-hold-1", "b")])
+    held_file = tmp_path / "nakama-tpu-held-tickets.json"
+    assert held_file.exists()
+    proc = _start(str(tmp_path), ["--matchmaker.max_intervals", "30"])
+    try:
+        lines = _boot_lines(proc, "server listening")
+        boot = [r for r in lines if r.get("msg") == "crash recovery enabled"]
+        assert boot[0]["held_tickets"] == 2
+        t_hold = time.time()
+        proc.kill()
+        proc.wait(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    again = NakamaServer(_held_cfg(tmp_path), port_logger())
+    await again.start()
+    try:
+        held = again.recovery.held
+        assert held.ticket_ids() == set(tickets)
+        assert len(again.matchmaker) == 0
+        # The window began at the killed start: 30 intervals of 1 s.
+        assert 0 < held.remaining_s() <= 30 - (time.time() - t_hold) + 1
+        back = await _player(again, "device-hold-0")
+        assert held.ticket_ids() == {tickets[1]}
+        assert [t.ticket for t in again.matchmaker.store.session_tickets(
+            again.session_registry.all()[0].id)] == [tickets[0]]
+        await back.close()
+    finally:
+        await again.stop()
+
+
+async def test_a_returning_player_stays_within_max_tickets(tmp_path):
+    """`max_tickets` holds for tickets handed back after a restart: the
+    player who returns and adds again has one ticket in the pool and
+    gets the answer a JAX session at its quota gets."""
+    add = {"cid": "again", "matchmaker_add": {
+        "min_count": 2, "max_count": 2, "query": "+properties.mode:q",
+        "string_properties": {"mode": "z"}}}
+    data = tmp_path / "jax"
+    data.mkdir()
+    jax = JaxServer(jax_config.parse_args(FLAGS + [
+        "--matchmaker.backend", "cpu", "--data_dir", str(data),
+        "--matchmaker.max_tickets", "1"]), quiet_logger())
+    await jax.start()
+    try:
+        ws = await _player(jax, "device-quota-0")
+        for _ in range(2):
+            await ws.send(json.dumps(add))
+        want = await recv_until(ws, "error", [])
+        # The error names the session at its quota.
+        assert want["error"]["message"] == jax.session_registry.all()[0].id
+        want["error"]["message"] = "<session>"
+        await ws.close()
+    finally:
+        await jax.stop()
+    data = tmp_path / "torch"
+    data.mkdir()
+    cfg = _held_cfg(data, ["--matchmaker.max_tickets", "1"])
+    # The player's ticket was added from two devices before the stop.
+    tickets = await _stop_with_tickets(
+        cfg, [("device-quota-0", "q"), ("device-quota-0", "r")])
+    again = NakamaServer(cfg, port_logger())
+    await again.start()
+    try:
+        assert again.recovery.held.ticket_ids() == set(tickets)
+        ws = await _player(again, "device-quota-0")
+        await ws.send(json.dumps(add))
+        got = await recv_until(ws, "error", [])
+        session = again.session_registry.all()[0]
+        assert got["error"]["message"] == session.id
+        got["error"]["message"] = "<session>"
+        pooled = again.matchmaker.store.session_tickets(session.id)
+        assert len(pooled) == 1 and pooled[0].ticket in tickets
+        assert len(again.recovery.held) == 0
+        await ws.close()
+    finally:
+        await again.stop()
+    assert got == want

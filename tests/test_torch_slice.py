@@ -204,6 +204,72 @@ def test_pipelined_drain_matches_jax():
     jmm.stop()
 
 
+def stranding_script(jmm, tmm, ghosts_before: int, ghosts_after: int):
+    """A min = max pair whose only partner is rare in a big pool: A is
+    added among ghosts whose `mode` differs from the pair's but hashes
+    into the same stage-1 string bucket, and spends its one active
+    interval alone; B arrives an interval later. Returns each package's
+    groups over four intervals and whether A and B are still pooled."""
+    from nakama_tpu.matchmaker.compile import hash_str as jax_hash
+    from nakama_tpu_torch.matchmaker.compile import hash_str
+    from nakama_tpu_torch.matchmaker.device2 import STR_BUCKETS
+
+    bucket = hash_str("duo") & (STR_BUCKETS - 1)
+    ghost = next(
+        g for g in (f"g{j}" for j in range(100))
+        if hash_str(g) & (STR_BUCKETS - 1) == bucket
+    )
+    assert jax_hash(ghost) == hash_str(ghost)
+
+    created = iter(range(10**6))
+
+    def add(i, mode, query):
+        at = 1000.0 + next(created)
+        for mm, presence in ((jmm, JaxPresence), (tmm, MatchmakerPresence)):
+            p = presence(user_id=f"u{i}", session_id=f"s{i}")
+            mm.add([p], p.session_id, "", query, 2, 2, 1, {"mode": mode},
+                   {}, ticket_id=f"t{i}", created_at=at)
+
+    ghost_query = "+properties.mode:nobody"
+    for i in range(ghosts_before):
+        add(i, ghost, ghost_query)
+    add("A", "duo", "+properties.mode:duo")
+    for i in range(ghosts_before, ghosts_before + ghosts_after):
+        add(i, ghost, ghost_query)
+    out = {"jax": [], "port": []}
+    for step in range(4):
+        if step == 1:
+            add("B", "duo", "+properties.mode:duo")
+        out["jax"] += groups([jmm.process()])
+        out["port"] += groups([tmm.process()])
+    pooled = {
+        "jax": [jmm.store.get(t) is not None for t in ("tA", "tB")],
+        "port": [tmm.store.get(t) is not None for t in ("tA", "tB")],
+    }
+    jmm.stop()
+    tmm.stop()
+    return out, pooled
+
+
+def test_a_rare_partner_lost_by_stage1_strands_a_min_max_pair():
+    """An open fault of the two-stage path, the same in both packages
+    (ROADMAP.md §C): stage 1 keeps one winner a 64-column block here
+    (k = 2 over 4 blocks: m = 1), and the ghosts in A's block collide
+    with the pair's mode by string bucket, so B's row keeps a ghost and
+    loses A, which stage 2 then rejects. A min = max ticket is active for one interval only,
+    so A and B stay pooled for good although each accepts the other.
+    The small-pool exact path matches them in B's interval."""
+    jmm, tmm = make_pair("pairs", candidates_per_ticket=2)
+    got, pooled = stranding_script(jmm, tmm, 40, 100)
+    assert tmm.backend.pool.high_water >= tmm.config.big_pool_threshold
+    assert got["port"] == got["jax"] == []
+    assert pooled["port"] == pooled["jax"] == [True, True]
+    jmm, tmm = make_pair("small", candidates_per_ticket=2)
+    got, pooled = stranding_script(jmm, tmm, 40, 100)
+    assert got["port"] == got["jax"] == [("sA", "sB")]
+    assert pooled["port"] == pooled["jax"] == [False, False]
+
+
 HYGIENE = textwrap.dedent(
     """
     import asyncio
@@ -317,6 +383,23 @@ HYGIENE = textwrap.dedent(
         await db.close()
 
     asyncio.run(durable())
+    # The match engine and the leaderboard rank engine import no more.
+    from nakama_tpu_torch import match, utils  # noqa: F401
+    from nakama_tpu_torch.config import LeaderboardConfig
+    from nakama_tpu_torch.leaderboard import (
+        DeviceRankEngine, LeaderboardRankCache, Leaderboards,  # noqa: F401
+    )
+
+    cache = LeaderboardRankCache()
+    for i in range(16):
+        cache.insert("b", 0.0, 1, f"o{i}", i % 5, 0)
+    engine = DeviceRankEngine(
+        LeaderboardConfig(device_min_board_size=0), test_logger(),
+        oracle=cache, device="cpu",
+    )
+    assert engine.adopt_board("b", 0.0, 1)
+    owners = ["o3", "o7", "nobody"]
+    assert engine.get_many("b", 0.0, owners) == cache.get_many("b", 0.0, owners)
     bad = sorted(
         m for m in sys.modules
         if m == "jax" or m.startswith("jax.")

@@ -9,6 +9,7 @@ the JAX `ApiServer` (`aiohttp`)."""
 import asyncio
 import base64
 import json
+import time
 
 import pytest
 import websockets
@@ -201,6 +202,67 @@ async def test_http_keep_alive_413_and_refused_upgrade():
         assert big.json()["message"] == "request body too large"
         refused = await wsproto.request(HOST, port, "GET", "/ws")
         assert refused.status == 400
+    finally:
+        await srv.stop()
+        await srv.wait_closed()
+
+
+async def test_an_oversized_body_is_answered_unread_and_closes():
+    """With `oversize_to_handler`, a request whose declared body is above
+    the limit reaches the handler at once, unread and marked
+    `body_too_large`; the answer closes the connection. A peer that
+    never sends the body still gets its answer, and the server drops the
+    connection after `idle_timeout_s`; a peer that sends far more than
+    the discard cap is cut off after the cap."""
+    seen = []
+
+    async def handler(request):
+        seen.append((request.body_too_large, request.body))
+        return wsproto.json_response({"too_large": request.body_too_large})
+
+    srv = wsproto.HttpServer(
+        handler, max_request_size=100, idle_timeout_s=0.5,
+        oversize_to_handler=True,
+    )
+    port = await srv.start(HOST, 0)
+
+    async def answer(reader):
+        head = await asyncio.wait_for(reader.readuntil(b"\r\n\r\n"), 2)
+        assert head.startswith(b"HTTP/1.1 200")
+        assert b"connection: close" in head.lower()
+        length = int([h for h in head.split(b"\r\n")
+                      if h.lower().startswith(b"content-length")][0].split(b":")[1])
+        return json.loads(await reader.readexactly(length))
+
+    try:
+        # Declares 10 MB and sends nothing of it.
+        reader, writer = await asyncio.open_connection(HOST, port)
+        writer.write(b"POST /x HTTP/1.1\r\nHost: x\r\n"
+                     b"Content-Length: 10000000\r\n\r\n")
+        await writer.drain()
+        assert await answer(reader) == {"too_large": True}
+        t0 = time.perf_counter()
+        assert await asyncio.wait_for(reader.read(), 5) == b""
+        assert time.perf_counter() - t0 < 3
+        writer.close()
+        # Sends its declared 10 MB: cut off after the discard cap.
+        reader, writer = await asyncio.open_connection(HOST, port)
+        writer.write(b"POST /x HTTP/1.1\r\nHost: x\r\n"
+                     b"Content-Length: 10000000\r\n\r\n")
+        sent = 0
+        try:
+            while sent < 10_000_000:
+                writer.write(b"x" * 65_536)
+                await asyncio.wait_for(writer.drain(), 5)
+                sent += 65_536
+        except (ConnectionError, asyncio.TimeoutError):
+            pass
+        assert sent < 10_000_000
+        writer.close()
+        # Under the limit: read, handed on, kept alive.
+        ok = await wsproto.request(HOST, port, "POST", "/x", body=b"x" * 100)
+        assert ok.json() == {"too_large": False}
+        assert seen == [(True, b""), (True, b""), (False, b"x" * 100)]
     finally:
         await srv.stop()
         await srv.wait_closed()
