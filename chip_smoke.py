@@ -5,12 +5,15 @@
 Builds the port's hand-written kernels and native library from the
 sources in this checkout, holds both stage-1 kernels against their plain
 PyTorch version on the card and times them in turns at the main path's
-shapes, runs the port's device self-check, then drives the matchmaker's
-main path through its public entry point (`LocalMatchmaker` with the
-default `backend="cuda"`) at the default widths: 100,000 1v1 tickets
-(the device-pairing path; each synchronous interval split into its
-breadcrumb stages, kernel clocks and HBM ledger) and 100,000
-embedding-scored 5v5 tickets (the native-assembler path). Then the
+shapes and the wide route's (m = 5 and 8, E = 32, D = 776), runs the
+port's device self-check (the first kernel's path, m = 32), then drives
+the matchmaker's main path through its public entry point
+(`LocalMatchmaker` with the default `backend="cuda"`) at the default
+widths: 100,000 1v1 tickets (the device-pairing path; each synchronous
+interval split into its breadcrumb stages, kernel clocks and HBM
+ledger), 32,768 1v1 tickets at 128 candidates a ticket (the wide route,
+m = 8) and 100,000 embedding-scored 5v5 tickets (the native-assembler
+path). Then the
 service surface: the 100,000-ticket pool's snapshot restored into a
 fresh matchmaker (same groups as the original's interval), restored
 again into one that runs `start()`'s interval loop and delivery stage
@@ -43,6 +46,8 @@ import asyncio
 import base64
 import collections
 import concurrent.futures
+import ctypes
+import functools
 import gc
 import json
 import os
@@ -94,6 +99,52 @@ def cuda_time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+@functools.cache
+def spin_cycles_per_ms() -> float:
+    """Cycles of torch.cuda._sleep per ms on this card, measured once."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10_000_000)
+    end.record()
+    end.synchronize()
+    return 10_000_000 / start.elapsed_time(end)
+
+
+def spin(ms: float) -> None:
+    """Queue `ms` of busy work on the card (torch.cuda._sleep), so that
+    the host can enqueue what follows before the card reaches it."""
+    torch.cuda._sleep(int(ms * spin_cycles_per_ms()))
+
+
+def device_time_ms(fn, reps: int, cold: bool) -> float:
+    """Device time of one call of `fn`, without the host's share of the
+    call (argument checks, allocation, the launch through ctypes): the
+    card is kept busy while the host enqueues, so the events time the
+    device work alone. Cold: L2 evicted before each call (a 256 MiB
+    write), median of `reps` single calls; warm: `reps` calls back to
+    back, their mean. The spin before the timed calls covers 1 ms of
+    host enqueue a call."""
+    fn()
+    torch.cuda.synchronize()
+    evict = torch.empty(256 << 20, dtype=torch.uint8, device=DEVICE) if cold else None
+    times = []
+    for _ in range(reps if cold else 3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if cold:
+            evict.zero_()
+        spin(1.0 if cold else 1.0 * reps)
+        start.record()
+        for _ in range(1 if cold else reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / (1 if cold else reps))
+    del evict
+    return statistics.median(times)
+
+
 # ----------------------------------------------------------------- phases
 
 
@@ -138,6 +189,7 @@ def phase_build() -> None:
         for k in kernels.KERNELS
     ]
     jobs.append(threading.Thread(target=run, args=("native", native.build)))
+    jobs.append(threading.Thread(target=run, args=("load_chase", load_chase_lib)))
     for j in jobs:
         j.start()
     for j in jobs:
@@ -153,15 +205,16 @@ def phase_build() -> None:
 def ptxas_report(log: str) -> dict:
     """Registers and spills of every compiled kernel instantiation in an
     `nvcc -Xptxas -v` log, keyed by entry name (template arguments of
-    stage1_wgmma_kernel shown as m=, rev=, emb=)."""
+    stage1_wgmma_kernel shown as m=, rev=, emb=, wide=)."""
     report: dict[str, list[str]] = {}
     name = "?"
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1] if "'" in line else line
-            t = re.search(r"ILi(\d+)ELb([01])ELb([01])E", name)
+            t = re.search(r"ILi(\d+)ELb([01])ELb([01])ELb([01])E", name)
             if t:
-                name = f"stage1_wgmma_kernel<m={t[1]},rev={t[2]},emb={t[3]}>"
+                name = (f"stage1_wgmma_kernel<m={t[1]},rev={t[2]},emb={t[3]},"
+                        f"wide={t[4]}>")
             report[name] = []
         elif "arning" in line or re.search(r"\(C\d+\)", line):
             code = re.search(r"\((C\d+)\)", line)
@@ -217,7 +270,7 @@ def bench_pool(n: int, fn: int, fs: int, s: int, d: int, seed: int, dev):
     return pool, torch.from_numpy(grid_lo).to(dev), torch.from_numpy(grid_inv).to(dev)
 
 
-def stage1_case(pool, grid, n_cols, rows, active, rev, emb):
+def stage1_case(pool, grid, n_cols, rows, active, rev, emb, fn=24, fs=16):
     """The stage-1 operands of one dispatch, through the port's encoders."""
     from nakama_tpu_torch.matchmaker import device2 as td2
 
@@ -226,7 +279,7 @@ def stage1_case(pool, grid, n_cols, rows, active, rev, emb):
     act[: len(active)] = active
     rowq = {k: pool_n[k][act.clamp(min=0).long()] for k in td2.ROWQ_KEYS}
     return td2.stage1_inputs(
-        pool_n, rowq, act, *grid, fn=24, fs=16, rev=rev, with_embedding=emb
+        pool_n, rowq, act, *grid, fn=fn, fs=fs, rev=rev, with_embedding=emb
     )
 
 
@@ -283,9 +336,10 @@ def stage1_bound_ms(args: dict, out_words: int, peak_01: float) -> tuple[float, 
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def hold_kernels(pool, grid, cases, max_err: dict) -> None:
+def hold_kernels(pool, grid, cases, max_err: dict, fn=24, fs=16) -> None:
     """Every case through each B1 kernel that takes it, against the plain
-    version on the same inputs. A case is (rows, active, n_cols, bn)."""
+    version on the same inputs. A case is (rows, active, n_cols, bn); the
+    pool's field counts are `fn`, `fs`, its embedding width its own."""
     from nakama_tpu_torch import kernels
     from nakama_tpu_torch.matchmaker import device2 as td2
 
@@ -296,53 +350,58 @@ def hold_kernels(pool, grid, cases, max_err: dict) -> None:
         active = torch.arange(n_active, dtype=torch.int32, device=dev)
         for rev in (False, True):
             for emb in (False, True):
-                args = stage1_case(pool, grid, n_cols, rows, active, rev, emb)
-                kw = dict(f_tot=41.0, m=m, bn=bn, emb_scale=256.0, **args)
-                want = td2.stage1_plain(fn=24, fs=16, m=m, bn=bn, emb_scale=256.0, **args)
+                args = stage1_case(pool, grid, n_cols, rows, active, rev, emb, fn, fs)
+                d = args["uq"].shape[1]
+                e = args["ue"].shape[1] if emb else 0
+                kw = dict(f_tot=float(fn + fs + 1), m=m, bn=bn, emb_scale=256.0, **args)
+                want = td2.stage1_plain(fn=fn, fs=fs, m=m, bn=bn, emb_scale=256.0, **args)
                 launches = [kernels.stage1]
-                if td2.stage1_route(m, args["uq"].shape[1], 16 if emb else 0) is (
-                    kernels.STAGE1_WGMMA
-                ):
+                if td2.stage1_route(m, d, e) is kernels.STAGE1_WGMMA:
                     launches.append(kernels.stage1_wgmma)
+                case = {"phase": "kernels", "rows": rows, "cols": n_cols, "bn": bn,
+                        "m": m, "d": d, "e": e, "rev": rev, "with_embedding": emb}
                 for launch in launches:
                     name = launch.__name__
                     got = launch(**kw)
                     torch.cuda.synchronize()
                     try:
                         res = compare_winners(got, want, emb, name)
-                    except AssertionError as e:
+                    except AssertionError as err:
                         # Report every failing case before the phase fails.
-                        failures.append(str(e))
-                        emit({"phase": "kernels", "kernel": name, "rows": rows,
-                              "cols": n_cols, "bn": bn, "m": m, "rev": rev,
-                              "with_embedding": emb, "error": str(e)})
+                        failures.append(str(err))
+                        emit({**case, "kernel": name, "error": str(err)})
                         continue
                     max_err[name] = max(max_err[name], res["max_prio_diff"])
-                    emit({
-                        "phase": "kernels", "kernel": name, "rows": rows,
-                        "cols": n_cols, "bn": bn, "m": m, "rev": rev,
-                        "with_embedding": emb, **res,
-                    })
+                    emit({**case, "kernel": name, **res})
                 del args, kw, got, want
     if failures:
         raise AssertionError(f"{len(failures)} kernel cases failed: {failures[0]}")
 
 
-def time_stage1(pool, grid, rows, n_cols, emb, max_err: dict) -> dict:
-    """Both B1 kernels at one main-path shape, held against the plain
-    version and timed in turns (first, new, new, first), beside the
-    bounds and the library products."""
+def time_stage1(pool, grid, rows, n_cols, emb, max_err: dict, *, fn=24, fs=16,
+                k=K, bn=BN, n_active=N_TICKETS) -> dict:
+    """The B1 kernels at one shape, held against the plain version and
+    timed: where the Hopper kernel takes the shape, both in turns (first,
+    new, new, first), else the first kernel alone; beside the bounds and
+    the library products."""
     from nakama_tpu_torch import kernels
     from nakama_tpu_torch.matchmaker import device2 as td2
 
     dev = pool["num"].device
-    m = td2.winners_per_block(K, n_cols // BN)
-    active = torch.arange(N_TICKETS, dtype=torch.int32, device=dev)
-    args = stage1_case(pool, grid, n_cols, rows, active, False, emb)
-    kw = dict(f_tot=41.0, m=m, bn=BN, emb_scale=256.0, **args)
-    want = td2.stage1_plain(fn=24, fs=16, m=m, bn=BN, emb_scale=256.0, **args)
+    m = td2.winners_per_block(k, n_cols // bn)
+    active = torch.arange(n_active, dtype=torch.int32, device=dev)
+    args = stage1_case(pool, grid, n_cols, rows, active, False, emb, fn, fs)
+    d = args["uq"].shape[1]
+    e = args["ue"].shape[1] if emb else 0
+    both = td2.stage1_route(m, d, e) is kernels.STAGE1_WGMMA
+    kw = dict(f_tot=float(fn + fs + 1), m=m, bn=bn, emb_scale=256.0, **args)
+
+    def plain():
+        return td2.stage1_plain(fn=fn, fs=fs, m=m, bn=bn, emb_scale=256.0, **args)
+
+    want = plain()
     checks = {}
-    for launch in (kernels.stage1_wgmma, kernels.stage1):
+    for launch in (kernels.stage1_wgmma, kernels.stage1) if both else (kernels.stage1,):
         got = launch(**kw)
         torch.cuda.synchronize()
         res = compare_winners(got, want, emb, launch.__name__)
@@ -352,12 +411,12 @@ def time_stage1(pool, grid, rows, n_cols, emb, max_err: dict) -> dict:
     out_words = want.numel()
     del want
     first = [cuda_time_ms(lambda: kernels.stage1(**kw), 3)]
-    new = [cuda_time_ms(lambda: kernels.stage1_wgmma(**kw), 5)]
-    new.append(cuda_time_ms(lambda: kernels.stage1_wgmma(**kw), 5))
+    new = []
+    if both:
+        new.append(cuda_time_ms(lambda: kernels.stage1_wgmma(**kw), 5))
+        new.append(cuda_time_ms(lambda: kernels.stage1_wgmma(**kw), 5))
     first.append(cuda_time_ms(lambda: kernels.stage1(**kw), 3))
-    plain_ms = cuda_time_ms(
-        lambda: td2.stage1_plain(fn=24, fs=16, m=m, bn=BN, emb_scale=256.0, **args), 2
-    )
+    plain_ms = cuda_time_ms(plain, 2)
     bound_int8, by_int8 = stage1_bound_ms(args, out_words, PEAK_INT8_OPS)
     bound_bf16, by_bf16 = stage1_bound_ms(args, out_words, PEAK_BF16_FLOPS)
     uq, vv = args["uq"], args["vv"]
@@ -374,15 +433,13 @@ def time_stage1(pool, grid, rows, n_cols, emb, max_err: dict) -> dict:
     del args, kw
     torch.cuda.empty_cache()
     timing = {
-        "rows": rows, "cols": n_cols, "m": m, "with_embedding": emb,
+        "rows": rows, "cols": n_cols, "bn": bn, "k": k, "m": m, "d": d, "e": e,
+        "with_embedding": emb,
         "ops_01": ops01, "ops_emb": ops_emb, "bytes": nbytes,
-        "stage1_wgmma_ms": new, "stage1_ms": first,
-        "wgmma_ms": statistics.median(new), "first_ms": statistics.median(first),
-        "speedup": statistics.median(first) / statistics.median(new),
+        "stage1_ms": first, "first_ms": statistics.median(first),
         "plain_ms": plain_ms,
         "bound_int8_ms": bound_int8, "bound_int8_by": by_int8,
         "bound_bf16_ms": bound_bf16, "bound_bf16_by": by_bf16,
-        "wgmma_share_of_int8_bound": bound_int8 / statistics.median(new),
         "matmul_bf16_ms": matmul_ms,
         "matmul_call": "torch.matmul(uq, vv.T) in bf16 (the product alone)",
         "int_mm_ms": int_mm_ms,
@@ -392,6 +449,12 @@ def time_stage1(pool, grid, rows, n_cols, emb, max_err: dict) -> dict:
         ),
         "checks": checks,
     }
+    if both:
+        timing.update({
+            "stage1_wgmma_ms": new, "wgmma_ms": statistics.median(new),
+            "speedup": statistics.median(first) / statistics.median(new),
+            "wgmma_share_of_int8_bound": bound_int8 / statistics.median(new),
+        })
     emit({"phase": "kernels", "timing": timing})
     return timing
 
@@ -401,26 +464,57 @@ def phase_kernels(dev) -> dict:
     grid = (grid_lo, grid_inv)
     max_err = {"stage1": 0, "stage1_wgmma": 0}
     # At k = 64, bn = 1024: m = 2 at the north-star extent (112 blocks),
-    # m = 1 at 128 blocks, m = 2k on a one-block pool (first kernel only);
-    # at bn = 256: m = 4 at 32 blocks and m = 3 at 43, on 4,000 rows (not a
-    # multiple of either row tile). Every flag pair.
+    # m = 1 at 128 blocks, m = 5 at 26, m = 8 at 16, m = 2k on a one-block
+    # pool (first kernel only); at bn = 256: m = 4 at 32 blocks and m = 3
+    # at 43, on 4,000 rows (not a multiple of either row tile). Every flag
+    # pair.
     hold_kernels(pool, grid, [
         (4096, 4000, 114_688, BN), (4096, 4000, 131_072, BN),
         (4096, 1024, 1024, BN), (4000, 4000, 32 * 256, 256),
-        (4000, 4000, 43 * 256, 256),
+        (4000, 4000, 43 * 256, 256), (4096, 4000, 26 * BN, BN),
+        (4096, 4000, 16 * BN, BN),
     ], max_err)
 
     # The main path's shapes: the first interval dispatches 100,000
     # actives padded to 131,072 rows against 114,688 columns; the
-    # north-star pool without embeddings, the assembler's with them.
+    # north-star pool without embeddings, the assembler's with them. The
+    # wide phase's: 32,768 rows and columns at k = 128 (m = 8).
     rows, n_cols = 131_072, 114_688
     north = time_stage1(pool, grid, rows, n_cols, False, max_err)
     asm = time_stage1(pool, grid, rows, n_cols, True, max_err)
+    wide_m8 = time_stage1(pool, grid, 32_768, 32_768, False, max_err, k=128,
+                          n_active=32_768)
     active = torch.arange(N_TICKETS, dtype=torch.int32, device=dev)
     phase_layers(pool, grid, rows, n_cols, active, north["wgmma_ms"])
     del pool
     torch.cuda.empty_cache()
-    return {"max_err": max_err, "north_star": north, "assembler": asm}
+
+    # The wide configurations at the north-star shape: 32-wide skill
+    # embeddings (E = 32), and 32 numeric and 32 string fields (D = 776,
+    # the half row tile).
+    pool, grid_lo, grid_inv = bench_pool(131_072, 24, 16, 16, 32, 7, dev)
+    grid = (grid_lo, grid_inv)
+    hold_kernels(pool, grid, [(4096, 4000, 114_688, BN)], max_err)
+    e32 = time_stage1(pool, grid, rows, n_cols, True, max_err)
+    del pool
+    pool, grid_lo, grid_inv = bench_pool(131_072, 32, 32, 16, 16, 7, dev)
+    grid = (grid_lo, grid_inv)
+    hold_kernels(pool, grid, [(4096, 4000, 114_688, BN), (4096, 4000, 16 * BN, BN)],
+                 max_err, fn=32, fs=32)
+    d776 = time_stage1(pool, grid, rows, n_cols, False, max_err, fn=32, fs=32)
+    del pool
+    # The first kernel's own route (m > 8): the self-check's two-stage
+    # shape (pool 1,024, threshold 256, 256-column blocks, k = 64: m = 32;
+    # fn = fs = 8).
+    pool, grid_lo, grid_inv = bench_pool(1024, 8, 8, 8, 16, 7, dev)
+    first = time_stage1(pool, (grid_lo, grid_inv), 1024, 1024, False, max_err,
+                        fn=8, fs=8, bn=256, n_active=1000)
+    del pool
+    torch.cuda.empty_cache()
+    return {"max_err": max_err, "north_star": north, "assembler": asm,
+            "wide_m8": wide_m8, "e32": e32, "d776": d776, "first_m32": first}
+
+
 def phase_layers(pool, grid, rows, n_cols, active, stage1_ms) -> None:
     """Device-timeline time of each layer of the two-stage dispatch at the
     first north-star interval's shape (CUDA events around each call, so a
@@ -462,16 +556,26 @@ def phase_layers(pool, grid, rows, n_cols, active, stage1_ms) -> None:
     emit({"phase": "layers", "rows": rows, "cols": n_cols, **layers})
 
 
-def phase_selfcheck() -> None:
+def phase_selfcheck() -> dict:
+    """The port's device self-check on cuda:0; its two-stage legs (pool
+    1,024 at threshold 256, m = 32 winners per block) are the path of
+    the first stage-1 kernel. Returns the launches of the run."""
+    from nakama_tpu_torch import kernels
     from nakama_tpu_torch.matchmaker.selfcheck import run_chip_selfcheck
 
+    for k in kernels.KERNELS:
+        k.launches = 0
     t0 = time.perf_counter()
     lines: list[str] = []
     results = run_chip_selfcheck(log=lines.append, device="cuda:0")
+    launches = {k.name: k.launches for k in kernels.KERNELS}
     emit({
         "phase": "selfcheck", "results": results, "log": lines,
-        "seconds": round(time.perf_counter() - t0, 3),
+        "seconds": round(time.perf_counter() - t0, 3), "launches": launches,
     })
+    if launches["stage1"] <= 0:
+        raise AssertionError(f"the self-check never launched stage1: {launches}")
+    return launches
 
 
 class StrictLogger:
@@ -661,11 +765,12 @@ def interval_split(mm, process_ms: float, t0_wall: float, t1_wall: float) -> dic
     }
 
 
-def run_intervals(mm, rng, kind, size, n_sync, n_pipe, before_first=None):
-    """Refill to N_TICKETS before every interval (the gap's work), then
-    one timed process(). `before_first(mm)` runs once, just before the
-    first interval. Returns per-interval records, the batches, the
-    re-validated entry count."""
+def run_intervals(mm, rng, kind, size, n_sync, n_pipe, before_first=None,
+                  target=N_TICKETS):
+    """Refill to `target` tickets before every interval (the gap's
+    work), then one timed process(). `before_first(mm)` runs once, just
+    before the first interval. Returns per-interval records, the batches,
+    the re-validated entry count."""
     from nakama_tpu_torch import kernels
 
     counter = [0]
@@ -675,7 +780,7 @@ def run_intervals(mm, rng, kind, size, n_sync, n_pipe, before_first=None):
         pipelined = step >= n_sync
         mm.config.interval_pipelining = pipelined
         mm.store.drain()  # idle-gap teardown of matched tickets
-        fill_s = refill(mm, rng, N_TICKETS, counter, kind)
+        fill_s = refill(mm, rng, target, counter, kind)
         if pipelined:
             mm.backend.wait_idle(120)  # the gap lets the last cohort finish
         # The interval's first step, timed on its own: the staged tail of
@@ -1357,13 +1462,6 @@ def flush_behind_busy_card(cfg, busy_ms: float = 100.0) -> dict:
         for slot in range(chunk):
             pool.add(slot, {k: v[slot] for k, v in rows.items()})
 
-    # Calibrate the spin: cycles per ms of torch.cuda._sleep.
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    torch.cuda._sleep(10_000_000)
-    end.record()
-    end.synchronize()
-    cycles = int(busy_ms * 10_000_000 / start.elapsed_time(end))
     stage()
     pool.flush()  # warm the pinned-memory cache
     torch.cuda.synchronize()
@@ -1371,7 +1469,7 @@ def flush_behind_busy_card(cfg, busy_ms: float = 100.0) -> dict:
     for mode in ("pinned_pool_flush", "pageable_copy"):
         stage()
         torch.cuda.synchronize()
-        torch.cuda._sleep(cycles)
+        spin(busy_ms)
         t0 = time.perf_counter()
         if mode == "pinned_pool_flush":
             pool.flush()
@@ -1904,7 +2002,7 @@ def crash_leg(name: str, env_extra: dict, check_double: bool, *,
 
 def check_routing(launches: dict, path: str) -> None:
     """The main path's stage 1 goes through the Hopper kernel only: its
-    calls all have m <= 4, which the routing never sends to the first."""
+    calls all have m <= 8, which the routing never sends to the first."""
     if launches["stage1_wgmma"] <= 0:
         raise AssertionError(f"the {path} path never launched stage1_wgmma")
     if launches["stage1"] != 0:
@@ -1939,6 +2037,64 @@ def phase_assembler() -> dict:
         "interval": ms_stats([r["process_ms"] for r in records]),
         "matched_entries_validated": valid, "launches": launches,
     })
+    return launches
+
+
+WIDE_TICKETS = 32_768
+WIDE_K = 128
+
+
+def phase_wide() -> dict:
+    """The Hopper kernel's wide route on a path a user reaches: 32,768
+    north-star tickets (bench.py:44-58) in a `LocalMatchmaker` with
+    `candidates_per_ticket = 128`, the rest of `MatchmakerConfig` at its
+    defaults (capacity 131,072, threshold 32,768, 24 numeric and 16
+    string fields). The pool spans 32 selection blocks, so stage 1 keeps
+    m = ceil(2 * 128 / 32) = 8 winners a block. Three synchronous
+    intervals; every match valid, >= 80% matched in the first, stage 1
+    on stage1_wgmma at m = 8 and never on the first kernel."""
+    from nakama_tpu_torch import kernels
+    from nakama_tpu_torch.config import MatchmakerConfig
+    from nakama_tpu_torch.matchmaker import LocalMatchmaker
+
+    cfg = MatchmakerConfig(interval_pipelining=False,
+                           candidates_per_ticket=WIDE_K)
+    mm = LocalMatchmaker(StrictLogger(), cfg)
+    rng = np.random.default_rng(77)
+    seen_m: list[int] = []
+    launch = kernels.stage1_wgmma
+
+    def recorded(*args, **kw):  # the m of every launch, then the launch
+        seen_m.append(kw["m"])
+        return launch(*args, **kw)
+
+    for k in kernels.KERNELS:
+        k.launches = 0
+    kernels.stage1_wgmma = recorded
+    try:
+        records, batches, valid = run_intervals(
+            mm, rng, "1v1", 2, 3, 0, target=WIDE_TICKETS)
+    finally:
+        kernels.stage1_wgmma = launch
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    check_backend_clean(mm, "wide")
+    mm.stop()
+    check_routing(launches, "wide")
+    if not seen_m or set(seen_m) != {8}:
+        raise AssertionError(f"the wide path's stage 1 ran at m = {seen_m}")
+    first = records[0]["matched_entries"]
+    stage1_clock = [
+        r["split"]["kernel_clocks"].get("matchmaker.stage1") for r in records]
+    emit({
+        "phase": "wide", "tickets": WIDE_TICKETS, "k": WIDE_K,
+        "stage1_m": seen_m, "intervals": records,
+        "sync_interval": ms_stats([r["process_ms"] for r in records]),
+        "stage1_clock": stage1_clock,
+        "first_interval_matched_share": first / WIDE_TICKETS,
+        "matched_entries_validated": valid, "launches": launches,
+    })
+    if first < 0.8 * WIDE_TICKETS:
+        raise AssertionError(f"first wide interval matched {first} < 80% of pool")
     return launches
 
 
@@ -2896,9 +3052,13 @@ def b8_timings(engine, board, batch) -> dict:
     card's HBM rate; and the same program on the host's CPU tensors.
     `lex_ranks` is the hand kernel: it is also held against its plain
     PyTorch version on the same inputs on the card (exact) and timed
-    beside it. Its search needs ceil(log2(C + 1)) dependent loads a
-    query, so beside the bytes bound it gets a latency bound: that many
-    steps times one step's measured load latency (`search_step_latency`)."""
+    beside it, at 1,024 queries and at one (a single owner's read). Its
+    33-ary search needs ceil(log33(C + 1)) dependent steps a query, so
+    beside the bytes bound it gets a latency bound: that many steps times
+    one dependent load's latency, measured apart from the kernel
+    (`load_latency`); beside it the binary search's, ceil(log2(C + 1))
+    steps of the same latency. The kernel's own time a step
+    (`search_step_latency`) is reported too, not used in a bound."""
     from nakama_tpu_torch.leaderboard import cuda as b8
 
     b = engine._boards[(board, 0.0)]
@@ -2909,8 +3069,9 @@ def b8_timings(engine, board, batch) -> dict:
         dtype=np.int64).astype(np.int32))
     qd = q.to(DEVICE)
     iters = b8.n_search_iters(c)
-    # The steps a lower bound over [0, C] needs (the kernel stops there;
-    # `iters` is the program's fixed depth, one more).
+    # The steps a binary lower bound over [0, C] needs (the plain
+    # version's fixed depth `iters` is one more); the bytes bound counts
+    # one key row read a step.
     steps = c.bit_length()
     u = LB_BATCH
     idx = torch.randperm(c, generator=torch.Generator().manual_seed(4))[:u]
@@ -2954,50 +3115,157 @@ def b8_timings(engine, board, batch) -> dict:
     want = b8.lex_ranks_plain(b.sorted_keys, qd, iters)
     lex = out["lex_ranks"]
     lex["max_abs_err"] = int((got.long() - want.long()).abs().max())
+    # The kernel's device time with L2 evicted (a batch of owners the
+    # card has not just read; the latency bound's case) and warm; the
+    # call's time with the wrapper's host work in it (the events around
+    # one call, as for the other programs); the plain version's call
+    # time (launch-bound: ~20 small kernels a step, the card mostly idle).
+    lex["call_ms"] = lex["ms"]
+    lex["ms"] = device_time_ms(lambda: b8.lex_ranks(b.sorted_keys, qd, iters), 30, True)
+    lex["warm_ms"] = device_time_ms(
+        lambda: b8.lex_ranks(b.sorted_keys, qd, iters), 20, False)
     lex["plain_ms"] = cuda_time_ms(
         lambda: b8.lex_ranks_plain(b.sorted_keys, qd, iters), 20)
     lex["queries"] = len(q)
-    lex["steps"] = steps
-    lex["step_latency"] = search_step_latency(b.sorted_keys, qd[:1], iters)
-    lex["latency_bound_ms"] = steps * lex["step_latency"]["ms"]
+    q1 = qd[:1].clone()
+    got1 = b8.lex_ranks(b.sorted_keys, q1, iters)
+    lex["q1"] = {
+        "ms": device_time_ms(lambda: b8.lex_ranks(b.sorted_keys, q1, iters), 30, True),
+        "warm_ms": device_time_ms(
+            lambda: b8.lex_ranks(b.sorted_keys, q1, iters), 20, False),
+        "call_ms": cuda_time_ms(lambda: b8.lex_ranks(b.sorted_keys, q1, iters), 20),
+        "plain_ms": cuda_time_ms(
+            lambda: b8.lex_ranks_plain(b.sorted_keys, q1, iters), 20),
+        "max_abs_err": int((got1.long() - b8.lex_ranks_plain(
+            b.sorted_keys, q1, iters).long()).abs().max()),
+        "bound_ms": (12 + 12 * steps + 4) / PEAK_BYTES * 1e3,
+    }
+    lex["max_abs_err"] = max(lex["max_abs_err"], lex["q1"]["max_abs_err"])
+    lex["steps_binary"] = steps
+    lex["steps"] = wary_depth(c)
+    lex["step_latency"] = search_step_latency(b.sorted_keys, q1, iters)
+    lex["load_latency"] = load_latency(c)
+    lex["latency_bound_ms"] = lex["steps"] * lex["load_latency"]["ms"]
+    lex["binary_latency_bound_ms"] = steps * lex["load_latency"]["ms"]
+    lex["q1"]["latency_bound_ms"] = lex["latency_bound_ms"]
     del scratch
     return out
 
 
+LEX_W = 32  # csrc/lex_ranks.cu: pivots a step, one a lane
+
+
+def wary_walk(c: int, rank: int) -> int:
+    """The steps csrc/lex_ranks.cu's 33-ary search takes to the answer
+    `rank` over C rows (the kernel's pivots: lo + (j+1) n / (np+1))."""
+    lo, hi, taken = 0, c, 0
+    while lo < hi:
+        n = hi - lo
+        np_ = min(n, LEX_W)
+        piv = [lo + (j + 1) * n // (np_ + 1) for j in range(np_)]
+        k = sum(p < rank for p in piv)  # pivots below the answer
+        lo, hi = (piv[k - 1] + 1 if k else lo), (piv[k] if k < np_ else hi)
+        taken += 1
+    return taken
+
+
+def wary_depth(c: int) -> int:
+    """ceil(log33(C + 1)): the 33-ary search's depth over C rows."""
+    depth, span = 0, 1
+    while span < c + 1:
+        span *= LEX_W + 1
+        depth += 1
+    return depth
+
+
 def search_step_latency(sorted_keys, q1, iters: int) -> dict:
-    """One step of the binary search on the card, as latency: one query
-    searched alone with L2 evicted first (a 256 MiB write), at its full
-    depth and at one step, CUDA-event medians; the difference over the
-    extra steps the query takes is one dependent load's latency from
-    device memory (the launch and the query's own load cancel)."""
+    """The kernel's own time a step: one query searched alone with L2
+    evicted first (`device_time_ms`, cold), at its full depth and at one
+    step (the kernel's `n_iters` caps its steps), CUDA-event medians; the
+    difference over the extra steps the query takes (the launch and the
+    query's own load cancel). It moves with the kernel's code, so no
+    bound uses it: `load_latency` gives the bound's latency."""
     from nakama_tpu_torch import kernels
 
     c = sorted_keys.shape[0]
     rank = int(kernels.lex_ranks(sorted_keys, q1, iters)[0])
-    lo, hi, taken = 0, c, 0
-    while lo < hi:  # the kernel's walk, for this query's answer
-        mid = (lo + hi) >> 1
-        lo, hi = (mid + 1, hi) if mid < rank else (lo, mid)
-        taken += 1
-    evict = torch.empty(256 << 20, dtype=torch.uint8, device=DEVICE)
-
-    def cold_ms(n: int) -> float:
-        times = []
-        for _ in range(30):
-            evict.zero_()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            kernels.lex_ranks(sorted_keys, q1, n)
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
-
-    full, one = cold_ms(iters), cold_ms(1)
-    del evict
+    taken = wary_walk(c, rank)
+    full, one = (
+        device_time_ms(lambda n=n: kernels.lex_ranks(sorted_keys, q1, n), 30, True)
+        for n in (iters, 1))
     return {"ms": (full - one) / max(1, taken - 1), "steps_taken": taken,
             "full_ms": full, "one_step_ms": one}
+
+
+LOAD_CHASE_CU = r"""
+// One thread follows a chain of n dependent loads through a table of
+// 12-byte rows, the first column of each naming the next row, and
+// writes the row it ends on: n loads' latency, one after another.
+#include <cuda_runtime.h>
+
+__global__ void load_chase_kernel(const int* __restrict__ rows, int start, int n,
+                                  int* out) {
+  int r = start;
+  for (int i = 0; i < n; ++i) r = __ldg(rows + 3ll * r);
+  *out = r;
+}
+
+extern "C" int load_chase_launch(const void* rows, int start, int n, void* out,
+                                 void* stream) {
+  load_chase_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((const int*)rows, start, n,
+                                                      (int*)out);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+@functools.cache
+def load_chase_lib() -> ctypes.CDLL:
+    """The measurement probe LOAD_CHASE_CU (not a kernel of the port),
+    written under build/ and compiled as the port's kernels are."""
+    from nakama_tpu_torch import kernels
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    src = os.path.join(OUT_DIR, "load_chase.cu")
+    with open(src, "w") as f:
+        f.write(LOAD_CHASE_CU)
+    lib = ctypes.CDLL(kernels.build(kernels.Kernel("load_chase", src, "")))
+    lib.load_chase_launch.restype = ctypes.c_int
+    lib.load_chase_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    return lib
+
+
+def load_latency(c: int, steps: int = 64) -> dict:
+    """One dependent load's latency from device memory on this card,
+    apart from any kernel of the port: one thread follows a random cyclic
+    chain through a table of C 12-byte rows (a board's size and row
+    width; each load lands anywhere in its 12 C bytes, as a search's
+    first steps do), L2 evicted first, for 1 + `steps` loads and for one
+    (`device_time_ms`, cold, CUDA-event medians); the difference over
+    `steps` (the launch and the first load cancel). The walk's end is
+    checked against the chain."""
+    lib = load_chase_lib()
+    g = torch.Generator(device=DEVICE).manual_seed(9)
+    perm = torch.randperm(c, device=DEVICE, generator=g)
+    rows = torch.zeros((c, 3), dtype=torch.int32, device=DEVICE)
+    rows[perm, 0] = torch.roll(perm, -1).int()  # row perm[i] names perm[i+1]
+    out = torch.empty(1, dtype=torch.int32, device=DEVICE)
+    start = int(perm[0])
+
+    def walk(n: int) -> None:
+        rc = lib.load_chase_launch(rows.data_ptr(), start, n, out.data_ptr(),
+                                   torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"load_chase_launch returned {rc}")
+
+    full, one = (device_time_ms(lambda n=n: walk(n), 30, True) for n in (1 + steps, 1))
+    walk(1 + steps)
+    if int(out[0]) != int(perm[(1 + steps) % c]):
+        raise AssertionError("the load chain ended on the wrong row")
+    del rows, perm
+    return {"ms": (full - one) / steps, "steps": steps, "rows": c,
+            "full_ms": full, "one_load_ms": one}
 
 
 def phase_leaderboard() -> dict:
@@ -3429,7 +3697,7 @@ def phase_match() -> dict:
 
 
 def kernel_line(kernel, launches: int, err: int, timing: dict, ms_key: str,
-                bound_key: str) -> dict:
+                bound_key: str, **extra) -> dict:
     return {
         "name": kernel.name,
         "route": "cuda",
@@ -3442,6 +3710,7 @@ def kernel_line(kernel, launches: int, err: int, timing: dict, ms_key: str,
         "bound_ms": timing[bound_key + "_ms"],
         "bound_by": timing[bound_key + "_by"],
         "library_ms": timing["matmul_bf16_ms"],
+        **extra,
     }
 
 
@@ -3456,11 +3725,12 @@ def main() -> int:
     phase_build()
     dev = torch.device("cuda:0")
     timing = phase_kernels(dev)
-    phase_selfcheck()
     north = timing["north_star"]
     # Every path of the main path: counts set to 0 before each, read after.
+    paths = [phase_selfcheck()]
     launches, snap, first_groups = phase_north_star(north["wgmma_ms"])
-    paths = [launches, phase_assembler(), phase_snapshot(snap, first_groups)]
+    paths += [launches, phase_wide(), phase_assembler(),
+              phase_snapshot(snap, first_groups)]
     recovery_launches, recovery = phase_recovery(snap)
     paths += [recovery_launches, phase_service(snap), phase_faults()]
     pickled = snap.pop("pickled")
@@ -3473,21 +3743,36 @@ def main() -> int:
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 1)})
     total = {k.name: sum(p[k.name] for p in paths) for k in kernels.KERNELS}
     err = timing["max_err"]
+    # The first kernel at its own path's shape (the self-check's, m = 32),
+    # its north-star time beside; the Hopper kernel at the north star's.
+    first = timing["first_m32"]
     emit({"kernels": [
-        kernel_line(kernels.STAGE1, total["stage1"], err["stage1"], north,
-                    "first_ms", "bound_bf16"),
+        kernel_line(kernels.STAGE1, total["stage1"], err["stage1"], first,
+                    "first_ms", "bound_bf16", north_star_ms=north["first_ms"]),
         kernel_line(kernels.STAGE1_WGMMA, total["stage1_wgmma"],
-                    err["stage1_wgmma"], north, "wgmma_ms", "bound_int8"),
+                    err["stage1_wgmma"], north, "wgmma_ms", "bound_int8",
+                    wide_m8_ms=timing["wide_m8"]["wgmma_ms"],
+                    e32_ms=timing["e32"]["wgmma_ms"],
+                    d776_ms=timing["d776"]["wgmma_ms"]),
         {
             "name": kernels.LEX_RANKS.name, "route": "cuda",
             "source": "nakama_tpu_torch/csrc/" + kernels.LEX_RANKS.source,
             "replaces": kernels.LEX_RANKS.replaces,
             "launches": total["lex_ranks"], "max_abs_err": lex["max_abs_err"],
-            "ms": lex["ms"], "plain_ms": lex["plain_ms"],
+            # Device time with L2 evicted; warm, and the call with the
+            # wrapper's host work, beside it.
+            "ms": lex["ms"], "warm_ms": lex["warm_ms"], "call_ms": lex["call_ms"],
+            "plain_ms": lex["plain_ms"],
             "bound_ms": lex["bound_ms"], "bound_by": lex["bound_by"],
-            # Its chain of dependent loads: steps x one load's latency.
+            # Its chain of dependent steps: ceil(log33(C + 1)) x one
+            # dependent load's latency (a binary search's:
+            # ceil(log2(C + 1)) x it).
             "latency_bound_ms": lex["latency_bound_ms"],
-            # No one PyTorch call searches three key columns at once.
+            "binary_latency_bound_ms": lex["binary_latency_bound_ms"],
+            "q1_ms": lex["q1"]["ms"],
+            # No one PyTorch call computes a lower bound over three key
+            # columns: torch.searchsorted takes one sorted column, and
+            # the 96-bit key does not pack into int64.
             "library_ms": None,
         },
     ]})

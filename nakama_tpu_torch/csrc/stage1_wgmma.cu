@@ -3,9 +3,10 @@
 //
 // Replaces the Pallas TPU kernel nakama_tpu/matchmaker/device2.py:302
 // (`_stage1_call`, body `_stage1_kernel` at :175), as csrc/stage1.cu does;
-// this kernel takes the calls with m <= 4 winners per selection block
-// (every call of the main path at the default widths), the first kernel
-// the rest.
+// this kernel takes the calls with m <= 8 winners per selection block,
+// D <= 1024 and E <= 64 (every call of the main path, and the wide
+// configurations: k = 128 at 32 blocks, 48 numeric and 31 string fields,
+// 64-wide skill embeddings), the first kernel the rest (m > 8).
 //
 // What it computes, for every row i < a and pool column j (the same
 // function as csrc/stage1.cu and device2.stage1_plain):
@@ -29,10 +30,10 @@
 // Design:
 // - Operands are int8 [rows, dp] (dp = D rounded up to 16), K-major. TMA
 //   loads them in 128-byte K chunks with the 128-byte swizzle that the
-//   wgmma descriptors name; D = 520 takes 5 chunks, and the last chunk
-//   runs only the k32 steps that hold data (544 of 640 columns of work).
-//   TMA fills the part of a box past the tensor's edge with zeros, so rows
-//   need no padding.
+//   wgmma descriptors name; D = 520 takes 5 chunks (D = 1024 takes 8), and
+//   the last chunk runs only the k32 steps that hold data (544 of 640
+//   columns of work at D = 520). TMA fills the part of a box past the
+//   tensor's edge with zeros, so rows and columns need no padding.
 // - One block per SM (a persistent grid) of two consumer warpgroups and a
 //   producer warpgroup whose one thread issues every TMA load; setmaxnreg
 //   moves the producer's registers to the consumers (232 each), which
@@ -40,27 +41,37 @@
 //   work item is one row tile (BM rows) and a range of selection blocks.
 //   The row operand of the tile stays in shared memory for the whole item
 //   (160 KB at D = 520), and the column operand streams through a ring of
-//   3-4 stages with full/empty mbarriers. Each column chunk is read once
+//   4 stages (3 under rev with embeddings) with full/empty mbarriers. The
+//   host takes the 256-row tile (128 under rev) where it fits beside the
+//   ring; where it does not (D > 640, or a wide embedding) it takes the
+//   half tile: 128 rows in one slab per warpgroup, or under rev 64 rows
+//   and one consumer warpgroup (no setmaxnreg: 256 threads have 255
+//   registers each). Each column chunk is read once
 //   per 256-row tile (128 under rev): 512 operations per byte of column
 //   operand, against 32 for the first kernel. Items are dealt round-robin,
 //   so the blocks in flight walk the same column block at the same time
 //   and it stays in L2.
 // - Each consumer warpgroup owns 64 rows per slab (two slabs without rev)
-//   and issues m64nTNk32 s8 wgmmas; the embedding product is one bf16
-//   m64nTNk16 wgmma into an fp32 accumulator. The next chunk's wgmmas are
-//   in flight while the previous stage is released (wait_group 1).
+//   and issues m64nTNk32 s8 wgmmas; the embedding product is E/16 bf16
+//   m64nTNk16 wgmmas into an fp32 accumulator (E padded to 16; each k16
+//   slice is its own 32-byte-swizzled [rows][16] tile), a commit group
+//   of its own before the first chunk's. The next chunk's wgmmas are in
+//   flight while the previous stage is released (wait_group 1).
 // - Epilogue in registers, no word buffer: each thread turns its counts
 //   into packed words (word = 2^30 + col - (r8 ^ c8) without embeddings)
-//   and folds them into a running top-m per row it holds (m a template
-//   parameter, 1-4). At the end of a selection block the four threads that
-//   share a row merge by shuffles and one writes m words.
+//   and folds them into a running top-M per row it holds (M a template
+//   parameter: 1, 2, 4 or 8, the power of two >= m). At the end of a
+//   selection block the four threads that share a row merge by shuffles
+//   and one writes the first m words: the top m of a descending top-M is
+//   its prefix, so m = 3 or 5-7 need no instantiation of their own.
 // - The epilogue does not overlap the products: on the card, the time of
 //   the whole kernel is the sum of its products-only and epilogue-only
 //   builds (profile_stage1.py), and neither double-buffered accumulators
 //   nor ping-ponged consumer warpgroups changed that (PERF.md).
-// - Register budget: the accumulators take 128 registers a thread in every
-//   instantiation (TN = 128 without flags, 64 with rev or embeddings; rev
-//   halves the row tile because both row operands stay resident).
+// - Register budget: the accumulators take at most 128 registers a thread
+//   (TN = 128 without flags at M <= 4; 64 with rev, embeddings or M = 8,
+//   whose running top-8 of 4 rows takes 32 more; rev halves the row tile
+//   because both row operands stay resident).
 
 #include <climits>
 #include <cstdint>
@@ -76,22 +87,24 @@
 
 namespace {
 
-constexpr int NCW = 2;                 // consumer warpgroups
-constexpr int NT = (NCW + 1) * 128;    // + a producer warpgroup (one warp issues)
 constexpr int KC = 128;                // K chunk: 128 int8 = one 128-byte swizzle span
-constexpr int KCH_MAX = 5;             // D <= 640
-constexpr int EW = 16;                 // embedding width: one bf16 k16 step, 32 bytes
+constexpr int KCH_MAX = 8;             // D <= 1024
+constexpr int EC = 16;                 // embedding chunk: one bf16 k16 step, 32 bytes a row
+constexpr int EK_MAX = 4;              // E <= 64
 constexpr int COL_BITS = 18;
 constexpr int PRIO_MAX = 8191;
 constexpr int SMEM_MAX = 232448;       // dynamic shared memory a block may use
 
-template <bool REV, bool EMB>
+// WIDE is the half row tile (see the design note).
+template <int M, bool REV, bool EMB, bool WIDE>
 struct Shape {
-    static constexpr int SLABS = REV ? 1 : 2;          // 64-row slabs per warpgroup
-    static constexpr int BM = NCW * 64 * SLABS;        // rows per tile
-    static constexpr int TN = (REV || EMB) ? 64 : 128; // columns per product tile
-    static constexpr int STAGES = (REV && EMB) ? 3 : 4;
-    static constexpr int NACC = TN / 2;                // accumulators per slab
+    static constexpr int NCW = (REV && WIDE) ? 1 : 2;       // consumer warpgroups
+    static constexpr int NT = (NCW + 1) * 128;              // + a producer warpgroup
+    static constexpr int SLABS = (REV || WIDE) ? 1 : 2;     // 64-row slabs per warpgroup
+    static constexpr int BM = NCW * 64 * SLABS;             // rows per tile
+    static constexpr int TN = (REV || EMB || M > 4) ? 64 : 128;  // columns per product tile
+    static constexpr int NACC = TN / 2;                     // accumulators per slab
+    static constexpr int STAGES = (REV && EMB) ? 3 : 4;     // ring stages
 };
 
 struct Layout {
@@ -101,19 +114,19 @@ struct Layout {
 __host__ __device__ constexpr int round_up(int x, int to) { return (x + to - 1) / to * to; }
 
 // Shared memory, from a 1024-byte aligned base: the resident row operands
-// (uq, then uv under rev: kch chunks of [BM][128] each; then ue [BM][16]
-// bf16), the ring's stages (vv chunk [TN][128], vq chunk, ve [TN][16]
-// bf16), then the mbarriers.
-template <bool REV, bool EMB>
-__host__ __device__ Layout layout(int kch) {
-    using S = Shape<REV, EMB>;
+// (uq, then uv under rev: kch chunks of [BM][128] each; then ue, ek
+// chunks of [BM][16] bf16), the ring's stages (vv chunk [TN][128], vq
+// chunk, ve as ek chunks of [TN][16] bf16), then the mbarriers.
+template <int M, bool REV, bool EMB, bool WIDE>
+__host__ __device__ Layout layout(int kch, int ek) {
+    using S = Shape<M, REV, EMB, WIDE>;
     Layout L{};
     const int a_op = kch * S::BM * KC;
     L.uv = a_op;
     L.ue = a_op * (REV ? 2 : 1);
-    L.stages = round_up(L.ue + (EMB ? S::BM * EW * 2 : 0), 1024);
+    L.stages = round_up(L.ue + (EMB ? ek * S::BM * EC * 2 : 0), 1024);
     L.ve = S::TN * KC * (REV ? 2 : 1);
-    L.stage_bytes = round_up(L.ve + (EMB ? S::TN * EW * 2 : 0), 1024);
+    L.stage_bytes = round_up(L.ve + (EMB ? ek * S::TN * EC * 2 : 0), 1024);
     L.bars = L.stages + S::STAGES * L.stage_bytes;
     L.total = L.bars + (2 * S::STAGES + 2) * 8 + 1024;  // + slack to align the base
     return L;
@@ -129,8 +142,10 @@ struct Params {
     int a;          // rows
     int n_blocks;   // selection blocks (n / bn)
     int bn;         // selection block width
+    int m;          // words written per row and block (<= M)
     int kch;        // K chunks
     int last_ks;    // k32 steps in the last chunk
+    int ek;         // embedding k16 chunks (0 without embeddings)
     int f_int;      // F: a pair is eligible when its count is >= F
     int rt_count;   // row tiles
     int splits;     // selection-block ranges per row tile
@@ -292,18 +307,18 @@ __device__ __forceinline__ void insert(int (&b)[M], int w) {
 }
 
 // Shared-memory addresses of one chunk's products for one warpgroup: its
-// first row slab in the resident operands, the stage, the embedding rows.
+// first row slab in the resident operands, the stage.
 struct ChunkAddr {
-    uint32_t a, uv_off, st, vq_off, ue, ve;
+    uint32_t a, uv_off, st, vq_off;
     int kc;
 };
 
-// NKS k32 steps of a chunk, and the embedding product when WITH_EMB, as
-// straight-line code, so that the chunk is a single commit group: a branch
-// between wgmmas makes the compiler close the group and fence (C7519).
-template <int NKS, bool WITH_EMB, bool REV, int S, int N, int RS, int RN, int ES, int EN>
+// NKS k32 steps of a chunk as straight-line code, so that the chunk is a
+// single commit group: a branch between wgmmas makes the compiler close
+// the group and fence (C7519).
+template <int NKS, bool REV, int S, int N, int RS, int RN>
 __device__ __forceinline__ void issue_chunk(const ChunkAddr& ad, int (&acc)[S][N],
-                                            int (&accr)[RS][RN], float (&acce)[ES][EN]) {
+                                            int (&accr)[RS][RN]) {
     wg_fence();
     if (STAGE1_EXP != 2) {
 #pragma unroll
@@ -319,35 +334,61 @@ __device__ __forceinline__ void issue_chunk(const ChunkAddr& ad, int (&acc)[S][N
                              desc_sw128(ad.st + ad.vq_off + ks * 32), scale);
             }
         }
-        if constexpr (WITH_EMB) {
-#pragma unroll
-            for (int s = 0; s < ES; ++s)
-                wgmma_bf16(acce[s], desc_sw32(ad.ue + s * 64 * EW * 2), desc_sw32(ad.ve), 0);
-        }
     }
     wg_commit();
 }
 
-template <bool WITH_EMB, bool REV, int S, int N, int RS, int RN, int ES, int EN>
+template <bool REV, int S, int N, int RS, int RN>
 __device__ __forceinline__ void issue_n(int nks, const ChunkAddr& ad, int (&acc)[S][N],
-                                        int (&accr)[RS][RN], float (&acce)[ES][EN]) {
+                                        int (&accr)[RS][RN]) {
     switch (nks) {
-        case 4: issue_chunk<4, WITH_EMB, REV>(ad, acc, accr, acce); break;
-        case 3: issue_chunk<3, WITH_EMB, REV>(ad, acc, accr, acce); break;
-        case 2: issue_chunk<2, WITH_EMB, REV>(ad, acc, accr, acce); break;
-        default: issue_chunk<1, WITH_EMB, REV>(ad, acc, accr, acce); break;
+        case 4: issue_chunk<4, REV>(ad, acc, accr); break;
+        case 3: issue_chunk<3, REV>(ad, acc, accr); break;
+        case 2: issue_chunk<2, REV>(ad, acc, accr); break;
+        default: issue_chunk<1, REV>(ad, acc, accr); break;
+    }
+}
+
+// The embedding product of one column tile, EK k16 steps into fp32, as one
+// commit group. `ue` is this warpgroup's first slab in the first k16 chunk
+// of the resident rows, `ve` the stage's first chunk; chunks lie `ue_step`
+// and `ve_step` bytes apart.
+template <int EK, int S, int N>
+__device__ __forceinline__ void issue_emb(uint32_t ue, uint32_t ue_step, uint32_t ve,
+                                          uint32_t ve_step, float (&acce)[S][N]) {
+    wg_fence();
+    if (STAGE1_EXP != 2) {
+#pragma unroll
+        for (int c = 0; c < EK; ++c)
+#pragma unroll
+            for (int s = 0; s < S; ++s)
+                wgmma_bf16(acce[s], desc_sw32(ue + c * ue_step + s * 64 * EC * 2),
+                           desc_sw32(ve + c * ve_step), c > 0);
+    }
+    wg_commit();
+}
+
+template <int S, int N>
+__device__ __forceinline__ void issue_emb_n(int ek, uint32_t ue, uint32_t ue_step, uint32_t ve,
+                                            uint32_t ve_step, float (&acce)[S][N]) {
+    switch (ek) {
+        case 4: issue_emb<4>(ue, ue_step, ve, ve_step, acce); break;
+        case 3: issue_emb<3>(ue, ue_step, ve, ve_step, acce); break;
+        case 2: issue_emb<2>(ue, ue_step, ve, ve_step, acce); break;
+        default: issue_emb<1>(ue, ue_step, ve, ve_step, acce); break;
     }
 }
 
 // ----------------------------------------------------------------- kernel
 
-template <int M, bool REV, bool EMB>
-__global__ void __launch_bounds__(NT, 1) stage1_wgmma_kernel(const __grid_constant__ Params p) {
-    using S = Shape<REV, EMB>;
-    constexpr int SLABS = S::SLABS, BM = S::BM, TN = S::TN, STAGES = S::STAGES;
-    constexpr int NACC = S::NACC;
+template <int M, bool REV, bool EMB, bool WIDE>
+__global__ void __launch_bounds__((Shape<M, REV, EMB, WIDE>::NT), 1)
+stage1_wgmma_kernel(const __grid_constant__ Params p) {
+    using S = Shape<M, REV, EMB, WIDE>;
+    constexpr int NCW = S::NCW, SLABS = S::SLABS, BM = S::BM, TN = S::TN;
+    constexpr int NACC = S::NACC, STAGES = S::STAGES;
     extern __shared__ uint8_t smem_raw[];
-    const Layout L = layout<REV, EMB>(p.kch);
+    const Layout L = layout<M, REV, EMB, WIDE>(p.kch, p.ek);
     const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
     const uint32_t full0 = base + L.bars;             // full[s]  at full0 + 8 s
     const uint32_t empty0 = full0 + 8 * STAGES;       // empty[s] at empty0 + 8 s
@@ -373,11 +414,11 @@ __global__ void __launch_bounds__(NT, 1) stage1_wgmma_kernel(const __grid_consta
     if (warp >= NCW * 4) {
         // ------------------------------------------- producer warpgroup
         // Registers go to the consumers; one thread issues every load.
-        asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+        if constexpr (NCW == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
         if (warp != NCW * 4 || lane != 0) return;
-        const uint32_t a_tx = (REV ? 2 : 1) * p.kch * a_chunk + (EMB ? BM * EW * 2 : 0);
+        const uint32_t a_tx = (REV ? 2 : 1) * p.kch * a_chunk + (EMB ? p.ek * BM * EC * 2 : 0);
         const uint32_t b_tx = TN * KC * (REV ? 2 : 1);
-        const uint32_t b_tx0 = b_tx + (EMB ? TN * EW * 2 : 0);
+        const uint32_t b_tx0 = b_tx + (EMB ? p.ek * TN * EC * 2 : 0);
         int stage = 0, phase = 0, n_a = 0;
         for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
             const int rt = item % p.rt_count;
@@ -391,7 +432,9 @@ __global__ void __launch_bounds__(NT, 1) stage1_wgmma_kernel(const __grid_consta
                 tma_load_2d(base + kc * a_chunk, &p.tm_uq, a_full, kc * KC, rt * BM);
                 if (REV) tma_load_2d(base + L.uv + kc * a_chunk, &p.tm_uv, a_full, kc * KC, rt * BM);
             }
-            if (EMB) tma_load_2d(base + L.ue, &p.tm_ue, a_full, 0, rt * BM);
+            if (EMB)
+                for (int c = 0; c < p.ek; ++c)
+                    tma_load_2d(base + L.ue + c * BM * EC * 2, &p.tm_ue, a_full, c * EC, rt * BM);
             for (int j = j0; j < j1; ++j) {
                 for (int c = 0; c < col_tiles; ++c) {
                     const int col0 = j * p.bn + c * TN;
@@ -402,7 +445,9 @@ __global__ void __launch_bounds__(NT, 1) stage1_wgmma_kernel(const __grid_consta
                         mbar_expect_tx(full, kc == 0 ? b_tx0 : b_tx);
                         tma_load_2d(st, &p.tm_vv, full, kc * KC, col0);
                         if (REV) tma_load_2d(st + TN * KC, &p.tm_vq, full, kc * KC, col0);
-                        if (EMB && kc == 0) tma_load_2d(st + L.ve, &p.tm_ve, full, 0, col0);
+                        if (EMB && kc == 0)
+                            for (int c = 0; c < p.ek; ++c)
+                                tma_load_2d(st + L.ve + c * TN * EC * 2, &p.tm_ve, full, c * EC, col0);
                         if (++stage == STAGES) { stage = 0; phase ^= 1; }
                     }
                 }
@@ -412,12 +457,13 @@ __global__ void __launch_bounds__(NT, 1) stage1_wgmma_kernel(const __grid_consta
     }
 
     // ------------------------------------------- consumer warpgroups
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    if constexpr (NCW == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
     const int wg = threadIdx.x / 128;
     const int q = lane % 4;
     // Row (within the tile) of this thread's first accumulator row, slab 0.
     const int rbase = wg * 64 * SLABS + (warp % 4) * 16 + lane / 4;
-    const int out_w = p.n_blocks * M;
+    const int mw = M <= 2 ? M : p.m;  // words written a block: m == M below 3
+    const int out_w = p.n_blocks * mw;
 
     int acc[SLABS][NACC];
     int accr[REV ? SLABS : 1][REV ? NACC : 1];
@@ -481,14 +527,16 @@ __global__ void __launch_bounds__(NT, 1) stage1_wgmma_kernel(const __grid_consta
                     mbar_wait(full0 + 8 * stage, phase);
                     const int nks = kc + 1 < p.kch ? KC / 32 : p.last_ks;
                     const ChunkAddr ad{base + kc * a_chunk + wg * SLABS * 64 * KC, (uint32_t)L.uv,
-                                       st, (uint32_t)(TN * KC),
-                                       base + L.ue + wg * SLABS * 64 * EW * 2, st + L.ve, kc};
-                    if (EMB && kc == 0)
-                        issue_n<EMB, REV>(nks, ad, acc, accr, acce);
-                    else
-                        issue_n<false, REV>(nks, ad, acc, accr, acce);
+                                       st, (uint32_t)(TN * KC), kc};
+                    if constexpr (EMB)
+                        if (kc == 0)
+                            issue_emb_n(p.ek, base + L.ue + wg * SLABS * 64 * EC * 2, BM * EC * 2,
+                                        st + L.ve, TN * EC * 2, acce);
+                    issue_n<REV>(nks, ad, acc, accr);
                     if (kc > 0) {
-                        wg_wait<1>();  // the previous chunk's wgmmas are done
+                        // The previous chunk's wgmmas (and the embedding
+                        // product, issued before chunk 0) are done.
+                        wg_wait<1>();
                         if (lane == 0) mbar_arrive(empty0 + 8 * prev);
                     }
                     prev = stage;
@@ -557,9 +605,10 @@ __global__ void __launch_bounds__(NT, 1) stage1_wgmma_kernel(const __grid_consta
                     }
                     const int row = row0 + rbase + s * 64 + 8 * h;
                     if (q == 0 && row < p.a) {
-                        int32_t* dst = p.out + (size_t)row * out_w + (size_t)j * M;
+                        int32_t* dst = p.out + (size_t)row * out_w + (size_t)j * mw;
 #pragma unroll
-                        for (int t = 0; t < M; ++t) dst[t] = best[s][h][t];
+                        for (int t = 0; t < M; ++t)
+                            if (t < mw) dst[t] = best[s][h][t];
                     }
                 }
         }
@@ -609,12 +658,12 @@ constexpr int ERR_SHAPE = 100002;
 
 struct Operands {
     const void *uq, *vv, *uv, *vq, *ue, *ve;
-    int a, n, dp;
+    int a, n, dp, ep;
 };
 
-template <int M, bool REV, bool EMB>
+template <int M, bool REV, bool EMB, bool WIDE>
 int launch(Params& p, const Operands& o, cudaStream_t stream) {
-    using S = Shape<REV, EMB>;
+    using S = Shape<M, REV, EMB, WIDE>;
     const CUtensorMapDataType u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
     const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
     const CUtensorMapSwizzle sw128 = CU_TENSOR_MAP_SWIZZLE_128B;
@@ -625,11 +674,11 @@ int launch(Params& p, const Operands& o, cudaStream_t stream) {
         ok = ok && make_map(&p.tm_uv, o.uv, u8, 1, o.dp, o.a, o.dp, KC, S::BM, sw128) &&
              make_map(&p.tm_vq, o.vq, u8, 1, o.dp, o.n, o.dp, KC, S::TN, sw128);
     if (EMB)
-        ok = ok && make_map(&p.tm_ue, o.ue, bf, 2, EW, o.a, EW, EW, S::BM, sw32) &&
-             make_map(&p.tm_ve, o.ve, bf, 2, EW, o.n, EW, EW, S::TN, sw32);
+        ok = ok && make_map(&p.tm_ue, o.ue, bf, 2, o.ep, o.a, o.ep, EC, S::BM, sw32) &&
+             make_map(&p.tm_ve, o.ve, bf, 2, o.ep, o.n, o.ep, EC, S::TN, sw32);
     if (!ok) return ERR_TENSOR_MAP;
     if (p.bn % S::TN != 0) return ERR_SHAPE;
-    const Layout L = layout<REV, EMB>(p.kch);
+    const Layout L = layout<M, REV, EMB, WIDE>(p.kch, p.ek);
     if (L.total > SMEM_MAX) return ERR_SHAPE;
 
     int dev = 0, sms = 0;
@@ -643,40 +692,50 @@ int launch(Params& p, const Operands& o, cudaStream_t stream) {
     p.items = p.rt_count * p.splits;
     const int grid = min(sms, p.items);
 
-    auto kernel = stage1_wgmma_kernel<M, REV, EMB>;
+    auto kernel = stage1_wgmma_kernel<M, REV, EMB, WIDE>;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<grid, NT, L.total, stream>>>(p);
+    kernel<<<grid, S::NT, L.total, stream>>>(p);
     return (int)cudaGetLastError();
 }
 
+// The full row tile where it fits beside the ring, else the half tile
+// (D > 640, or a wide embedding).
+template <int M, bool REV, bool EMB>
+int launch_tile(Params& p, const Operands& o, cudaStream_t stream) {
+    if (layout<M, REV, EMB, false>(p.kch, p.ek).total <= SMEM_MAX)
+        return launch<M, REV, EMB, false>(p, o, stream);
+    return launch<M, REV, EMB, true>(p, o, stream);
+}
+
+// The instantiation keeps the top M >= m (a power of two) and writes m.
 template <bool REV, bool EMB>
-int launch_m(int m, Params& p, const Operands& o, cudaStream_t stream) {
-    switch (m) {
-        case 1: return launch<1, REV, EMB>(p, o, stream);
-        case 2: return launch<2, REV, EMB>(p, o, stream);
-        case 3: return launch<3, REV, EMB>(p, o, stream);
-        case 4: return launch<4, REV, EMB>(p, o, stream);
-        default: return ERR_SHAPE;
-    }
+int launch_m(Params& p, const Operands& o, cudaStream_t stream) {
+    if (p.m == 1) return launch_tile<1, REV, EMB>(p, o, stream);
+    if (p.m == 2) return launch_tile<2, REV, EMB>(p, o, stream);
+    if (p.m <= 4) return launch_tile<4, REV, EMB>(p, o, stream);
+    if (p.m <= 8) return launch_tile<8, REV, EMB>(p, o, stream);
+    return ERR_SHAPE;
 }
 
 }  // namespace
 
 // Launch on `stream`; returns 0, a CUDA error code, or ERR_* above.
 // Shapes: uq8/uv8 [a, dp], vv8/vq8 [n, dp] int8 holding 0/1, zero past
-// column d (dp = d rounded up to 16, d <= 640); ue [a, 16], ve [n, 16]
-// bf16; col_mix/col_gidx [n], row_mix/row_slot [a] int32, col_gidx in
-// [0, 2^18); out [a, (n / bn) * m] int32. Requires 1 <= m <= 4, n % bn == 0,
+// column d (dp = d rounded up to 16, d <= 1024); ue [a, ep], ve [n, ep]
+// bf16 (ep = E rounded up to 16, ep <= 64); col_mix/col_gidx [n],
+// row_mix/row_slot [a] int32, col_gidx in [0, 2^18); out
+// [a, (n / bn) * m] int32. Requires 1 <= m <= 8, n % bn == 0,
 // bn % 128 == 0; base pointers 16-byte aligned.
 extern "C" int stage1_wgmma_launch(
     const void* uq8, const void* vv8, const void* uv8, const void* vq8,
     const void* ue, const void* ve, const void* col_mix, const void* col_gidx,
     const void* row_mix, const void* row_slot, void* out, int a, int n, int dp,
-    int d, int bn, int m, int f_int, float emb_scale, int rev, int with_emb,
+    int d, int ep, int bn, int m, int f_int, float emb_scale, int rev, int with_emb,
     void* stream) {
     if (a <= 0 || n <= 0 || d <= 0 || d > KCH_MAX * KC || dp % 16 != 0 || dp < d ||
-        bn <= 0 || bn % 128 != 0 || n % bn != 0)
+        bn <= 0 || bn % 128 != 0 || n % bn != 0 || m < 1 || m > 8 ||
+        (with_emb && (ep <= 0 || ep % EC != 0 || ep > EK_MAX * EC)))
         return ERR_SHAPE;
     Params p;
     p.col_mix = static_cast<const int32_t*>(col_mix);
@@ -687,14 +746,16 @@ extern "C" int stage1_wgmma_launch(
     p.a = a;
     p.n_blocks = n / bn;
     p.bn = bn;
+    p.m = m;
     p.kch = (d + KC - 1) / KC;
     p.last_ks = (d - (p.kch - 1) * KC + 31) / 32;
+    p.ek = with_emb ? ep / EC : 0;
     p.f_int = f_int;
     p.emb_scale = emb_scale;
-    const Operands o{uq8, vv8, uv8, vq8, ue, ve, a, n, dp};
+    const Operands o{uq8, vv8, uv8, vq8, ue, ve, a, n, dp, ep};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (rev && with_emb) return launch_m<true, true>(m, p, o, s);
-    if (rev) return launch_m<true, false>(m, p, o, s);
-    if (with_emb) return launch_m<false, true>(m, p, o, s);
-    return launch_m<false, false>(m, p, o, s);
+    if (rev && with_emb) return launch_m<true, true>(p, o, s);
+    if (rev) return launch_m<true, false>(p, o, s);
+    if (with_emb) return launch_m<false, true>(p, o, s);
+    return launch_m<false, false>(p, o, s);
 }

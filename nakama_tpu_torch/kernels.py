@@ -69,11 +69,12 @@ LEX_RANKS = Kernel(
     replaces="nakama_tpu/leaderboard/tpu.py:67",
 )
 KERNELS = [STAGE1, STAGE1_WGMMA, LEX_RANKS]
-# What stage1_wgmma.cu takes: winners per block, operand width (resident
-# row tile of 5 128-byte chunks), embedding width (one bf16 k16 step).
-WGMMA_MAX_M = 4
-WGMMA_MAX_D = 640
-WGMMA_MAX_E = 16
+# What stage1_wgmma.cu takes: winners per block (a running top-8),
+# operand width (8 128-byte chunks; above 5 the row tile halves), and
+# embedding width (4 bf16 k16 steps).
+WGMMA_MAX_M = 8
+WGMMA_MAX_D = 1024
+WGMMA_MAX_E = 64
 _lock = threading.Lock()
 
 
@@ -158,7 +159,7 @@ def _bind(kernel: Kernel, lib: ctypes.CDLL) -> None:
         f.restype = ctypes.c_int
         f.argtypes = (
             [ctypes.c_void_p] * 11
-            + [ctypes.c_int] * 7
+            + [ctypes.c_int] * 8
             + [ctypes.c_float]
             + [ctypes.c_int] * 2
             + [ctypes.c_void_p]
@@ -297,8 +298,9 @@ def stage1_wgmma(
 ) -> torch.Tensor:
     """Launch the Hopper stage-1 kernel (csrc/stage1_wgmma.cu) on CUDA
     tensors. Same arguments and result as `stage1`; the 0/1 operands are
-    converted to int8 here (inside the call's time). Takes 1 <= m <= 4,
-    D <= 640, E <= 16, bn % 128 == 0, n % bn == 0, any row count, and
+    converted to int8 here (inside the call's time), the embeddings
+    zero-padded to a multiple of 16 columns. Takes 1 <= m <= 8,
+    D <= 1024, E <= 64, bn % 128 == 0, n % bn == 0, any row count, and
     col_gidx in [0, 2^18)."""
     a_pad, n, d, rev, with_emb = _check_stage1(
         uq, vv, col_mix, col_gidx, row_mix, row_slot, ue, ve, uv, vq
@@ -321,8 +323,9 @@ def stage1_wgmma(
     ops = {"uq": int8_operand(uq, dp), "vv": int8_operand(vv, dp)}
     if rev:
         ops["uv"], ops["vq"] = int8_operand(uv, dp), int8_operand(vq, dp)
+    ep = _round16(e)
     if with_emb:
-        ops["ue"], ops["ve"] = _padded(ue, WGMMA_MAX_E), _padded(ve, WGMMA_MAX_E)
+        ops["ue"], ops["ve"] = _padded(ue, ep), _padded(ve, ep)
 
     def ptr(name):
         t = ops.get(name)
@@ -335,7 +338,7 @@ def stage1_wgmma(
             ptr("uq"), ptr("vv"), ptr("uv"), ptr("vq"), ptr("ue"), ptr("ve"),
             col_mix.data_ptr(), col_gidx.data_ptr(), row_mix.data_ptr(),
             row_slot.data_ptr(), out.data_ptr(),
-            a_pad, n, dp, d, bn, m, math.ceil(f_tot - 0.5), emb_scale,
+            a_pad, n, dp, d, ep, bn, m, math.ceil(f_tot - 0.5), emb_scale,
             int(rev), int(with_emb), stream,
         )
     if rc != 0:
@@ -349,8 +352,9 @@ def lex_ranks(
 ) -> torch.Tensor:
     """Launch csrc/lex_ranks.cu on CUDA tensors: for each query key of q
     (int32 [Q, 3]) the count of rows of sorted_keys (int32 [C, 3],
-    lexicographically ascending) below it, by a binary search of at most
-    `n_iters` steps. Returns int32 [Q]."""
+    lexicographically ascending) below it, by a 33-ary search (a warp a
+    query) of at most `n_iters` steps; a depth that suffices for a
+    binary search suffices. Returns int32 [Q]."""
     dev = sorted_keys.device
     if dev.type != "cuda":
         raise ValueError(f"lex_ranks kernel needs CUDA tensors, got {dev}")

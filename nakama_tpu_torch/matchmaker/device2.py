@@ -4,7 +4,7 @@ Port of the JAX package's `matchmaker/device2.py` (reference hot loop
 replaced: server/matchmaker_process.go:27-334).
 
 Stage 1 (`stage1`, hand-written CUDA kernels: csrc/stage1_wgmma.cu for
-m <= 4 winners per block, csrc/stage1.cu for the rest): eligibility
+m <= 8 winners per block, csrc/stage1.cu for the rest): eligibility
 as a matrix product. Every ticket's properties are encoded into a bucketed
 0/1 vector v (one-hot value buckets per numeric field from a per-field
 grid, hashed buckets per string field, a pool-id plane); every query into
@@ -209,10 +209,12 @@ def stage1_plain(
 def stage1_route(m: int, d: int, e: int = 0) -> kernels.Kernel:
     """The CUDA kernel that takes a stage-1 call with m winners per block,
     operand width d and embedding width e (0 without embeddings):
-    csrc/stage1_wgmma.cu when m <= 4, d <= 640 and e <= 16 — every call of
-    the main path at the default widths (D = 520, E = 16, and >= 32
-    selection blocks give m <= 4); csrc/stage1.cu otherwise (small pools
-    with few blocks, where m = ceil(2k / n_blocks) is large)."""
+    csrc/stage1_wgmma.cu when m <= 8, d <= 1024 and e <= 64 — every call
+    of the main path at the default widths (D = 520, E = 16, and >= 32
+    selection blocks give m <= 4) and the wide configurations (k = 128
+    at >= 32 blocks, 48 numeric and up to 31 string fields, embeddings
+    up to 64 wide); csrc/stage1.cu otherwise (pools of few blocks below
+    a lowered big_pool_threshold, where m = ceil(2k / n_blocks) > 8)."""
     if (
         m <= kernels.WGMMA_MAX_M and d <= kernels.WGMMA_MAX_D
         and e <= kernels.WGMMA_MAX_E
@@ -227,8 +229,8 @@ def stage1(
     ue=None, ve=None, uv=None, vq=None,
 ):
     """Stage-1 prefilter: runs `stage1_plain` for CPU tensors; for CUDA
-    tensors launches the kernel `stage1_route` names (by shape: m <= 4,
-    D <= 640, E <= 16 → the Hopper wgmma kernel, else the first kernel),
+    tensors launches the kernel `stage1_route` names (by shape: m <= 8,
+    D <= 1024, E <= 64 → the Hopper wgmma kernel, else the first kernel),
     with no fallback. Same contract as `stage1_plain`."""
     if uq.device.type == "cpu":
         return stage1_plain(

@@ -21,10 +21,13 @@ from nakama_tpu_torch.matchmaker import device2 as td2
 COL_BITS = 18
 
 
-def stage1_inputs(seed, n, with_emb, rev, rows=64, fn=8, fs=8):
+def stage1_inputs(seed, n, with_emb, rev, rows=64, fn=8, fs=8, e=16, tight=0.5):
     """0/1 operands shaped like the encoders' output (one-hot values per
-    field plane, interval masks per query plane) so a good share of pairs
-    is eligible; jitter hashes and embeddings from the same seed."""
+    field plane, interval masks per query plane, each bound of a mask
+    pulled in by one value with probability `tight`) so a good share of
+    pairs is eligible; jitter hashes and `e`-wide embeddings from the
+    same seed. Wide layouts (64 and more fields) need a lower `tight`
+    for pairs to pass every field."""
     rng = np.random.default_rng(seed)
     planes = [16] * fn + [8] * fs + [8]
     d = sum(planes)
@@ -42,8 +45,8 @@ def stage1_inputs(seed, n, with_emb, rev, rows=64, fn=8, fs=8):
         off = 0
         idx = np.arange(max(planes))
         for w in planes:
-            lo = rng.integers(0, 2, count)[:, None]
-            hi = w - 1 - rng.integers(0, 2, count)[:, None]
+            lo = (rng.random(count) < tight)[:, None].astype(np.int64)
+            hi = w - 1 - (rng.random(count) < tight)[:, None]
             u[:, off : off + w] = (idx[:w] >= lo) & (idx[:w] <= hi)
             off += w
         return u
@@ -59,8 +62,8 @@ def stage1_inputs(seed, n, with_emb, rev, rows=64, fn=8, fs=8):
     }
     inp["uq"][rows - 4 :] = 0  # padding rows
     if with_emb:
-        inp["ue"] = (rng.standard_normal((rows, 16)) * 0.5).astype(np.float32)
-        inp["ve"] = (rng.standard_normal((n, 16)) * 0.5).astype(np.float32)
+        inp["ue"] = (rng.standard_normal((rows, e)) * 0.5).astype(np.float32)
+        inp["ve"] = (rng.standard_normal((n, e)) * 0.5).astype(np.float32)
     if rev:
         inp["uv"] = inp["vv"][inp["row_slot"]]
         inp["vq"] = queries(n)
@@ -89,7 +92,7 @@ def assert_winners_match(got, want, with_emb):
     return int((got != want).sum())
 
 
-def _hold_on_card(launch, cases, fn=24, fs=16, k=64):
+def _hold_on_card(launch, cases, fn=24, fs=16, k=64, e=16, tight=0.5):
     """Each (n_blocks, bn, rows) case, every flag pair, through `launch`
     against the plain version on the card. Returns the cases run."""
     runs = 0
@@ -99,7 +102,7 @@ def _hold_on_card(launch, cases, fn=24, fs=16, k=64):
             for rev in (False, True):
                 inp = stage1_inputs(
                     n_blocks + 2 * with_emb + rev, n_blocks * bn, with_emb,
-                    rev, rows=rows, fn=fn, fs=fs,
+                    rev, rows=rows, fn=fn, fs=fs, e=e, tight=tight,
                 )
                 args = torch_args(inp, "cuda")
                 want = td2.stage1_plain(
@@ -137,7 +140,10 @@ def test_stage1_wgmma_kernel_matches_plain_on_card():
     """The Hopper kernel (csrc/stage1_wgmma.cu) against the plain version
     on the card, through the routing of device2.stage1: m = 1 and 2 at
     bn = 1024, m = 4 and 3 at bn = 256 (32 and 43 blocks) on a row count
-    that is not a multiple of its row tile; m = 2k on one block goes to
+    that is not a multiple of its row tile; the wide route: m = 5 and 8
+    at bn = 1024 (26 and 16 blocks), 32-wide embeddings, D = 776
+    (fn = fs = 32: the half row tile) and D = 1008 with 64-wide
+    embeddings at m = 8 (fn = 48, fs = 29); m = 2k on one block goes to
     the first kernel. Every flag pair; launch counts of each kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -151,9 +157,15 @@ def test_stage1_wgmma_kernel_matches_plain_on_card():
     runs = _hold_on_card(
         routed, [(128, 1024, 256), (112, 1024, 256), (32, 256, 200), (43, 256, 200)]
     )
+    runs += _hold_on_card(routed, [(26, 1024, 200), (16, 1024, 256)])
+    runs += _hold_on_card(routed, [(112, 1024, 256)], e=32)
+    runs += _hold_on_card(routed, [(16, 1024, 200)], fn=32, fs=32, tight=0.1)
+    runs += _hold_on_card(
+        routed, [(16, 1024, 200)], fn=48, fs=29, e=64, tight=0.05
+    )
     runs_first = _hold_on_card(routed, [(1, 1024, 256)])
     after = {k.name: k.launches for k in kernels.KERNELS}
-    assert after["stage1_wgmma"] - before["stage1_wgmma"] == runs == 16
+    assert after["stage1_wgmma"] - before["stage1_wgmma"] == runs == 36
     assert after["stage1"] - before["stage1"] == runs_first == 4
 
 
@@ -432,3 +444,63 @@ def test_rank_engine_on_the_card_matches_the_oracle():
         assert engine.get_many("b", 0.0, batch) == oracle.get_many("b", 0.0, batch)
     assert kernels.LEX_RANKS.launches == before + 1 and engine.fallbacks == 0
     assert engine.breaker.state == "closed" and engine.breaker.failures == 0
+
+
+def _lex_board(rng, c, pad):
+    """[C, 3] int32 keys in lexicographic order with ties in each column
+    (and whole-key ties), `pad` PAD_KEY rows at the tail."""
+    from nakama_tpu_torch.leaderboard import cuda as b8
+
+    live = c - pad
+    keys = np.stack([rng.integers(-20, 20, live), rng.integers(0, 3, live),
+                     rng.integers(0, 4, live)], axis=1).astype(np.int32)
+    keys = keys[np.lexsort((keys[:, 2], keys[:, 1], keys[:, 0]))]
+    return np.concatenate([keys, np.full((pad, 3), b8.PAD_KEY, np.int32)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [0, 1, 31, 33, 2**20 + 7])
+@pytest.mark.parametrize("n_q", [1, 1024])
+@pytest.mark.parametrize("pad", [False, True])
+def test_lex_ranks_kernel_is_exact_bisect_left_on_card(c, n_q, pad):
+    """csrc/lex_ranks.cu (a warp a query, 33-ary search) against the plain
+    version on the card and a numpy bisect_left, bit for bit: ties in
+    every column, PAD_KEY tails, C not a multiple of the warp, C of 0
+    and 1, one query and 1,024, queries present, absent, below every
+    key and above every live key (PAD_KEY itself on padded boards)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from nakama_tpu_torch import kernels
+    from nakama_tpu_torch.leaderboard import cuda as b8
+
+    dev = torch.device("cuda:0")
+    rng = np.random.default_rng(c + n_q + pad)
+    n_pad = c // 4 if pad else 0
+    keys = _lex_board(rng, c, n_pad)
+    extremes = np.array([[-(2**31), -(2**31), -(2**31)], [-21, 0, 0],
+                         [20, 0, 0], [19, 2, 4],
+                         [b8.PAD_KEY] * 3, [b8.PAD_KEY, b8.PAD_KEY, 0]], np.int32)
+    if n_q == 1:
+        q = extremes[[2]]  # above every live key
+    else:
+        half = (n_q - len(extremes)) // 2
+        present = keys[rng.integers(0, c, half)] if c else extremes[[0] * half]
+        rest = n_q - len(extremes) - half
+        q = np.concatenate([extremes, present, np.stack(
+            [rng.integers(-22, 22, rest), rng.integers(-1, 4, rest),
+             rng.integers(-1, 5, rest)], axis=1).astype(np.int32)])
+    want = np.searchsorted(
+        keys.view([("k0", "<i4"), ("k1", "<i4"), ("k2", "<i4")]).ravel(),
+        q.view([("k0", "<i4"), ("k1", "<i4"), ("k2", "<i4")]).ravel(),
+        side="left",
+    ) if c else np.zeros(len(q), np.int64)
+    keys_d = torch.from_numpy(keys).to(dev)
+    q_d = torch.from_numpy(np.ascontiguousarray(q)).to(dev)
+    iters = b8.n_search_iters(c)
+    before = kernels.LEX_RANKS.launches
+    got = kernels.lex_ranks(keys_d, q_d, iters)
+    torch.cuda.synchronize()
+    assert kernels.LEX_RANKS.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    if c:
+        assert torch.equal(got, b8.lex_ranks_plain(keys_d, q_d, iters))

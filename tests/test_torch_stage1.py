@@ -2,12 +2,12 @@
 
 The same numpy-seeded inputs go through the JAX Pallas kernel (interpret
 mode on the CPU, as the JAX package's own tests run it) and through the
-port's plain version `stage1_plain` — the function the CUDA kernel in
-`nakama_tpu_torch/csrc/stage1.cu` is held against on the card. Without
-embeddings the packed winners must be identical; with embeddings a word
-may differ only where the float embedding bump rounds across an integer
-(priority within 1), since the two frameworks sum the 16-term dot product
-in different orders.
+port's plain version `stage1_plain` — the function both CUDA kernels
+(`nakama_tpu_torch/csrc/stage1_wgmma.cu`, `csrc/stage1.cu`) are held
+against on the card. Without embeddings the packed winners must be
+identical; with embeddings a word may differ only where the float
+embedding bump rounds across an integer (priority within 1), since the
+two frameworks sum the E-term dot product in different orders.
 """
 
 import numpy as np
@@ -36,7 +36,7 @@ BN = 64
 A = 64
 
 
-def jax_stage1(inp, m, with_emb, rev):
+def jax_stage1(inp, m, with_emb, rev, fn=FN, fs=FS):
     bf = jnp.bfloat16
     n = inp["vv"].shape[0]
     a = inp["uq"].shape[0]
@@ -54,23 +54,36 @@ def jax_stage1(inp, m, with_emb, rev):
         jnp.asarray(inp["row_mix"])[:, None],
         jnp.asarray(inp["row_slot"])[:, None],
         opt("ue", a), opt("ve", n), opt("uv", a), opt("vq", n),
-        fn=FN, fs=FS, m=m, bm=a, bn=BN, with_embedding=with_emb, rev=rev,
+        fn=fn, fs=fs, m=m, bm=a, bn=BN, with_embedding=with_emb, rev=rev,
         emb_scale=256.0, interpret=True,
     )
     return np.asarray(out)[:, : (n // BN) * m]
 
 
-# m = ceil(2k / n_blocks): 1 at 16 blocks, 2 at 8 blocks, 2k at one block.
-@pytest.mark.parametrize("n_blocks,m", [(16, 1), (8, 2), (1, 2 * K)])
+# m = ceil(2k / n_blocks): 1 at 16 blocks, 2 at 8 blocks, 2k at one block;
+# the Hopper kernel's wide route: m = 5 (k = 10 at 4 blocks), m = 8 (k = 8
+# at 2 blocks), 32-wide embeddings, D = 776 > 640 (fn = fs = 32).
+@pytest.mark.parametrize("n_blocks,m,k,e,fn,fs,tight", [
+    pytest.param(16, 1, K, 16, FN, FS, 0.5, id="16-1"),
+    pytest.param(8, 2, K, 16, FN, FS, 0.5, id="8-2"),
+    pytest.param(1, 2 * K, K, 16, FN, FS, 0.5, id="1-16"),
+    pytest.param(4, 5, 10, 16, FN, FS, 0.5, id="4-5-k10"),
+    pytest.param(2, 8, K, 16, FN, FS, 0.5, id="2-8"),
+    pytest.param(8, 2, K, 32, FN, FS, 0.5, id="8-2-e32"),
+    pytest.param(2, 8, K, 16, 32, 32, 0.1, id="2-8-d776"),
+])
 @pytest.mark.parametrize("with_emb", [False, True])
 @pytest.mark.parametrize("rev", [False, True])
-def test_stage1_plain_matches_pallas(n_blocks, m, with_emb, rev):
-    assert td2.winners_per_block(K, n_blocks) == m
+def test_stage1_plain_matches_pallas(n_blocks, m, k, e, fn, fs, tight, with_emb, rev):
+    assert td2.winners_per_block(k, n_blocks) == m
     n = n_blocks * BN
-    inp = stage1_inputs(n_blocks * 4 + with_emb * 2 + rev, n, with_emb, rev)
-    want = jax_stage1(inp, m, with_emb, rev)
+    inp = stage1_inputs(
+        n_blocks * 4 + with_emb * 2 + rev, n, with_emb, rev, fn=fn, fs=fs, e=e,
+        tight=tight,
+    )
+    want = jax_stage1(inp, m, with_emb, rev, fn=fn, fs=fs)
     got = td2.stage1_plain(
-        fn=FN, fs=FS, m=m, bn=BN, emb_scale=256.0, **torch_args(inp)
+        fn=fn, fs=fs, m=m, bn=BN, emb_scale=256.0, **torch_args(inp)
     ).numpy()
     assert got.shape == want.shape
     assert (got != jd2.PACKED_NONE).any()  # eligibility really occurred
@@ -131,23 +144,36 @@ def test_stage1_plain_on_int8_operands_gives_identical_words(with_emb, rev):
 
 
 def test_stage1_routes_m_up_to_4_to_the_hopper_kernel(monkeypatch):
-    """The rule (m <= 4, D <= 640, E <= 16 → stage1_wgmma.cu, else
+    """The rule (m <= 8, D <= 1024, E <= 64 → stage1_wgmma.cu, else
     stage1.cu), and that device2.stage1 launches what it names for a
     tensor off the CPU (meta tensors: nothing runs)."""
-    for m in (1, 2, 3, 4):
+    for m in range(1, 9):
         assert td2.stage1_route(m, 520, 16) is kernels.STAGE1_WGMMA
         assert td2.stage1_route(m, 520) is kernels.STAGE1_WGMMA
-    for m in (5, 16, 128):
+        assert td2.stage1_route(m, 1024, 64) is kernels.STAGE1_WGMMA
+    for m in (9, 16, 128):
         assert td2.stage1_route(m, 520, 16) is kernels.STAGE1
-    assert td2.stage1_route(2, 641) is kernels.STAGE1
-    assert td2.stage1_route(2, 520, 32) is kernels.STAGE1
-    # Main path at the default widths: >= 32 selection blocks of 1024.
-    cfg = MatchmakerConfig()
-    m_max = td2.winners_per_block(64, cfg.big_pool_threshold // 1024)
-    assert m_max == 4
-    assert td2.stage1_route(m_max, td2.encoding_dims(24, 16), 16) is (
+    assert td2.stage1_route(2, td2.encoding_dims(32, 32), 32) is (
         kernels.STAGE1_WGMMA
     )
+    assert td2.stage1_route(8, td2.encoding_dims(48, 29), 64) is (
+        kernels.STAGE1_WGMMA
+    )
+    assert td2.stage1_route(2, 1025) is kernels.STAGE1
+    assert td2.stage1_route(2, td2.encoding_dims(48, 32)) is kernels.STAGE1
+    assert td2.stage1_route(2, 520, 80) is kernels.STAGE1
+    # Main path at the default widths: >= 32 selection blocks of 1024;
+    # k = 128 there gives m = 8, still the Hopper kernel.
+    cfg = MatchmakerConfig()
+    blocks = cfg.big_pool_threshold // 1024
+    assert td2.winners_per_block(64, blocks) == 4
+    assert td2.winners_per_block(128, blocks) == 8
+    for k in (64, 128):
+        assert td2.stage1_route(
+            td2.winners_per_block(k, blocks), td2.encoding_dims(24, 16), 16
+        ) is kernels.STAGE1_WGMMA
+    # The self-check's two-stage pools (4 blocks of 256 at k = 64).
+    assert td2.stage1_route(td2.winners_per_block(64, 4), 200) is kernels.STAGE1
 
     called = []
     monkeypatch.setattr(kernels, "stage1", lambda *a, **k: called.append("stage1"))
@@ -156,9 +182,13 @@ def test_stage1_routes_m_up_to_4_to_the_hopper_kernel(monkeypatch):
     )
     inp = torch_args(stage1_inputs(2, 4 * BN, False, False))
     meta = {k: torch.empty_like(v, device="meta") for k, v in inp.items()}
-    for m in (2, 4, 5, 32):
+    for m in (2, 4, 5, 8, 9, 32):
         td2.stage1(fn=FN, fs=FS, m=m, bn=BN, emb_scale=256.0, **meta)
-    assert called == ["stage1_wgmma", "stage1_wgmma", "stage1", "stage1"]
+    assert called == ["stage1_wgmma"] * 4 + ["stage1"] * 2
+    inp = torch_args(stage1_inputs(3, 4 * BN, True, False, e=64))
+    meta = {k: torch.empty_like(v, device="meta") for k, v in inp.items()}
+    td2.stage1(fn=FN, fs=FS, m=8, bn=BN, emb_scale=256.0, **meta)
+    assert called[-1] == "stage1_wgmma"
 
 
 def test_mix_matches_jax_int32_wraparound():
