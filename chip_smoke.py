@@ -25,7 +25,10 @@ ticket) and the server: `NakamaServer` warm-restarts the 100,000-ticket
 pool and serves 256 socket clients (HTTP auth, /ws, matchmaker adds; the
 matched pairs join their match by token and relay data, each client
 writes a record to a 100,000-record board on the card and reads its
-haystack), stops and restarts with the same pool and the same ranks,
+haystack; then the rest of `core/`: friends with their notifications
+on the socket, DM channels with history, storage beside a seeded
+100,000-object collection, groups, wallets and an account delete),
+stops and restarts with the same pool, ranks and social state,
 and `python -m nakama_tpu_torch` serves and stops on SIGTERM in a
 subprocess. Then matches and parties on a fresh server (party
 matchmaking, token joins, an authoritative Python match found through
@@ -59,6 +62,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.parse
 
 import numpy as np
 import torch
@@ -148,12 +152,17 @@ def device_time_ms(fn, reps: int, cold: bool) -> float:
 # ----------------------------------------------------------------- phases
 
 
-def phase_device() -> dict:
-    smi = subprocess.run(
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def phase_device() -> dict:
+    smi = card()
     cap = torch.cuda.get_device_capability(0)
     info = {
         "phase": "device",
@@ -2160,9 +2169,10 @@ def raise_fd_limit(need: int) -> dict:
 async def build_server_checkpoint(pickled: bytes, cfg) -> dict:
     """The north-star snapshot restored into a matchmaker on the card and
     checkpointed through the port's `Checkpointer` into the server's
-    data_dir, beside its SQLite file. Returns the checkpoint's stats and
-    each recovered ticket's query by session (the client-side validity
-    check needs the partners' queries)."""
+    data_dir, beside its SQLite file, with the board created and the
+    social leg's storage collection seeded. Returns the checkpoint's
+    stats and each recovered ticket's query by session (the client-side
+    validity check needs the partners' queries)."""
     from nakama_tpu_torch.recovery import Checkpointer, TicketJournal
     from nakama_tpu_torch.storage import Database
 
@@ -2185,6 +2195,7 @@ async def build_server_checkpoint(pickled: bytes, cfg) -> dict:
     boards = Leaderboards(StrictLogger(), db, LeaderboardRankCache())
     await boards.load()
     await boards.create(SERVER_BOARD, sort_order="desc")
+    storage_seed_s = await seed_storage(db)
     await db.close()
     check_backend_clean(mm, "server build")
     mm.stop()
@@ -2193,7 +2204,8 @@ async def build_server_checkpoint(pickled: bytes, cfg) -> dict:
     t0 = time.perf_counter()
     seed_board(cfg.database.address[0], SERVER_BOARD, SERVER_BOARD_RECORDS)
     return {"restore_s": restore_s, "tickets": len(queries), "checkpoint": stats,
-            "queries": queries, "board_seed_s": time.perf_counter() - t0}
+            "queries": queries, "board_seed_s": time.perf_counter() - t0,
+            "storage_seed_s": storage_seed_s}
 
 
 def seed_board(path: str, board: str, n: int) -> None:
@@ -2256,7 +2268,7 @@ async def server_client(server, ticks: list, added: dict, delivered: dict,
     ws = await wsproto.connect(
         "127.0.0.1", server.port, f"/ws?token={rec['token']}")
     rec["ws"] = ws
-    inbox = Inbox(ws)
+    inbox = rec["inbox"] = Inbox(ws)
     t_add = time.perf_counter()
     await ws.send(json.dumps({"cid": f"c{i}", "matchmaker_add": {
         "min_count": 2, "max_count": 2, "query": q,
@@ -2446,6 +2458,307 @@ def check_client_groups(results: list, queries_by_session: dict) -> dict:
     return {"groups_checked": groups}
 
 
+# The server phase's social leg (the rest of `core/`): a public-read
+# collection seeded before the clients arrive, 64 open groups, the
+# client that deletes its account.
+SOCIAL_SEED = "smoke-seed"
+SOCIAL_SEED_OBJECTS = 100_000
+SOCIAL_SEED_BATCH = 2_000
+SOCIAL_GROUPS = 64
+SOCIAL_PAGE = 100
+NOTE_KEYS = {"id", "user_id", "subject", "content", "code", "sender_id",
+             "persistent", "create_time"}
+
+
+async def seed_storage(db) -> float:
+    """`SOCIAL_SEED_OBJECTS` system-owned, public-read objects written
+    through the port's `storage_write_objects` in batches; its time."""
+    from nakama_tpu_torch.core.storage import StorageOpWrite, storage_write_objects
+
+    t0 = time.perf_counter()
+    for start in range(0, SOCIAL_SEED_OBJECTS, SOCIAL_SEED_BATCH):
+        await storage_write_objects(db, None, [
+            StorageOpWrite(SOCIAL_SEED, f"obj-{i:06d}", "",
+                           json.dumps({"i": i, "level": i % 50}),
+                           permission_read=2, permission_write=0)
+            for i in range(start, start + SOCIAL_SEED_BATCH)])
+    return time.perf_counter() - t0
+
+
+class Rest:
+    """A client's REST calls with its bearer token, each timed under a
+    name into `lat`; an unexpected status raises."""
+
+    def __init__(self, port: int, rec: dict, lat: dict):
+        self.port, self.rec, self.lat = port, rec, lat
+
+    async def __call__(self, name, method, path, body=None, want=200):
+        from nakama_tpu_torch.api import wsproto
+
+        t0 = time.perf_counter()
+        r = await wsproto.request(
+            "127.0.0.1", self.port, method, path, body=body,
+            headers={"Authorization": f"Bearer {self.rec['token']}"})
+        if name:
+            self.lat.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        if r.status != want:
+            raise AssertionError(
+                f"client {self.rec['i']}: {name or path} {r.status} {r.body[:200]!r}")
+        return r.json()
+
+
+def notes_from(env: dict, code: int, sender: str) -> list:
+    return [n for n in env.get("notifications", {}).get("notifications", ())
+            if n["code"] == code and n["sender_id"] == sender]
+
+
+async def social_client(port: int, rec: dict, shared: dict) -> None:
+    """One client of a pair (`i`, `i ^ 1`): befriend the partner (the
+    even one adds, the request's notification reaches the odd one's
+    socket, is listed over REST, accepted and deleted; the accept's
+    reaches the even one), join their DM channel, send one message and
+    receive the partner's, page the history (two pages of one), then the
+    even one updates its message and the odd one removes its own, each
+    seen by the partner; write 3 storage objects, have a stale-version
+    write refused, read them back, list two pages of the seeded
+    collection; create (the first 64) or join an open group and list its
+    members."""
+    i, inbox, lat = rec["i"], rec["inbox"], shared["ms"]
+    rest = Rest(port, rec, lat)
+    loop = asyncio.get_running_loop()
+    partner = shared["users"][i ^ 1].result()
+
+    def future(kind: str, j: int):
+        return shared.setdefault(kind, {}).setdefault(j, loop.create_future())
+
+    async def socket(env: dict, key: str) -> dict:
+        await inbox.ws.send(json.dumps(env))
+        got = await inbox.take(lambda e: e.get("cid") == env["cid"], 60)
+        if key not in got:
+            raise AssertionError(f"client {i}: {env} answered {got}")
+        return got[key]
+
+    # Friends, and their notifications on the socket.
+    if i % 2 == 0:
+        shared["friend_sent"][i] = time.perf_counter()
+        await rest("friend_add", "POST", f"/v2/friend?ids={partner}")
+        env = await inbox.take(lambda e: notes_from(e, -3, partner), 60)
+    else:
+        env = await inbox.take(lambda e: notes_from(e, -2, partner), 60)
+        lat.setdefault("friend_request_to_socket", []).append(
+            (time.perf_counter() - shared["friend_sent"][i ^ 1]) * 1e3)
+        note = notes_from(env, -2, partner)[0]
+        if set(note) != NOTE_KEYS or note["persistent"] is not True:
+            raise AssertionError(f"client {i}: notification {note}")
+        listed = await rest("notification_list", "GET", "/v2/notification")
+        if note["id"] not in {n["id"] for n in listed["notifications"]}:
+            raise AssertionError(f"client {i}: {note['id']} not listed")
+        await rest("friend_accept", "POST", f"/v2/friend?ids={partner}")
+        await rest("notification_delete", "DELETE", f"/v2/notification?ids={note['id']}")
+        listed = await rest("", "GET", "/v2/notification")
+        if note["id"] in {n["id"] for n in listed["notifications"]}:
+            raise AssertionError(f"client {i}: deleted notification still listed")
+    friends = await rest("friend_list", "GET", "/v2/friend")
+    if [(f["user"]["id"], f["state"]) for f in friends["friends"]] != [(partner, 0)]:
+        raise AssertionError(f"client {i}: friends {friends}")
+    # The pair's DM channel.
+    joined = await socket({"cid": "dm", "channel_join": {
+        "type": 3, "target": partner}}, "channel")
+    dm = rec["dm"] = joined["id"]
+    future("dm_joined", i).set_result(None)
+    await future("dm_joined", i ^ 1)
+    shared["message_sent"][i] = time.perf_counter()
+    mine = await socket({"cid": "send", "channel_message_send": {
+        "channel_id": dm, "content": {"from": i}}}, "channel_message_ack")
+    got = await inbox.take(lambda e: e.get("channel_message", {}).get(
+        "sender_id") == partner, 60)
+    lat.setdefault("message_to_partner", []).append(
+        (time.perf_counter() - shared["message_sent"][i ^ 1]) * 1e3)
+    if json.loads(got["channel_message"]["content"]) != {"from": i ^ 1}:
+        raise AssertionError(f"client {i}: received {got}")
+    first = await rest("history_page", "GET", f"/v2/channel/{dm}?limit=1")
+    second = await rest("history_page", "GET", f"/v2/channel/{dm}?limit=1&cursor="
+                        + urllib.parse.quote(first["next_cursor"]))
+    pages = [m["message_id"] for m in first["messages"] + second["messages"]]
+    if (sorted(pages) != sorted([mine["message_id"], got["channel_message"]["message_id"]])
+            or second["next_cursor"]):
+        raise AssertionError(f"client {i}: history {first} {second}")
+    future("dm_paged", i).set_result(None)
+    await future("dm_paged", i ^ 1)
+    if i % 2 == 0:
+        t0 = time.perf_counter()
+        await socket({"cid": "update", "channel_message_update": {
+            "channel_id": dm, "message_id": mine["message_id"],
+            "content": {"from": i, "edited": True}}}, "channel_message_ack")
+        lat.setdefault("message_update", []).append((time.perf_counter() - t0) * 1e3)
+        code = 2  # the partner's removal
+    else:
+        t0 = time.perf_counter()
+        await socket({"cid": "remove", "channel_message_remove": {
+            "channel_id": dm, "message_id": mine["message_id"]}},
+            "channel_message_ack")
+        lat.setdefault("message_remove", []).append((time.perf_counter() - t0) * 1e3)
+        code = 1
+    await inbox.take(lambda e: e.get("channel_message", {}).get("code") == code
+                     and e["channel_message"]["sender_id"] == partner, 60)
+    # Storage: three objects, a stale version refused, read back; two
+    # pages of the seeded collection.
+    acks = await rest("storage_write", "PUT", "/v2/storage", {"objects": [
+        {"collection": "smoke-saves", "key": f"slot{j}", "value": {"i": i, "j": j}}
+        for j in range(3)]})
+    await rest("storage_write_stale", "PUT", "/v2/storage", {"objects": [
+        {"collection": "smoke-saves", "key": "slot0", "value": {"stale": True},
+         "version": "0" * 32}]}, want=409)
+    read = await rest("storage_read", "POST", "/v2/storage", {"object_ids": [
+        {"collection": "smoke-saves", "key": f"slot{j}"} for j in range(3)]})
+    if [o["version"] for o in read["objects"]] != [a["version"] for a in acks["acks"]]:
+        raise AssertionError(f"client {i}: read back {read}")
+    page = await rest("storage_list", "GET",
+                      f"/v2/storage/{SOCIAL_SEED}?limit={SOCIAL_PAGE}")
+    page2 = await rest("storage_list", "GET",
+                       f"/v2/storage/{SOCIAL_SEED}?limit={SOCIAL_PAGE}&cursor="
+                       + urllib.parse.quote(page["cursor"]))
+    keys = [o["key"] for o in page["objects"] + page2["objects"]]
+    if keys != [f"obj-{j:06d}" for j in range(2 * SOCIAL_PAGE)]:
+        raise AssertionError(f"client {i}: seeded pages {keys[:3]}...")
+    # Groups: the first 64 create one each; every client is in one.
+    if i < SOCIAL_GROUPS:
+        group = await rest("group_create", "POST", "/v2/group",
+                           {"name": f"smoke-group-{i:02d}", "open": True})
+        future("group", i).set_result(group["id"])
+    gid = rec["group"] = await future("group", i % SOCIAL_GROUPS)
+    if i >= SOCIAL_GROUPS:
+        await rest("group_join", "POST", f"/v2/group/{gid}/join")
+    members = await rest("group_users", "GET", f"/v2/group/{gid}/user")
+    if rec["user_id"] not in {m["user"]["id"] for m in members["group_users"]}:
+        raise AssertionError(f"client {i}: not among {members}")
+
+
+async def social_state(port: int, rec: dict, token: str) -> dict:
+    """What a client reads of its own state: account, storage objects,
+    friends, groups, DM history and notifications."""
+    rest = Rest(port, {"i": rec["i"], "token": token}, {})
+    return {
+        "account": await rest("", "GET", "/v2/account"),
+        "storage": await rest("", "POST", "/v2/storage", {"object_ids": [
+            {"collection": "smoke-saves", "key": f"slot{j}"} for j in range(3)]}),
+        "friends": await rest("", "GET", "/v2/friend"),
+        "groups": await rest("", "GET", f"/v2/user/{rec['user_id']}/group"),
+        "history": await rest("", "GET", f"/v2/channel/{rec['dm']}"),
+        "notifications": await rest("", "GET", "/v2/notification"),
+    }
+
+
+async def social_leg(server, results: list, shared: dict) -> dict:
+    """The rest of `core/` after the play leg: every client signs in
+    again (session tokens last 60 s), runs `social_client` with all the
+    others at once, then a closed group takes a join request its owner
+    accepts, 256 concurrent `multi_update` calls each credit one client
+    and the next (every 16th also debits more than anyone holds, which
+    refuses its whole call),
+    every balance shows in `GET /v2/account` and equals its ledger's
+    sum, and the client with the lowest record deletes its account: its
+    record leaves the listing and every rank on the card is still the
+    host oracle's. Returns per-operation latencies and the deleted
+    client."""
+    from nakama_tpu_torch.api import wsproto
+    from nakama_tpu_torch.core.wallet import multi_update
+
+    port, lat = server.port, shared.setdefault("ms", {})
+    shared.update(friend_sent={}, message_sent={})
+    basic = {"Authorization": "Basic " + base64.b64encode(
+        f"{SERVER_KEY}:".encode()).decode()}
+    t0 = time.perf_counter()
+
+    async def reauth(r):
+        t = time.perf_counter()
+        again = await wsproto.request("127.0.0.1", port, "POST",
+                                      "/v2/account/authenticate/device",
+                                      headers=basic, body={"account": {"id": r["device"]}})
+        lat.setdefault("reauth", []).append((time.perf_counter() - t) * 1e3)
+        r["token"] = again.json()["token"]
+
+    await asyncio.gather(*(reauth(r) for r in results))
+    await asyncio.gather(*(social_client(port, r, shared) for r in results))
+    by_i = {r["i"]: r for r in results}
+    # A closed group: a join request its owner accepts.
+    owner, asker = Rest(port, by_i[0], lat), Rest(port, by_i[1], lat)
+    closed = await owner("group_create", "POST", "/v2/group",
+                         {"name": "smoke-closed", "open": False})
+    await asker("group_join", "POST", f"/v2/group/{closed['id']}/join")
+    asking = await owner("group_users", "GET", f"/v2/group/{closed['id']}/user?state=3")
+    await owner("group_add", "POST", f"/v2/group/{closed['id']}/add?user_ids="
+                + asking["group_users"][0]["user"]["id"])
+    members = await owner("", "GET", f"/v2/group/{closed['id']}/user")
+    if sorted(m["state"] for m in members["group_users"]) != [0, 2]:
+        raise AssertionError(f"the closed group's members: {members}")
+    listed = await owner("group_list", "GET", "/v2/group?name=smoke-group-%25&limit=100")
+    if sorted(g["edge_count"] for g in listed["groups"]) != sorted(
+            collections.Counter(r["i"] % SOCIAL_GROUPS for r in results).values()):
+        raise AssertionError(f"group edge counts: {listed}")
+    # Wallets: no route writes one; the runtime's multi_update does.
+    n = len(results)
+    uid = [by_i[j]["user_id"] for j in range(n)]
+
+    async def move(j):
+        changes = [{"user_id": uid[j], "changeset": {"coins": 100 + j % 50,
+                                                     "gems": j % 7},
+                    "metadata": {"smoke": j}},
+                   {"user_id": uid[(j + 1) % n], "changeset": {"referrals": 1}}]
+        if j % 16 == 15:
+            # More than anyone holds: the whole call is refused.
+            changes.append({"user_id": uid[j], "changeset": {"coins": -10**6}})
+        t = time.perf_counter()
+        try:
+            await multi_update(server.db, server.wallets, wallet_updates=changes)
+            ok = True
+        except Exception as e:
+            if getattr(e, "code", "") != "insufficient_funds":
+                raise
+            ok = False
+        lat.setdefault("wallet_multi_update", []).append((time.perf_counter() - t) * 1e3)
+        return changes if ok else []
+
+    calls = await asyncio.gather(*(move(j) for j in range(n)))
+    if sum(not c for c in calls) != n // 16:
+        raise AssertionError("the wallet calls refused are not every 16th")
+    accepted = [c for changes in calls for c in changes]
+    want: dict = {}
+    for c in accepted:
+        for k, v in c["changeset"].items():
+            want.setdefault(c["user_id"], {}).setdefault(k, 0)
+            want[c["user_id"]][k] += v
+    ledger: dict = {}
+    for row in await server.db.fetch_all("SELECT user_id, changeset FROM wallet_ledger"):
+        for k, v in json.loads(row["changeset"]).items():
+            ledger.setdefault(row["user_id"], {}).setdefault(k, 0)
+            ledger[row["user_id"]][k] += v
+    accounts = await asyncio.gather(*(
+        Rest(port, r, lat)("account_get", "GET", "/v2/account") for r in results))
+    shown = {a["user"]["id"]: json.loads(a["wallet"]) for a in accounts}
+    if ledger != want or any(shown[u] != want.get(u, {}) for u in uid):
+        raise AssertionError("the wallets' balances and ledgers disagree")
+    # The account delete: the client with the lowest score.
+    oracle, engine = server.leaderboards.ranks, server.leaderboards.device
+    gone = max(results, key=lambda r: oracle.get(SERVER_BOARD, 0.0, r["user_id"]))
+    stay = by_i[0 if gone["i"] else 1]
+    await Rest(port, gone, lat)("account_delete", "DELETE", "/v2/account")
+    listing = await Rest(port, stay, lat)(
+        "", "GET", f"/v2/leaderboard/{SERVER_BOARD}?owner_ids={gone['user_id']}"
+        f"&owner_ids={stay['user_id']}")
+    if [(x["owner_id"], x["rank"]) for x in listing["records"]] != [
+            (stay["user_id"], oracle.get(SERVER_BOARD, 0.0, stay["user_id"]) + 1)]:
+        raise AssertionError(f"the listing after the delete: {listing}")
+    owners = [f"seed-{j:06d}" for j in range(SERVER_BOARD_RECORDS)] + uid
+    if engine.get_many(SERVER_BOARD, 0.0, owners) != oracle.get_many(
+            SERVER_BOARD, 0.0, owners):
+        raise AssertionError("the card's ranks left the oracle's after the delete")
+    return {"seconds": time.perf_counter() - t0, "deleted": gone["i"],
+            "deleted_rank": oracle.get(SERVER_BOARD, 0.0, gone["user_id"]) + 1,
+            "wallet_calls_accepted": sum(bool(c) for c in calls),
+            "seed_objects": SOCIAL_SEED_OBJECTS, "groups": SOCIAL_GROUPS + 1}
+
+
 def parse_scrape(body: bytes) -> dict:
     want = ("nakama_matchmaker_tickets", "nakama_overload_state",
             "nakama_matchmaker_journal", "nakama_sessions ")
@@ -2516,11 +2829,14 @@ def phase_server(pickled: bytes) -> dict:
     pair of clients plays a relayed match (create, join by id, presence,
     data both ways), and each client writes a record to a 100,000-record
     board on the card and reads its haystack, every rank the oracle's.
-    The breaker stays closed, the ladder at OK; stage 1 runs on
-    stage1_wgmma only. Then stop() (drain to durable), a second server on
-    the same data_dir recovers exactly the pool the first held at stop
-    and answers the same haystacks, and `python -m nakama_tpu_torch`
-    serves, stops on SIGTERM and recovers in a subprocess."""
+    Then the social leg (`social_leg`: friends, notifications, DMs,
+    storage over the 100,000 objects the build seeded, groups, wallets,
+    an account delete). The breaker stays closed, the ladder at OK;
+    stage 1 runs on stage1_wgmma only. Then stop() (drain to durable), a
+    second server on the same data_dir recovers exactly the pool the
+    first held at stop and answers the same haystacks and the same
+    social state, and `python -m nakama_tpu_torch` serves, stops on
+    SIGTERM and recovers in a subprocess."""
     import shutil
 
     from nakama_tpu_torch import kernels
@@ -2609,11 +2925,17 @@ def phase_server(pickled: bytes) -> dict:
         admit_waits: list = []
         middleware = server.api._overload_middleware
 
+        # The social leg's requests by route (method and first two path
+        # segments): their time inside the middleware.
+        in_server: dict = {}
+
         async def timed_middleware(request, handler):
             t = time.perf_counter()
             resp = await middleware(request, handler)
             if request.path == "/v2/account/authenticate/device":
                 auth_server[request.json()["account"]["id"]] = (t, time.perf_counter())
+            route = f"{request.method} {'/'.join(request.path.split('/')[:3])}"
+            in_server.setdefault(route, []).append((time.perf_counter() - t) * 1e3)
             return resp
 
         server.api._overload_middleware = timed_middleware
@@ -2654,14 +2976,14 @@ def phase_server(pickled: bytes) -> dict:
         beats: list = []
         batcher = server.db._batcher
 
-        async def heartbeat():
+        async def heartbeat(beats):
             while True:
                 t = time.perf_counter()
                 await asyncio.sleep(0.01)
                 now = time.perf_counter()
                 beats.append((now, (now - t - 0.01) * 1e3, batcher.depth))
 
-        beat = asyncio.get_running_loop().create_task(heartbeat())
+        beat = asyncio.get_running_loop().create_task(heartbeat(beats))
         results: list = []
         # Each pair's relayed match, each client's user id, and when it
         # sent its match data.
@@ -2754,6 +3076,63 @@ def phase_server(pickled: bytes) -> dict:
                 or lb_device.device != DEVICE or lb_device.fallbacks
                 or lb_device.breaker.failures):
             raise AssertionError(f"the server's matches and board: {res['leaderboard']}")
+        # The social leg, once every client has been matched and has
+        # played: its latencies measure these routes, not the matched
+        # handler's stall.
+        in_server.clear()
+        social_beats: list = []
+        beat = asyncio.get_running_loop().create_task(heartbeat(social_beats))
+        # Each read of the leg split where it waits: in the reader pool's
+        # queue (from the call to its statement's start on a reader
+        # thread), running there (the statement and its rows), and back
+        # to the loop (from the statement's end to the caller's wakeup).
+        reads: list = []
+        run_reader = server.db._run_reader
+
+        async def timed_reader(fn):
+            t0, marks = time.perf_counter(), [0.0, 0.0]
+
+            def timed(conn):
+                marks[0] = time.perf_counter()
+                try:
+                    return fn(conn)
+                finally:
+                    marks[1] = time.perf_counter()
+
+            try:
+                return await run_reader(timed)
+            finally:
+                reads.append((marks[0] - t0, marks[1] - marks[0],
+                              time.perf_counter() - marks[1]))
+
+        server.db._run_reader = timed_reader
+        social = res["social"] = await social_leg(server, results, shared)
+        server.db._run_reader = run_reader
+        beat.cancel()
+        try:
+            await beat
+        except asyncio.CancelledError:
+            pass
+        kept = [r for r in results if r["i"] != social["deleted"]]
+        # One client in 8 reads its state before the stop and again
+        # after the restart (all of them would add ~30 s to the phase).
+        probe = kept[::8]
+        t0 = time.perf_counter()
+        states = await asyncio.gather(*(
+            social_state(server.port, r, r["token"]) for r in probe))
+        social["state_read_s"] = time.perf_counter() - t0
+        emit({"phase": "server_social", "card": card(), **social,
+              "ms": {k: pcts(v) for k, v in shared["ms"].items()},
+              # The same requests inside the server's middleware
+              # (admission and handler), by route.
+              "in_server_ms": {k: pcts(v) for k, v in in_server.items()},
+              "loop_stall": {"max_ms": max(b[1] for b in social_beats),
+                             "sum_ms": sum(b[1] for b in social_beats),
+                             "beats": len(social_beats),
+                             "write_queue_max": max(b[2] for b in social_beats)},
+              "reads": {part: pcts([r[j] * 1e3 for r in reads])
+                        for j, part in enumerate(("queue_ms", "run_ms",
+                                                  "return_ms"))}})
         crumbs = [c for c in mm.backend.tracing.breadcrumbs if "actives" in c]
         res["intervals"] = [
             {"actives": c["actives"],
@@ -2828,6 +3207,10 @@ def phase_server(pickled: bytes) -> dict:
         res["restart_held"] = len(again.recovery.held)
         # The same haystack reads, by the same players signed in again,
         # give the same ranks.
+        # (The deleted client is left out: signing in again would create
+        # a new account. Its record keeps its rank on both sides: the
+        # final checkpoint carries the card's board, as the JAX engine's
+        # does, and a delete tells neither rank store.)
         relogged = await asyncio.gather(*(
             wsproto.request(
                 "127.0.0.1", again.port, "POST",
@@ -2835,14 +3218,21 @@ def phase_server(pickled: bytes) -> dict:
                 headers={"Authorization": "Basic " + base64.b64encode(
                     f"{SERVER_KEY}:".encode()).decode()},
                 body={"account": {"id": r["device"]}})
-            for r in results))
+            for r in kept))
         hay2 = await asyncio.gather(*(
             haystack_ranks(again.port, rl.json()["token"], r["user_id"])
-            for r, rl in zip(results, relogged)))
-        if [w for _, w in hay2] != [windows[r["i"]] for r in results]:
+            for r, rl in zip(kept, relogged)))
+        if [w for _, w in hay2] != [windows[r["i"]] for r in kept]:
             raise AssertionError("the restart's haystack ranks differ")
         check_ranks(again, [w for _, w in hay2])
         res["restart_haystack"] = pcts([ms for ms, _ in hay2])
+        states2 = await asyncio.gather(*(
+            social_state(again.port, r, rl.json()["token"])
+            for r, rl in list(zip(kept, relogged))[::8]))
+        differ = [r["i"] for r, a, b in zip(probe, states, states2) if a != b]
+        if differ:
+            raise AssertionError(f"the restart's social state differs: clients {differ[:8]}")
+        res["restart_social_state_same"] = len(probe)
         res["restart_board_restored"] = (
             again.leaderboards.device._boards.get((SERVER_BOARD, 0.0)) is not None)
         await again.stop()

@@ -4,14 +4,20 @@ Parity with the reference ApiServer (reference server/api.go:87-226) for
 the slices of the port so far: the JAX package's `api/http.py` routes
 `/`, `/healthcheck` and `/v2/healthcheck`, `/ws`, the device, email and
 custom `/v2/account/authenticate/*` routes (server-key Basic auth),
-`/v2/account/session/refresh` and `/v2/session/logout`, `/v2/match`,
-and the leaderboard and tournament record routes, behind the same
-overload middleware (admission classes, exempt paths, 429 +
+`/v2/account/session/refresh` and `/v2/session/logout`, the account,
+user and device/email/custom link and unlink routes, storage, friends
+(without the social imports), groups, notifications, channel history,
+`/v2/match`, and the leaderboard and tournament record routes, behind
+the same overload middleware (admission classes, exempt paths, 429 +
 Retry-After, 504, the `traceparent` echo) and with the same error
 bodies (`{"error", "message", "code"}`) and status codes (`_map_error`).
-Every other route of the JAX package answers as its
-`_h_unimplemented` does (501) until its slice lands; a path it does not
-route is 404, a method it does not route on a known path 405.
+The JAX server's other routes (social authenticate, link and unlink,
+the Facebook and Steam friend imports, `/v2/rpc`, `/v2/event` and IAP)
+answer as its `_h_unimplemented` does (501) until their slices land
+(`_LATER_ROUTES`); a path it does not route is 404, a method it does not
+route on a known path 405. The port has no runtime yet, so no
+before- or after-hook runs (the JAX server passes a request through
+unchanged when none is registered).
 
 It runs over `wsproto` (the port's standard-library HTTP/1.1 and
 WebSocket transport), not `aiohttp`. The metrics listener serves the
@@ -24,6 +30,7 @@ from __future__ import annotations
 
 import asyncio
 import base64
+import json
 import re
 import time
 import urllib.parse
@@ -31,9 +38,26 @@ from typing import Any
 
 from .. import overload
 from .. import tracing as trace_api
+from ..core import account as core_account
 from ..core import authenticate as core_auth
+from ..core import link as core_link
+from ..core import storage as core_storage
 from ..core.authenticate import AuthError
+from ..core.channel import ChannelError, channel_id_to_stream
+from ..core.friend import FriendError
+from ..core.group import ADMIN, MEMBER, SUPERADMIN, GroupError
+from ..core.notification import NotificationError
+from ..core.storage import (
+    StorageError,
+    StorageOpDelete,
+    StorageOpRead,
+    StorageOpWrite,
+    StoragePermissionError,
+    StorageVersionError,
+)
+from ..core.wallet import WalletError
 from ..leaderboard import LeaderboardError
+from ..realtime import StreamMode
 from . import session_token
 from .wsproto import HttpRequest, HttpResponse, HttpServer, json_response
 
@@ -58,35 +82,19 @@ _SOCIAL_PROVIDERS = (
     "apple", "facebook", "facebookinstantgame", "gamecenter", "google",
     "steam",
 )
-_PROVIDERS = ("device", "email", "custom") + _SOCIAL_PROVIDERS
 
 # The JAX package's routes that later slices port (method, path
-# pattern): each answers 501 here.
+# pattern): each answers 501 here. Social authenticate, link and unlink
+# and the friend imports wait for `social/`, `/v2/rpc` and `/v2/event`
+# for the runtime, the IAP routes for `iap/` (ROADMAP.md §A).
 _LATER_ROUTES = (
     [("POST", f"/v2/account/authenticate/{p}") for p in _SOCIAL_PROVIDERS]
     + [("POST", f"/v2/account/{kind}/{p}")
-       for kind in ("link", "unlink") for p in _PROVIDERS]
+       for kind in ("link", "unlink") for p in _SOCIAL_PROVIDERS]
     + [
-        ("GET", "/v2/account"), ("PUT", "/v2/account"),
-        ("DELETE", "/v2/account"), ("GET", "/v2/user"),
-        ("POST", "/v2/storage"), ("PUT", "/v2/storage"),
-        ("PUT", "/v2/storage/delete"), ("GET", "/v2/storage/{collection}"),
-        ("GET", "/v2/storage/{collection}/{user_id}"),
         ("POST", "/v2/rpc/{id}"), ("GET", "/v2/rpc/{id}"),
-        ("POST", "/v2/event"), ("GET", "/v2/channel/{channel_id}"),
-        ("GET", "/v2/friend"), ("POST", "/v2/friend"),
-        ("DELETE", "/v2/friend"), ("POST", "/v2/friend/block"),
+        ("POST", "/v2/event"),
         ("POST", "/v2/friend/facebook"), ("POST", "/v2/friend/steam"),
-        ("GET", "/v2/group"), ("POST", "/v2/group"),
-        ("PUT", "/v2/group/{group_id}"), ("DELETE", "/v2/group/{group_id}"),
-        ("GET", "/v2/group/{group_id}/user"),
-        ("GET", "/v2/user/{user_id}/group"),
-    ]
-    + [("POST", f"/v2/group/{{group_id}}/{action}")
-       for action in ("join", "leave", "add", "kick", "ban", "promote",
-                      "demote")]
-    + [
-        ("GET", "/v2/notification"), ("DELETE", "/v2/notification"),
         ("POST", "/v2/iap/purchase/apple"), ("POST", "/v2/iap/purchase/google"),
         ("POST", "/v2/iap/purchase/huawei"), ("GET", "/v2/iap/subscription"),
         ("POST", "/v2/iap/subscription/apple"),
@@ -161,11 +169,25 @@ class ApiServer:
             ("POST", "/v2/session/logout", self._h_session_logout),
         ]
         for provider in ("device", "email", "custom"):
-            routes.append((
-                "POST", f"/v2/account/authenticate/{provider}",
-                self._make_authenticate(provider),
-            ))
+            routes += [
+                ("POST", f"/v2/account/authenticate/{provider}",
+                 self._make_authenticate(provider)),
+                ("POST", f"/v2/account/link/{provider}",
+                 self._make_link(provider, linking=True)),
+                ("POST", f"/v2/account/unlink/{provider}",
+                 self._make_link(provider, linking=False)),
+            ]
         routes += [
+            ("GET", "/v2/account", self._h_account_get),
+            ("PUT", "/v2/account", self._h_account_update),
+            ("DELETE", "/v2/account", self._h_account_delete),
+            ("GET", "/v2/user", self._h_users_get),
+            ("POST", "/v2/storage", self._h_storage_read),
+            ("PUT", "/v2/storage", self._h_storage_write),
+            ("PUT", "/v2/storage/delete", self._h_storage_delete),
+            ("GET", "/v2/storage/{collection}", self._h_storage_list),
+            ("GET", "/v2/storage/{collection}/{user_id}",
+             self._h_storage_list),
             ("GET", "/v2/match", self._h_match_list),
             ("GET", "/v2/leaderboard/{id}", self._h_lb_records_list),
             ("POST", "/v2/leaderboard/{id}", self._h_lb_record_write),
@@ -179,6 +201,27 @@ class ApiServer:
             ("DELETE", "/v2/tournament/{id}", self._h_t_record_delete),
             ("GET", "/v2/tournament/{id}/owner/{owner_id}",
              self._h_lb_haystack),
+            ("GET", "/v2/channel/{channel_id}", self._h_channel_messages),
+            ("GET", "/v2/friend", self._h_friend_list),
+            ("POST", "/v2/friend", self._h_friend_add),
+            ("DELETE", "/v2/friend", self._h_friend_delete),
+            ("POST", "/v2/friend/block", self._h_friend_block),
+            ("GET", "/v2/group", self._h_group_list),
+            ("POST", "/v2/group", self._h_group_create),
+            ("PUT", "/v2/group/{group_id}", self._h_group_update),
+            ("DELETE", "/v2/group/{group_id}", self._h_group_delete),
+            ("GET", "/v2/group/{group_id}/user", self._h_group_users),
+            ("GET", "/v2/user/{user_id}/group", self._h_user_groups),
+        ]
+        routes += [
+            ("POST", f"/v2/group/{{group_id}}/{action}",
+             self._make_group_action(action))
+            for action in ("join", "leave", "add", "kick", "ban", "promote",
+                           "demote")
+        ]
+        routes += [
+            ("GET", "/v2/notification", self._h_notification_list),
+            ("DELETE", "/v2/notification", self._h_notification_delete),
         ]
         routes += [(m, p, self._h_unimplemented) for m, p in _LATER_ROUTES]
         self._routes = [(m, _pattern(p), h) for m, p, h in routes]
@@ -439,6 +482,12 @@ class ApiServer:
         )
         return {"token": token, "refresh_token": refresh}
 
+    def _id(self, request: HttpRequest, index: int = 2) -> str:
+        """A path segment, percent-decoded: index 2 is the one after
+        `/v2/<kind>/` (`{id}`, `{collection}`, `{group_id}`, `{user_id}`,
+        `{channel_id}`), 3 the storage owner, 4 `{owner_id}`."""
+        return urllib.parse.unquote(request.path.split("/")[index + 1])
+
     async def _json(self, request: HttpRequest) -> dict:
         if request.body_too_large:
             raise ApiError(
@@ -585,6 +634,439 @@ class ApiServer:
         except Exception as e:
             return self._map_error(e)
 
+    # ------------------------------------------------------------ account
+
+    async def _h_account_get(self, request: HttpRequest):
+        try:
+            claims = self._session(request)
+            account = await core_account.get_account(
+                self.server.db, claims.user_id
+            )
+            return json_response(account)
+        except Exception as e:
+            return self._map_error(e)
+
+    async def _h_account_update(self, request: HttpRequest):
+        try:
+            claims = self._session(request)
+            body = await self._json(request)
+            await core_account.update_account(
+                self.server.db,
+                claims.user_id,
+                username=body.get("username"),
+                display_name=body.get("display_name"),
+                timezone=body.get("timezone"),
+                location=body.get("location"),
+                lang_tag=body.get("lang_tag"),
+                avatar_url=body.get("avatar_url"),
+            )
+            return json_response({})
+        except Exception as e:
+            return self._map_error(e)
+
+    async def _h_account_delete(self, request: HttpRequest):
+        """Deletes the account's rows, its board records included, in
+        SQL; as in the JAX server, neither the rank cache nor the rank
+        engine is told."""
+        try:
+            claims = self._session(request)
+            await core_account.delete_account(
+                self.server.db, claims.user_id, recorded=True
+            )
+            self.server.session_cache.remove_all(claims.user_id)
+            return json_response({})
+        except Exception as e:
+            return self._map_error(e)
+
+    async def _h_users_get(self, request: HttpRequest):
+        try:
+            self._session(request)
+            users = await core_account.get_users(
+                self.server.db,
+                user_ids=request.query_all("ids"),
+                usernames=request.query_all("usernames"),
+            )
+            return json_response({"users": users})
+        except Exception as e:
+            return self._map_error(e)
+
+    # ------------------------------------------------------- link/unlink
+
+    def _make_link(self, provider: str, linking: bool):
+        """Device, email and custom (reference api_link.go); the social
+        providers answer 501 (`_LATER_ROUTES`)."""
+        async def handler(request: HttpRequest):
+            try:
+                claims = self._session(request)
+                body = await self._json(request)
+                db = self.server.db
+                uid = claims.user_id
+                if provider == "device":
+                    if linking:
+                        await core_link.link_device(db, uid, body.get("id", ""))
+                    else:
+                        await core_link.unlink_device(
+                            db, uid, body.get("id", "")
+                        )
+                elif provider == "email":
+                    if linking:
+                        await core_link.link_email(
+                            db,
+                            uid,
+                            body.get("email", ""),
+                            body.get("password", ""),
+                        )
+                    else:
+                        await core_link.unlink_email(db, uid)
+                elif linking:
+                    await core_link.link_custom(db, uid, body.get("id", ""))
+                else:
+                    await core_link.unlink_custom(db, uid)
+                return json_response({})
+            except Exception as e:
+                return self._map_error(e)
+
+        return handler
+
+    # ------------------------------------------------------------ storage
+
+    async def _h_storage_read(self, request: HttpRequest):
+        try:
+            claims = self._session(request)
+            body = await self._json(request)
+            ops = [
+                StorageOpRead(
+                    collection=o.get("collection", ""),
+                    key=o.get("key", ""),
+                    user_id=o.get("user_id") or claims.user_id,
+                )
+                for o in body.get("object_ids", [])
+            ]
+            objects = await core_storage.storage_read_objects(
+                self.server.db, claims.user_id, ops
+            )
+            return json_response({"objects": [o.as_dict() for o in objects]})
+        except Exception as e:
+            return self._map_error(e)
+
+    async def _h_storage_write(self, request: HttpRequest):
+        try:
+            claims = self._session(request)
+            body = await self._json(request)
+            ops = []
+            for o in body.get("objects", []):
+                value = o.get("value", "")
+                if not isinstance(value, str):
+                    value = json.dumps(value)
+                ops.append(
+                    StorageOpWrite(
+                        collection=o.get("collection", ""),
+                        key=o.get("key", ""),
+                        user_id=claims.user_id,
+                        value=value,
+                        version=o.get("version", ""),
+                        permission_read=int(o.get("permission_read", 1)),
+                        permission_write=int(o.get("permission_write", 1)),
+                    )
+                )
+            acks = await core_storage.storage_write_objects(
+                self.server.db, claims.user_id, ops
+            )
+            return json_response(
+                {
+                    "acks": [
+                        {
+                            "collection": a.collection,
+                            "key": a.key,
+                            "user_id": a.user_id,
+                            "version": a.version,
+                        }
+                        for a in acks
+                    ]
+                }
+            )
+        except Exception as e:
+            return self._map_error(e)
+
+    async def _h_storage_delete(self, request: HttpRequest):
+        try:
+            claims = self._session(request)
+            body = await self._json(request)
+            ops = [
+                StorageOpDelete(
+                    collection=o.get("collection", ""),
+                    key=o.get("key", ""),
+                    user_id=claims.user_id,
+                    version=o.get("version", ""),
+                )
+                for o in body.get("object_ids", [])
+            ]
+            await core_storage.storage_delete_objects(
+                self.server.db, claims.user_id, ops
+            )
+            return json_response({})
+        except Exception as e:
+            return self._map_error(e)
+
+    async def _h_storage_list(self, request: HttpRequest):
+        """`GET /v2/storage/{collection}[/{user_id}]`; without the path's
+        owner, the `user_id` query value."""
+        try:
+            claims = self._session(request)
+            user_id = (
+                self._id(request, 3) if request.path.count("/") > 3
+                else request.query.get("user_id", "")
+            )
+            objects, cursor = await core_storage.storage_list_objects(
+                self.server.db,
+                claims.user_id,
+                self._id(request),
+                user_id=user_id or None,
+                limit=_limit(request.query),
+                cursor=request.query.get("cursor", ""),
+            )
+            return json_response(
+                {"objects": [o.as_dict() for o in objects], "cursor": cursor}
+            )
+        except Exception as e:
+            return self._map_error(e)
+
+    # ------------------------------------------------------ notifications
+
+    async def _h_notification_list(self, request: HttpRequest):
+        try:
+            claims = self._session(request)
+            q = request.query
+            result = await self.server.notifications.list(
+                claims.user_id,
+                limit=_limit(q),
+                cursor=q.get("cacheable_cursor", q.get("cursor", "")),
+            )
+            return json_response(result)
+        except Exception as e:
+            return self._map_error(e)
+
+    async def _h_notification_delete(self, request: HttpRequest):
+        try:
+            claims = self._session(request)
+            await self.server.notifications.delete(
+                claims.user_id, request.query_all("ids")
+            )
+            return json_response({})
+        except Exception as e:
+            return self._map_error(e)
+
+    # ----------------------------------------------------------- friends
+
+    async def _resolve_target_ids(self, request: HttpRequest) -> list[str]:
+        """ids= and usernames= query params to user ids (reference
+        fetchIds in api_friend.go)."""
+        ids = request.query_all("ids")
+        usernames = request.query_all("usernames")
+        if usernames:
+            users = await core_account.get_users(
+                self.server.db, usernames=usernames
+            )
+            ids.extend(u["id"] for u in users)
+        return ids
+
+    async def _h_friend_list(self, request: HttpRequest):
+        try:
+            claims = self._session(request)
+            q = request.query
+            result = await self.server.friends.list(
+                claims.user_id,
+                limit=_limit(q),
+                state=int(q["state"]) if "state" in q else None,
+                cursor=q.get("cursor", ""),
+            )
+            return json_response(result)
+        except Exception as e:
+            return self._map_error(e)
+
+    async def _h_friend_add(self, request: HttpRequest):
+        try:
+            claims = self._session(request)
+            for fid in await self._resolve_target_ids(request):
+                await self.server.friends.add(
+                    claims.user_id, claims.username, fid
+                )
+            return json_response({})
+        except Exception as e:
+            return self._map_error(e)
+
+    async def _h_friend_delete(self, request: HttpRequest):
+        try:
+            claims = self._session(request)
+            for fid in await self._resolve_target_ids(request):
+                await self.server.friends.delete(claims.user_id, fid)
+            return json_response({})
+        except Exception as e:
+            return self._map_error(e)
+
+    async def _h_friend_block(self, request: HttpRequest):
+        try:
+            claims = self._session(request)
+            for fid in await self._resolve_target_ids(request):
+                await self.server.friends.block(
+                    claims.user_id, claims.username, fid
+                )
+            return json_response({})
+        except Exception as e:
+            return self._map_error(e)
+
+    # ------------------------------------------------------------- groups
+
+    async def _h_group_create(self, request: HttpRequest):
+        try:
+            claims = self._session(request)
+            body = await self._json(request)
+            group = await self.server.groups.create(
+                claims.user_id,
+                body.get("name", ""),
+                description=body.get("description", ""),
+                avatar_url=body.get("avatar_url", ""),
+                lang_tag=body.get("lang_tag", "en"),
+                metadata=body.get("metadata"),
+                open=bool(body.get("open", True)),
+                max_count=int(body.get("max_count", 100)),
+            )
+            return json_response(group)
+        except Exception as e:
+            return self._map_error(e)
+
+    async def _h_group_list(self, request: HttpRequest):
+        try:
+            self._session(request)
+            q = request.query
+            result = await self.server.groups.list(
+                name=q.get("name") or None,
+                limit=_limit(q),
+                cursor=q.get("cursor", ""),
+                open=_parse_bool(q["open"]) if "open" in q else None,
+            )
+            return json_response(result)
+        except Exception as e:
+            return self._map_error(e)
+
+    async def _h_group_update(self, request: HttpRequest):
+        try:
+            claims = self._session(request)
+            body = await self._json(request)
+            await self.server.groups.update(
+                self._id(request),
+                caller_id=claims.user_id,
+                name=body.get("name"),
+                description=body.get("description"),
+                avatar_url=body.get("avatar_url"),
+                lang_tag=body.get("lang_tag"),
+                metadata=body.get("metadata"),
+                open=body.get("open"),
+                max_count=body.get("max_count"),
+            )
+            return json_response({})
+        except Exception as e:
+            return self._map_error(e)
+
+    async def _h_group_delete(self, request: HttpRequest):
+        try:
+            claims = self._session(request)
+            await self.server.groups.delete(
+                self._id(request), caller_id=claims.user_id
+            )
+            return json_response({})
+        except Exception as e:
+            return self._map_error(e)
+
+    def _make_group_action(self, action: str):
+        async def handler(request: HttpRequest):
+            try:
+                claims = self._session(request)
+                groups = self.server.groups
+                gid = self._id(request)
+                if action == "join":
+                    await groups.join(gid, claims.user_id, claims.username)
+                elif action == "leave":
+                    await groups.leave(gid, claims.user_id)
+                else:
+                    fn = getattr(groups, f"users_{action}")
+                    await fn(
+                        gid, request.query_all("user_ids"),
+                        caller_id=claims.user_id,
+                    )
+                return json_response({})
+            except Exception as e:
+                return self._map_error(e)
+
+        return handler
+
+    async def _h_group_users(self, request: HttpRequest):
+        try:
+            self._session(request)
+            q = request.query
+            result = await self.server.groups.users_list(
+                self._id(request),
+                limit=_limit(q),
+                state=int(q["state"]) if "state" in q else None,
+                cursor=q.get("cursor", ""),
+            )
+            return json_response(result)
+        except Exception as e:
+            return self._map_error(e)
+
+    async def _h_user_groups(self, request: HttpRequest):
+        try:
+            self._session(request)
+            q = request.query
+            result = await self.server.groups.user_groups_list(
+                self._id(request),
+                limit=_limit(q),
+                state=int(q["state"]) if "state" in q else None,
+                cursor=q.get("cursor", ""),
+            )
+            return json_response(result)
+        except Exception as e:
+            return self._map_error(e)
+
+    # ----------------------------------------------------------- channels
+
+    async def _h_channel_messages(self, request: HttpRequest):
+        """Chat history (reference ListChannelMessages, api_channel.go:
+        group channels require membership, DMs require being a
+        participant; rooms are open)."""
+        try:
+            claims = self._session(request)
+            channel_id = self._id(request)
+            stream = channel_id_to_stream(channel_id)
+            if stream.mode == StreamMode.DM:
+                if claims.user_id not in (stream.subject, stream.subcontext):
+                    raise ApiError(
+                        "not a participant in this conversation",
+                        403,
+                        GRPC_PERMISSION_DENIED,
+                    )
+            elif stream.mode == StreamMode.GROUP:
+                row = await self.server.db.fetch_one(
+                    "SELECT state FROM group_edge WHERE source_id = ?"
+                    " AND destination_id = ?",
+                    (stream.subject, claims.user_id),
+                )
+                state = None if row is None else row["state"]
+                if state not in (SUPERADMIN, ADMIN, MEMBER):
+                    raise ApiError(
+                        "must be a group member", 403, GRPC_PERMISSION_DENIED
+                    )
+            q = request.query
+            result = await self.server.channels.messages_list(
+                channel_id,
+                limit=_limit(q),
+                forward=_parse_bool(q.get("forward", "true")),
+                cursor=q.get("cursor", ""),
+            )
+            return json_response(result)
+        except Exception as e:
+            return self._map_error(e)
+
     # ------------------------------------------------------------- matches
 
     async def _h_match_list(self, request: HttpRequest):
@@ -604,10 +1086,6 @@ class ApiServer:
             return self._map_error(e)
 
     # ----------------------------------------- leaderboards / tournaments
-
-    def _id(self, request: HttpRequest, index: int = 2) -> str:
-        """The `{id}` (index 2) or `{owner_id}` (index 4) path segment."""
-        return urllib.parse.unquote(request.path.split("/")[index + 1])
 
     async def _h_lb_record_write(self, request: HttpRequest):
         """Reference WriteLeaderboardRecord (api_leaderboard.go): client
@@ -761,11 +1239,21 @@ class ApiServer:
                 str(e), 429, GRPC_RESOURCE_EXHAUSTED,
                 headers={"Retry-After": str(int(e.retry_after_sec))},
             )
-        if isinstance(e, (AuthError, LeaderboardError)):
+        if isinstance(
+            e,
+            (AuthError, ChannelError, FriendError, GroupError,
+             LeaderboardError, NotificationError, WalletError),
+        ):
             status, code = _AUTH_CODE_TO_HTTP.get(
                 getattr(e, "code", ""), (400, GRPC_INVALID_ARGUMENT)
             )
             return _error_response(str(e), status, code)
+        if isinstance(e, StorageVersionError):
+            return _error_response(str(e), 409, GRPC_ALREADY_EXISTS)
+        if isinstance(e, StoragePermissionError):
+            return _error_response(str(e), 403, GRPC_PERMISSION_DENIED)
+        if isinstance(e, StorageError):
+            return _error_response(str(e), 400, GRPC_INVALID_ARGUMENT)
         if isinstance(e, (ValueError, KeyError)):
             # Malformed client input (unparsable ints, bad cursors).
             return _error_response(str(e), 400, GRPC_INVALID_ARGUMENT)

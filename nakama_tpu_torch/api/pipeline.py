@@ -6,11 +6,12 @@ dispatched to its handler. The port's copy of the JAX package's
 `api/pipeline.py`: the same `process` → realtime-class admission and
 deadline → `_dispatch` path with one trace root span per envelope, and
 the handlers of `ping`/`pong`, `matchmaker_add`/`remove`,
-`status_follow`/`unfollow`/`update`, `match_*` and `party_*` (one node:
-the JAX package's cross-node join and data branches are left out).
-`channel_*` and `rpc` answer what the JAX `_dispatch` answers for a key
-without a handler: BAD_INPUT "{key} not available" (ROADMAP.md §A lists
-them as later slices).
+`status_follow`/`unfollow`/`update`, `match_*`, `party_*` (one node:
+the JAX package's cross-node join and data branches are left out) and
+`channel_join`/`leave`/`message_send`/`update`/`remove` over the port's
+`core/channel.py`. `rpc` answers what the JAX `_dispatch` answers for a
+key without a handler: BAD_INPUT "rpc not available" (the runtime is a
+later slice, ROADMAP.md §A.2).
 """
 
 from __future__ import annotations
@@ -18,15 +19,24 @@ from __future__ import annotations
 import asyncio
 import base64
 import binascii
+import json
 from dataclasses import dataclass
 from typing import Any
 
 from .. import overload
 from .. import tracing as trace_api
+from ..core import account as core_account
+from ..core.channel import (
+    ChannelError,
+    channel_id_to_stream,
+    channel_to_stream,
+    stream_to_channel_id,
+)
+from ..core.group import ADMIN, MEMBER, SUPERADMIN
 from ..logger import Logger
 from ..match.party import PartyError
 from ..metrics import Metrics
-from ..realtime import PresenceMeta, Stream, StreamMode
+from ..realtime import Presence, PresenceID, PresenceMeta, Stream, StreamMode
 from .envelope import REQUEST_KEYS, ErrorCode, error, message_key
 
 
@@ -58,6 +68,8 @@ class Components:
     matchmaker: Any = None
     match_registry: Any = None
     party_registry: Any = None
+    channels: Any = None  # core/channel.py Channels
+    groups: Any = None  # core/group.py Groups (channel-join membership gate)
     session_registry: Any = None
     db: Any = None  # user resolution (status follow)
     metrics: Metrics | None = None
@@ -276,7 +288,10 @@ class Pipeline:
         raw_ids = [u for u in (body.get("user_ids") or []) if u]
         usernames = [u for u in (body.get("usernames") or []) if u]
         if self.c.db is not None:
-            user_ids = await _existing_user_ids(self.c.db, raw_ids, usernames)
+            users = await core_account.get_users(
+                self.c.db, user_ids=raw_ids, usernames=usernames
+            )
+            user_ids = {u["id"] for u in users}
         else:
             user_ids = set(raw_ids)
         self.c.status_registry.follow(session.id, user_ids)
@@ -329,8 +344,6 @@ class Pipeline:
     # --------------------------------------------------------------- match
 
     def _presence_for(self, session, stream: Stream, hidden=False):
-        from ..realtime import Presence, PresenceID
-
         return Presence(
             id=PresenceID(self.c.config.name, session.id),
             stream=stream,
@@ -793,18 +806,161 @@ class Pipeline:
         self._note_party_op("data", handler)
 
 
-async def _existing_user_ids(db, user_ids: list[str], usernames: list[str]) -> set[str]:
-    """Ids of the users named by id or username that exist (the JAX
-    package's `core/account.py::get_users`, ids only)."""
-    found: set[str] = set()
-    for column, values in (("id", user_ids), ("username", usernames)):
-        if values:
-            marks = ", ".join("?" for _ in values)
-            rows = await db.fetch_all(
-                f"SELECT id FROM users WHERE {column} IN ({marks})", values
+    # ------------------------------------------------------------- channel
+
+    async def _h_channel_join(self, session, cid, body):
+        """Reference pipeline_channel.go channelJoin: map (type, target)
+        to a stream, track, answer with the channel + current presences."""
+        _require(self.c.channels, "channels")
+        try:
+            stream = channel_to_stream(
+                int(body.get("type", 0)),
+                str(body.get("target", "")),
+                session.user_id,
             )
-            found.update(row["id"] for row in rows)
-    return found
+        except ChannelError as e:
+            raise PipelineError(str(e)) from e
+        if stream.mode == StreamMode.GROUP and self.c.groups is not None:
+            # Group chat requires membership (reference
+            # pipeline_channel.go channelJoin group gate).
+            row = await self.c.groups.db.fetch_one(
+                "SELECT state FROM group_edge WHERE source_id = ?"
+                " AND destination_id = ?",
+                (stream.subject, session.user_id),
+            )
+            state = None if row is None else row["state"]
+            if state not in (SUPERADMIN, ADMIN, MEMBER):
+                raise PipelineError("must be a group member")
+        presence = Presence(
+            id=PresenceID(self.c.config.name, session.id),
+            stream=stream,
+            user_id=session.user_id,
+            meta=PresenceMeta(
+                format=session.format,
+                username=session.username,
+                hidden=bool(body.get("hidden", False)),
+                persistence=bool(body.get("persistence", True)),
+            ),
+        )
+        existing = [
+            p.as_dict()
+            for p in self.c.tracker.list_by_stream(stream)
+            if not p.meta.hidden
+        ]
+        self.c.tracker.track(
+            session.id, stream, session.user_id, presence.meta
+        )
+        out: dict = {
+            "channel": {
+                "id": stream_to_channel_id(stream),
+                "presences": existing,
+                "self": presence.as_dict(),
+            }
+        }
+        if stream.mode == StreamMode.CHANNEL:
+            out["channel"]["room_name"] = stream.label
+        elif stream.mode == StreamMode.GROUP:
+            out["channel"]["group_id"] = stream.subject
+        else:
+            out["channel"]["user_id_one"] = stream.subject
+            out["channel"]["user_id_two"] = stream.subcontext
+        if cid:
+            out["cid"] = cid
+        session.send(out)
+
+    def _h_channel_leave(self, session, cid, body):
+        try:
+            stream = channel_id_to_stream(body.get("channel_id", ""))
+        except ChannelError as e:
+            raise PipelineError(str(e)) from e
+        self.c.tracker.untrack(session.id, stream)
+        if cid:
+            session.send({"cid": cid})
+
+    def _in_channel(self, session, channel_id: str):
+        try:
+            stream = channel_id_to_stream(channel_id)
+        except ChannelError as e:
+            raise PipelineError(str(e)) from e
+        if self.c.tracker.get_by_stream_user(stream, session.id) is None:
+            raise PipelineError("must join channel before sending")
+        return stream
+
+    def _message_content(self, body: dict) -> dict:
+        """The `content` of a send or update: a JSON object, or a string
+        that holds one."""
+        content = body.get("content")
+        if isinstance(content, str):
+            try:
+                content = json.loads(content)
+            except ValueError:
+                content = None
+        if not isinstance(content, dict):
+            raise PipelineError("content must be a JSON object")
+        return content
+
+    async def _h_channel_message_send(self, session, cid, body):
+        """Reference pipeline_channel.go channelMessageSend."""
+        channels = _require(self.c.channels, "channels")
+        channel_id = body.get("channel_id", "")
+        self._in_channel(session, channel_id)
+        content = self._message_content(body)
+        try:
+            message = await channels.message_send(
+                channel_id,
+                content,
+                sender_id=session.user_id,
+                sender_username=session.username,
+            )
+        except ChannelError as e:
+            raise PipelineError(str(e)) from e
+        self._message_ack(session, cid, message)
+
+    async def _h_channel_message_update(self, session, cid, body):
+        channels = _require(self.c.channels, "channels")
+        channel_id = body.get("channel_id", "")
+        self._in_channel(session, channel_id)
+        content = self._message_content(body)
+        try:
+            message = await channels.message_update(
+                channel_id,
+                body.get("message_id", ""),
+                content,
+                sender_id=session.user_id,
+                sender_username=session.username,
+            )
+        except ChannelError as e:
+            raise PipelineError(str(e)) from e
+        self._message_ack(session, cid, message)
+
+    async def _h_channel_message_remove(self, session, cid, body):
+        channels = _require(self.c.channels, "channels")
+        channel_id = body.get("channel_id", "")
+        self._in_channel(session, channel_id)
+        try:
+            message = await channels.message_remove(
+                channel_id,
+                body.get("message_id", ""),
+                sender_id=session.user_id,
+                sender_username=session.username,
+            )
+        except ChannelError as e:
+            raise PipelineError(str(e)) from e
+        self._message_ack(session, cid, message)
+
+    def _message_ack(self, session, cid, message: dict):
+        """`channel_message_ack` as the JAX handlers build it: the
+        message's ids and code, the sender's username, its times (a send
+        has a create_time) and persistence."""
+        ack = {k: message[k] for k in ("channel_id", "message_id", "code")}
+        ack["username"] = session.username
+        for k in ("create_time", "update_time", "persistent"):
+            if k in message:
+                ack[k] = message[k]
+        out: dict = {"channel_message_ack": ack}
+        if cid:
+            out["cid"] = cid
+        session.send(out)
 
 
 class PipelineError(Exception):

@@ -17,21 +17,21 @@ from .types import PresenceEvent, PresenceID, Stream, StreamMode
 
 def _chat_channel_id(stream: Stream) -> str | None:
     """The channel id for a chat-mode stream, or None for irregular
-    shapes: the four-dot id (`mode.subject.subcontext.label`) only where
-    the channel core's parser would accept it back (the JAX package's
-    `core/channel.py` `stream_to_channel_id`/`channel_id_to_stream`,
-    kept here until the port has its channel core)."""
-    s, c, lab = stream.subject, stream.subcontext, stream.label
-    mode = stream.mode
-    if any("." in part for part in (s, c, lab)):
+    shapes. ONE rule set: build the id and let channel_id_to_stream — the
+    parser every client echo goes through — accept or reject it."""
+    # Imported here: core/channel.py imports this package.
+    from ..core.channel import (
+        ChannelError,
+        channel_id_to_stream,
+        stream_to_channel_id,
+    )
+
+    channel_id = stream_to_channel_id(stream)
+    try:
+        channel_id_to_stream(channel_id)
+    except ChannelError:
         return None
-    if mode == StreamMode.CHANNEL and (s or c or not lab):
-        return None
-    if mode == StreamMode.GROUP and (not s or c or lab):
-        return None
-    if mode == StreamMode.DM and (not s or not c or lab):
-        return None
-    return f"{int(mode)}.{s}.{c}.{lab}"
+    return channel_id
 
 
 class LocalMessageRouter:

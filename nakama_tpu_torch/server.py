@@ -4,12 +4,13 @@ Parity with the reference main() (reference main.go:64-282) for the
 components the port has: metrics → session registry/caches → tracker →
 router → match registry → matchmaker (`CudaBackend` on the card) →
 recovery plane → tracing and device telemetry → overload plane → party
-registry → leaderboards (the `DeviceRankEngine` on the matchmaker's
-device) → pipeline → socket acceptor → API server — and graceful
-shutdown in reverse, ending with drain-to-durable. The port's copy of
-the JAX package's `server.py`; the cluster, runtime, channels and the
-rest of `core/`, social, IAP, console and gRPC of the JAX server come
-with their own slices (ROADMAP.md §A).
+registry → channels, notifications, wallets, friends and groups →
+leaderboards (the `DeviceRankEngine` on the matchmaker's device) →
+pipeline → socket acceptor → API server — and graceful shutdown in
+reverse, ending with drain-to-durable. The port's copy of the JAX
+package's `server.py`; the cluster, runtime, purchases, social, IAP,
+console and gRPC of the JAX server come with their own slices
+(ROADMAP.md §A).
 """
 
 from __future__ import annotations
@@ -21,6 +22,11 @@ from .api.matchmaker_events import make_matched_handler
 from .api.pipeline import Components, Pipeline
 from .api.socket import SocketAcceptor
 from .config import Config, apply_observability, parse_args
+from .core.channel import Channels
+from .core.friend import Friends
+from .core.group import Groups
+from .core.notification import Notifications
+from .core.wallet import Wallets
 from .logger import Logger, set_node_name, setup_logging
 from .match import LocalMatchRegistry, LocalPartyRegistry
 from .matchmaker import LocalMatchmaker
@@ -199,6 +205,11 @@ class NakamaServer:
         self.tracker.add_listener(
             StreamMode.PARTY, self.party_registry.join_listener()
         )
+        self.channels = Channels(log, self.db, self.router)
+        self.notifications = Notifications(log, self.db, self.router)
+        self.wallets = Wallets(log, self.db)
+        self.friends = Friends(log, self.db, self.notifications)
+        self.groups = Groups(log, self.db)
         self._build_leaderboards(config, log)
         self.pipeline = Pipeline(
             log,
@@ -211,6 +222,8 @@ class NakamaServer:
                 match_registry=self.match_registry,
                 party_registry=self.party_registry,
                 session_registry=self.session_registry,
+                channels=self.channels,
+                groups=self.groups,
                 db=self.db,
                 metrics=self.metrics,
                 overload=self.overload,

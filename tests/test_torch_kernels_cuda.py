@@ -446,6 +446,106 @@ def test_rank_engine_on_the_card_matches_the_oracle():
     assert engine.breaker.state == "closed" and engine.breaker.failures == 0
 
 
+@pytest.mark.cuda
+def test_account_delete_keeps_the_card_s_ranks_the_oracle_s(tmp_path):
+    """A server whose `DeviceRankEngine` holds a 5,000-record board on
+    cuda:0: three players post records, one deletes its account. As in
+    the JAX server, the delete removes the record in SQL and tells
+    neither rank store: the listing no longer shows it, and every rank
+    the card gives (owners, a window, a haystack) is the host oracle's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import asyncio
+    import base64
+    import sqlite3
+
+    from nakama_tpu_torch.api import wsproto
+    from nakama_tpu_torch.config import parse_args
+    from nakama_tpu_torch.leaderboard import LeaderboardRankCache, Leaderboards
+    from nakama_tpu_torch.logger import test_logger
+    from nakama_tpu_torch.server import NakamaServer
+    from nakama_tpu_torch.storage import Database
+
+    path = str(tmp_path / "server.db")
+    cfg = parse_args([
+        "--socket.port", "0", "--data_dir", str(tmp_path),
+        "--database.address", path, "--matchmaker.interval_sec", "100",
+        "--leaderboard.device_min_board_size", "1000",
+        "--leaderboard.device_flush_interval_sec", "0.05",
+    ])
+    basic = {"Authorization": "Basic " + base64.b64encode(b"defaultkey:").decode()}
+    n = 5000
+    rng = np.random.default_rng(4)
+
+    async def seed():
+        db = Database(path, read_pool_size=1)
+        await db.connect()
+        boards = Leaderboards(test_logger(), db, LeaderboardRankCache())
+        await boards.load()
+        await boards.create("card-board", sort_order="desc")
+        await db.close()
+        con = sqlite3.connect(path)
+        con.executemany(
+            "INSERT INTO leaderboard_record (leaderboard_id, owner_id, username,"
+            " score, subscore, num_score, metadata, create_time, update_time,"
+            " expiry_time, max_num_score) VALUES ('card-board', ?, ?, ?, 0, 1,"
+            " '{}', ?, ?, 0, 0)",
+            ((f"seed-{i:05d}", f"seed{i}", int(s), 1.0 + i, 1.0 + i)
+             for i, s in enumerate(rng.integers(0, 300, n))))
+        con.commit()
+        con.close()
+
+    async def call(server, method, url, token, body=None):
+        r = await wsproto.request("127.0.0.1", server.port, method, url,
+                                  headers={"Authorization": f"Bearer {token}"},
+                                  body=body)
+        assert r.status == 200, r.body
+        return r.json()
+
+    async def run():
+        await seed()
+        server = NakamaServer(cfg, test_logger())
+        await server.start()
+        try:
+            engine, oracle = server.leaderboards.device, server.leaderboards.ranks
+            assert engine.device == torch.device("cuda:0")
+            players = []
+            for i in range(3):
+                r = await wsproto.request(
+                    "127.0.0.1", server.port, "POST",
+                    "/v2/account/authenticate/device", headers=basic,
+                    body={"account": {"id": f"device-rank-{i}"}})
+                token = r.json()["token"]
+                await call(server, "POST", "/v2/leaderboard/card-board", token,
+                           {"score": 150 + i})
+                players.append(token)
+            account = await call(server, "GET", "/v2/account", players[1])
+            gone_id = account["user"]["id"]
+            await call(server, "DELETE", "/v2/account", players[1])
+            await asyncio.sleep(0.1)  # past the flush interval
+            listing = await call(server, "GET",
+                                 "/v2/leaderboard/card-board?limit=1000", players[0])
+            hay = await call(server, "GET",
+                             f"/v2/leaderboard/card-board/owner/{account['user']['id']}"
+                             "?limit=5", players[0])
+            owners = [r["owner_id"] for r in listing["records"]]
+            assert gone_id not in owners
+            key = ("card-board", 0.0)
+            assert engine._boards.get(key) is not None  # adopted at start()
+            assert [r["rank"] for r in hay["records"]] == [
+                oracle.get(*key, r["owner_id"]) + 1 for r in hay["records"]]
+            everyone = [f"seed-{i:05d}" for i in range(n)] + owners[:3]
+            assert engine.get_many(*key, everyone) == oracle.get_many(*key, everyone)
+            assert engine.rank_window(*key, 0, 200) == oracle.rank_window(*key, 0, 200)
+            assert [r["rank"] for r in listing["records"]] == [
+                oracle.get(*key, o) + 1 for o in owners]
+            assert engine.fallbacks == 0 and engine.breaker.failures == 0
+        finally:
+            await server.stop()
+
+    asyncio.run(run())
+
+
 def _lex_board(rng, c, pad):
     """[C, 3] int32 keys in lexicographic order with ties in each column
     (and whole-key ties), `pad` PAD_KEY rows at the tail."""

@@ -1,5 +1,5 @@
 """The port's server (`nakama_tpu_torch/server.py` over `api/`,
-`realtime/`, `core/authenticate.py`) held against the JAX package's
+`realtime/`, `core/`) held against the JAX package's
 `NakamaServer`: both run the same seeded script — HTTP auth (device,
 email, custom), refresh and logout, health, socket pings, matchmaker
 adds and removes, malformed envelopes, status follows, one interval
@@ -9,7 +9,11 @@ id and match-token claims identical apart from ids and expiry. The port
 runs `CudaBackend(device="cpu")` (the kernels' plain versions), the JAX
 server its host oracle; the tickets come in unique pairs plus a few
 that fit no one, so the groups do not depend on arrival order or the
-backend. Also: parsed `/metrics` scrapes, `Config.check()` and
+backend. Then the rest of `core/` over REST and the socket (accounts,
+links, storage, friends and their notifications, groups, chat channels
+and their history, an account delete before a board listing), and on
+the port alone the 30 routes of later slices, each 501. Also: parsed
+`/metrics` scrapes, `Config.check()` and
 `parse_args`, and `python -m nakama_tpu_torch` in a subprocess (JAX
 never imported; SIGTERM exits 0; a restart recovers the unmatched
 tickets).
@@ -18,6 +22,7 @@ Stated tolerance: none — every compared value must be equal."""
 
 import asyncio
 import base64
+import importlib
 import json
 import os
 import queue
@@ -27,6 +32,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.parse
 
 import numpy as np
 import pytest
@@ -45,6 +51,8 @@ from nakama_tpu_torch.matchmaker.cuda import CudaBackend
 from nakama_tpu_torch.server import NakamaServer
 
 HOST = "127.0.0.1"
+SOCIAL = ("apple", "facebook", "facebookinstantgame", "gamecenter", "google",
+          "steam")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGS = [
     "--socket.port", "0", "--metrics.prometheus_port", "-1",
@@ -114,6 +122,9 @@ def ticket_plan(seed: int, n_pairs: int, n_single: int):
     return [plan[i] for i in order]
 
 
+CURSOR_KEYS = ("cursor", "cacheable_cursor", "next_cursor", "prev_cursor")
+
+
 class Normaliser:
     """Replaces a server's random ids with stable names."""
 
@@ -124,10 +135,24 @@ class Normaliser:
         self.names[value] = name
 
     def text(self, value: str) -> str:
-        """`value` with every known id inside it replaced."""
-        for raw, name in self.names.items():
-            value = value.replace(raw, name)
+        """`value` with every known id inside it replaced, the longest
+        first (a channel id holds user ids)."""
+        for raw in sorted(self.names, key=len, reverse=True):
+            value = value.replace(raw, self.names[raw])
         return value
+
+    def cursor(self, value: str):
+        """A history cursor (`<time>|<id>`) with its time and id
+        normalised, a storage cursor (base64 JSON of the last key and
+        owner) decoded with its owner normalised; any other as it is."""
+        if "|" in value:
+            tail = value.split("|", 1)[1]
+            return "<time>|" + self.names.get(tail, tail)
+        try:
+            decoded = json.loads(base64.b64decode(value, validate=True))
+        except ValueError:
+            return value
+        return {"storage_cursor": self(decoded)}
 
     def __call__(self, obj):
         if isinstance(obj, dict):
@@ -137,8 +162,14 @@ class Normaliser:
                     out[k] = "<token>"
                 elif k in ("create_time", "update_time", "receive_time_ms"):
                     out[k] = "<time>"
+                elif k in CURSOR_KEYS and isinstance(v, str) and v:
+                    out[k] = self.cursor(v)
                 else:
                     out[k] = self(v)
+            if "user_id_one" in out:
+                # A DM's two users come in the order of their raw ids.
+                pair = sorted((out["user_id_one"], out["user_id_two"]))
+                out["user_id_one"], out["user_id_two"] = pair
             return out
         if isinstance(obj, list):
             return [self(v) for v in obj]
@@ -203,13 +234,16 @@ async def run_script(server, key: str) -> dict:
         "cup", duration=3600, start_time=T0, join_required=True,
         max_num_score=2)
 
-    async def call(method, path, headers=None, body=None):
+    async def call(method, path, headers=None, body=None, shown=None):
+        """One request; logged as `shown` (a path whose query holds a
+        cursor) or by its path, normalised at the end (ids learned from
+        an answer name it too)."""
         r = await wsproto.request(HOST, port, method, path, headers=headers, body=body)
         try:
             payload = r.json()
         except ValueError:
             payload = r.body.decode()
-        out["http"].append((method, norm.text(path), r.status, norm(payload)))
+        out["http"].append((method, path, shown, r.status, payload))
         return r.status, payload
 
     await call("GET", "/healthcheck")
@@ -310,9 +344,7 @@ async def run_script(server, key: str) -> dict:
     for env in malformed:
         await first_ws.send(json.dumps(env))
         await recv_until(first_ws, "error", first_log)
-    # A key whose handler is a later slice's: the JAX answer for a key
-    # without a handler (the JAX server has this one, so it is checked
-    # here, outside the compared log).
+    # A channel join without a type.
     await first_ws.send(json.dumps({"cid": "m9", "channel_join": {"target": "r"}}))
     err = await recv_until(first_ws, "error", [])
     out["channel_join"] = err["error"]
@@ -369,6 +401,11 @@ async def run_script(server, key: str) -> dict:
                 "users": users,
             }
     await play(server, norm, out, clients, tokens, call)
+    await social(server, key, norm, clients, tokens, call)
+    if key == "torch":
+        out["later"] = await later_routes(server, tokens)
+    out["http"] = [(method, shown or norm.text(path), status, norm(payload))
+                   for method, path, shown, status, payload in out["http"]]
     for device, (ws, log, _, _) in clients.items():
         out["ws"][device] = [
             norm(e) for e in log
@@ -501,6 +538,309 @@ async def play(server, norm, out, clients, tokens, call):
     await call("GET", "/v2/leaderboard/arena?limit=x", bearer(token))
 
 
+def _q(path: str, cursor: str) -> str:
+    return f"{path}cursor={urllib.parse.quote(cursor)}"
+
+
+async def social(server, key, norm, clients, tokens, call):
+    """The rest of `core/` over REST and the socket: accounts and
+    users, device/email/custom links, storage (owner, public and
+    system-owned objects, versions, cursors to the end), friends with
+    their notifications on the socket, groups, chat in a room, a DM and
+    a group channel with its history, a wallet written in-process (no
+    route writes one), and an account delete followed by the board's
+    listing and a haystack."""
+    core = importlib.import_module(
+        ("nakama_tpu" if key == "jax" else "nakama_tpu_torch") + ".core.storage")
+    devs = sorted(tokens)
+    a, b, c, d, e = devs[:5]
+    auth = {dv: bearer(tokens[dv][0]) for dv in devs}
+    uid = {dv: tokens[dv][1] for dv in devs}
+    ws = {dv: clients[dv][:2] for dv in devs}
+
+    async def wait(dv, want):
+        sock, log = ws[dv]
+        return await recv_until(sock, want, log)
+
+    async def envelope(dv, body, want):
+        await ws[dv][0].send(json.dumps(body))
+        return await wait(dv, want)
+
+    # Accounts and users; a wallet written in-process.
+    await server.wallets.update_wallets(
+        [{"user_id": uid[a], "changeset": {"coins": 10, "gems": 2},
+          "metadata": {"why": "seed"}}])
+    await call("GET", "/v2/account", auth[a])
+    await call("GET", "/v2/account")
+    await call("PUT", "/v2/account", auth[a], {
+        "display_name": "Ada", "timezone": "UTC", "location": "here",
+        "lang_tag": "fr", "avatar_url": "http://a/1.png"})
+    await call("PUT", "/v2/account", auth[a], {"username": "bad name!"})
+    await call("PUT", "/v2/account", auth[a], {"username": b})
+    await call("GET", "/v2/account", auth[a])
+    # (One id: rows fetched by several come in the order of their random
+    # ids.)
+    await call("GET", f"/v2/user?ids={uid[b]}&usernames={d}&usernames={c}"
+               f"&usernames=nobody&usernames={b}"
+               "&ids=00000000-0000-0000-0000-000000000000", auth[a])
+    # Links: device, email, custom; the last method stays.
+    await call("POST", "/v2/account/link/custom", auth[a], {"id": "custom-a-link"})
+    await call("POST", "/v2/account/link/custom", auth[b], {"id": "custom-a-link"})
+    await call("POST", "/v2/account/link/custom", auth[a], {"id": "abc"})
+    await call("POST", "/v2/account/link/email", auth[a],
+               {"email": "a-link@example.com", "password": "password9"})
+    await call("POST", "/v2/account/link/email", auth[a],
+               {"email": "a-link@example.com", "password": "short"})
+    await call("POST", "/v2/account/link/device", auth[a], {"id": "device-extra-a"})
+    await call("POST", "/v2/account/link/device", auth[a], {"id": b})
+    await call("GET", "/v2/account", auth[a])
+    await call("POST", "/v2/account/unlink/custom", auth[a], {})
+    await call("POST", "/v2/account/unlink/custom", auth[a], {})
+    await call("POST", "/v2/account/unlink/email", auth[a], {})
+    await call("POST", "/v2/account/unlink/device", auth[a], {"id": "device-extra-a"})
+    await call("POST", "/v2/account/unlink/device", auth[a], {"id": a})
+    await call("POST", "/v2/account/unlink/email", auth[a], {})
+    # Storage: writes with versions and permissions, reads, listings.
+    _, acks = await call("PUT", "/v2/storage", auth[a], {"objects": [
+        {"collection": "saves", "key": "slot1", "value": {"hp": 10}},
+        {"collection": "saves", "key": "slot2", "value": '{"hp": 20}',
+         "permission_read": 2},
+        {"collection": "saves", "key": "slot3", "value": {"x": 1},
+         "permission_read": 0, "permission_write": 0}]})
+    version = acks["acks"][0]["version"]
+    for obj in ({"key": "slot1", "value": {"hp": 11}, "version": "*"},
+                {"key": "slot1", "value": {"hp": 11}, "version": "0" * 32},
+                {"key": "slot1", "value": {"hp": 11}, "version": version},
+                {"key": "slot3", "value": {"x": 2}},
+                {"key": "new", "value": {"y": 1}, "version": version},
+                {"key": "bad", "value": "not json"},
+                {"key": "bad", "value": "[1]"},
+                {"key": "bad", "value": {}, "permission_read": 3},
+                {"key": "", "value": {}}):
+        await call("PUT", "/v2/storage", auth[a],
+                   {"objects": [{"collection": "saves", **obj}]})
+    # (b's object has a key of its own: a listing orders by key, then by
+    # the owner's random id.)
+    await call("PUT", "/v2/storage", auth[b], {"objects": [
+        {"collection": "saves", "key": "shared", "value": {"hp": 5},
+         "permission_read": 2}, {"collection": "saves", "key": "mine",
+                                 "value": {"hp": 6}}]})
+    ids = [{"collection": "saves", "key": k, "user_id": u}
+           for k, u in (("slot1", uid[a]), ("slot2", uid[a]), ("slot3", uid[a]),
+                        ("shared", uid[b]), ("mine", uid[b]), ("gone", uid[a]))]
+    await call("POST", "/v2/storage", auth[a], {"object_ids": ids})
+    await call("POST", "/v2/storage", auth[b], {"object_ids": ids})
+    await call("POST", "/v2/storage", auth[b], {"object_ids": [
+        {"collection": "saves", "key": "mine"}]})
+    _, page = await call("GET", "/v2/storage/saves?limit=2", auth[a])
+    await call("GET", _q("/v2/storage/saves?limit=2&", page["cursor"]), auth[a],
+               shown="/v2/storage/saves?limit=2&cursor=<page 1>")
+    await call("GET", f"/v2/storage/saves/{uid[a]}", auth[b])
+    await call("GET", f"/v2/storage/saves?user_id={uid[b]}", auth[a])
+    await call("GET", "/v2/storage/saves?cursor=garbage", auth[a])
+    await core.storage_write_objects(server.db, None, [
+        core.StorageOpWrite("public", f"k{i:02d}", "", json.dumps({"i": i}),
+                            permission_read=2, permission_write=0)
+        for i in range(7)])
+    cursor, n = "", 0
+    while True:
+        path = "/v2/storage/public?limit=3&"
+        _, page = await call("GET", _q(path, cursor), auth[c],
+                             shown=f"{path}cursor=<page {n}>")
+        cursor, n = page["cursor"], n + 1
+        if not cursor:
+            break
+    await call("PUT", "/v2/storage/delete", auth[a], {"object_ids": [
+        {"collection": "saves", "key": "slot2", "version": "0" * 32}]})
+    await call("PUT", "/v2/storage/delete", auth[a], {"object_ids": [
+        {"collection": "saves", "key": "slot2"}, {"collection": "saves", "key": "gone"}]})
+    await call("PUT", "/v2/storage/delete", auth[a], {"object_ids": [
+        {"collection": "saves", "key": "slot3"}]})
+    await call("PUT", "/v2/storage/delete", auth[a], {"object_ids": [
+        {"collection": "saves", "key": "gone", "version": version}]})
+    await call("GET", "/v2/storage/saves", auth[a])
+    # Friends; each request's notification reaches the partner's socket.
+    await call("POST", f"/v2/friend?ids={uid[b]}", auth[a])
+    note = await wait(b, "notifications")
+    norm.learn(note["notifications"]["notifications"][0]["id"], "note:invite")
+    await call("GET", "/v2/friend", auth[a])
+    await call("GET", "/v2/friend", auth[b])
+    await call("POST", f"/v2/friend?usernames={a}", auth[b])
+    note = await wait(a, "notifications")
+    norm.learn(note["notifications"]["notifications"][0]["id"], "note:accept")
+    await call("GET", "/v2/friend?state=0", auth[a])
+    await call("POST", f"/v2/friend?ids={uid[a]}", auth[a])
+    await call("POST", "/v2/friend?ids=00000000-0000-0000-0000-000000000000", auth[a])
+    await call("POST", f"/v2/friend/block?ids={uid[c]}", auth[a])
+    await call("POST", f"/v2/friend?ids={uid[a]}", auth[c])
+    await call("POST", f"/v2/friend?ids={uid[c]}", auth[a])
+    await call("GET", "/v2/friend", auth[c])
+    await call("DELETE", f"/v2/friend?ids={uid[c]}", auth[a])
+    await call("DELETE", f"/v2/friend?ids={uid[b]}", auth[a])
+    await call("GET", "/v2/friend?limit=1", auth[a])
+    await call("GET", "/v2/friend?limit=1&cursor=1", auth[a])
+    await call("GET", "/v2/friend", auth[b])
+    await call("POST", f"/v2/friend?ids={uid[d]}", auth[b])
+    note = await wait(d, "notifications")
+    norm.learn(note["notifications"]["notifications"][0]["id"], "note:second")
+    # Notifications: listed, paged by the cacheable cursor, deleted.
+    _, listed = await call("GET", "/v2/notification?limit=1", auth[b])
+    await call("GET", _q("/v2/notification?limit=1&", listed["cacheable_cursor"]),
+               auth[b], shown="/v2/notification?limit=1&cursor=<page 1>")
+    await call("GET", "/v2/notification", auth[d])
+    await call("DELETE", f"/v2/notification?ids={listed['notifications'][0]['id']}",
+               auth[a])
+    await call("GET", "/v2/notification", auth[b])
+    await call("DELETE", f"/v2/notification?ids={listed['notifications'][0]['id']}",
+               auth[b])
+    await call("GET", "/v2/notification", auth[b])
+    # Groups: open and closed, max_count, roles, requests, listings.
+    _, g1 = await call("POST", "/v2/group", auth[a], {
+        "name": "Guild", "description": "d", "max_count": 3,
+        "metadata": {"tier": 1}})
+    norm.learn(g1["id"], "group:guild")
+    await call("POST", "/v2/group", auth[b], {"name": "Guild"})
+    await call("POST", "/v2/group", auth[b], {"name": ""})
+    _, g2 = await call("POST", "/v2/group", auth[c], {"name": "Closed", "open": False})
+    norm.learn(g2["id"], "group:closed")
+    guild, closed = f"/v2/group/{g1['id']}", f"/v2/group/{g2['id']}"
+    for dv in (b, d, e):
+        await call("POST", f"{guild}/join", auth[dv])
+    await call("GET", f"{guild}/user", auth[e])
+    await call("POST", f"{closed}/join", auth[a])
+    await call("POST", f"{closed}/join", auth[a])
+    await call("GET", f"{closed}/user?state=3", auth[c])
+    await call("POST", f"{closed}/add?user_ids={uid[d]}", auth[a])
+    await call("POST", f"{closed}/add?user_ids={uid[a]}", auth[c])
+    await call("POST", f"{guild}/promote?user_ids={uid[b]}", auth[a])
+    await call("POST", f"{guild}/promote?user_ids={uid[b]}", auth[a])
+    await call("POST", f"{guild}/demote?user_ids={uid[b]}", auth[a])
+    await call("POST", f"{guild}/kick?user_ids={uid[d]}&user_ids={uid[a]}", auth[b])
+    await call("POST", f"{guild}/ban?user_ids={uid[d]}", auth[a])
+    await call("POST", f"{guild}/join", auth[d])
+    await call("POST", f"{guild}/join", auth[e])
+    await call("POST", f"{guild}/kick?user_ids={uid[a]}", auth[d])
+    await call("GET", f"{guild}/user", auth[e])
+    await call("POST", f"{guild}/leave", auth[a])
+    await call("POST", f"{guild}/leave", auth[b])
+    await call("PUT", guild, auth[a], {"description": "new", "max_count": 5,
+                                       "open": False})
+    await call("PUT", guild, auth[b], {"description": "mine"})
+    await call("GET", "/v2/group?name=Gu%25", auth[e])
+    await call("GET", "/v2/group?limit=1", auth[e])
+    await call("GET", "/v2/group?limit=1&cursor=1", auth[e])
+    await call("GET", "/v2/group?open=false", auth[e])
+    await call("GET", f"/v2/user/{uid[a]}/group", auth[e])
+    await call("GET", f"/v2/user/{uid[a]}/group?state=2", auth[e])
+    await call("GET", "/v2/group/00000000-0000-0000-0000-000000000000/user", auth[e])
+    await call("POST", "/v2/group/00000000-0000-0000-0000-000000000000/join", auth[e])
+    await call("DELETE", closed, auth[a])
+    await call("DELETE", closed, auth[c])
+    await call("GET", f"/v2/user/{uid[a]}/group", auth[e])
+    # Chat: a room, a DM with history, a group channel; bad envelopes.
+    await envelope(a, {"cid": "ch1", "channel_join": {"type": 1, "target": "lobby"}},
+                   "channel")
+    await envelope(b, {"cid": "ch2", "channel_join": {"type": 1, "target": "lobby",
+                                                        "hidden": False}}, "channel")
+    await wait(a, "channel_presence_event")
+    dm = await envelope(a, {"cid": "ch3", "channel_join": {"type": 3,
+                                                           "target": uid[b]}}, "channel")
+    dm_id = dm["channel"]["id"]
+    norm.learn(dm_id, "channel:dm")
+    await envelope(b, {"cid": "ch4", "channel_join": {"type": 3, "target": uid[a]}},
+                   "channel")
+    await wait(a, "channel_presence_event")
+    sent = []
+    for i, (dv, other) in enumerate(((a, b), (b, a), (a, b))):
+        ack = await envelope(dv, {"cid": f"m{i}", "channel_message_send": {
+            "channel_id": dm_id, "content": {"n": i}}}, "channel_message_ack")
+        norm.learn(ack["channel_message_ack"]["message_id"], f"message:{i}")
+        sent.append(ack["channel_message_ack"]["message_id"])
+        await wait(other, "channel_message")
+    await envelope(a, {"cid": "u1", "channel_message_update": {
+        "channel_id": dm_id, "message_id": sent[0], "content": '{"n": 10}'}},
+        "channel_message_ack")
+    await wait(b, "channel_message")
+    await envelope(b, {"cid": "u2", "channel_message_update": {
+        "channel_id": dm_id, "message_id": sent[0], "content": {"n": 11}}}, "error")
+    await envelope(b, {"cid": "r1", "channel_message_remove": {
+        "channel_id": dm_id, "message_id": sent[2]}}, "error")
+    await envelope(a, {"cid": "r2", "channel_message_remove": {
+        "channel_id": dm_id, "message_id": sent[2]}}, "channel_message_ack")
+    await wait(b, "channel_message")
+    await envelope(a, {"cid": "r3", "channel_message_remove": {
+        "channel_id": dm_id, "message_id": sent[2]}}, "error")
+    group = await envelope(e, {"cid": "g1", "channel_join": {
+        "type": 2, "target": g1["id"]}}, "channel")
+    group_id = group["channel"]["id"]
+    norm.learn(group_id, "channel:guild")
+    ack = await envelope(e, {"cid": "g2", "channel_message_send": {
+        "channel_id": group_id, "content": {"hello": "guild"}}}, "channel_message_ack")
+    norm.learn(ack["channel_message_ack"]["message_id"], "message:guild")
+    for dv, env in (
+        (d, {"cid": "b1", "channel_join": {"type": 2, "target": g1["id"]}}),
+        (a, {"cid": "b2", "channel_join": {"type": 9, "target": "x"}}),
+        (a, {"cid": "b3", "channel_join": {"type": 3, "target": uid[a]}}),
+        (a, {"cid": "b4", "channel_join": {"type": 1, "target": "a.b"}}),
+        (c, {"cid": "b5", "channel_message_send": {"channel_id": dm_id,
+                                                   "content": {}}}),
+        (a, {"cid": "b6", "channel_message_send": {"channel_id": dm_id,
+                                                   "content": "not json"}}),
+        (a, {"cid": "b7", "channel_message_send": {"channel_id": "1.2",
+                                                   "content": {}}}),
+        (a, {"cid": "b8", "channel_leave": {"channel_id": "9..."}}),
+    ):
+        await envelope(dv, env, "error")
+    await envelope(a, {"cid": "l1", "channel_leave": {"channel_id": "2...lobby"}},
+                   "cid")
+    await wait(b, "channel_presence_event")
+    history = f"/v2/channel/{dm_id}"
+    _, page = await call("GET", f"{history}?limit=1", auth[a])
+    await call("GET", _q(f"{history}?limit=1&", page["next_cursor"]), auth[b],
+               shown=f"{norm.text(history)}?limit=1&cursor=<next 1>")
+    await call("GET", f"{history}?forward=false", auth[b])
+    await call("GET", history, auth[c])
+    await call("GET", f"/v2/channel/{group_id}", auth[e])
+    await call("GET", f"/v2/channel/{group_id}", auth[c])
+    await call("GET", "/v2/channel/2...lobby", auth[c])
+    await call("GET", "/v2/channel/bad", auth[c])
+    # An account delete: its board record leaves the listing.
+    await call("DELETE", "/v2/account", auth[e])
+    await call("GET", "/v2/account", auth[e])
+    await call("GET", f"/v2/user?ids={uid[e]}", auth[a])
+    await call("GET", "/v2/leaderboard/arena", auth[a])
+    await call("GET", f"/v2/leaderboard/arena/owner/{uid[a]}?limit=4", auth[a])
+    await call("GET", f"{guild}/user", auth[a])
+    await call("GET", "/v2/account", auth[a])
+
+
+# The routes that stay 501 on the port until their slices land.
+LATER_ROUTES = (
+    [("POST", f"/v2/account/authenticate/{p}") for p in SOCIAL]
+    + [("POST", f"/v2/account/{kind}/{p}") for kind in ("link", "unlink")
+       for p in SOCIAL]
+    + [("POST", "/v2/rpc/x"), ("GET", "/v2/rpc/x"), ("POST", "/v2/event"),
+       ("POST", "/v2/friend/facebook"), ("POST", "/v2/friend/steam")]
+    + [("POST", f"/v2/iap/purchase/{s}") for s in ("apple", "google", "huawei")]
+    + [("GET", "/v2/iap/subscription"), ("POST", "/v2/iap/subscription/apple"),
+       ("POST", "/v2/iap/subscription/google"), ("GET", "/v2/iap/subscription/x")]
+)
+
+
+async def later_routes(server, tokens) -> dict:
+    """What the port answers on each route that a later slice ports, and
+    how many of its routes answer 501 at all."""
+    token = bearer(tokens[sorted(tokens)[0]][0])
+    answers = {}
+    for method, path in LATER_ROUTES:
+        r = await wsproto.request(HOST, server.port, method, path,
+                                  headers=token, body={})
+        answers[(method, path)] = (r.status, r.json())
+    unimplemented = [h for _, _, h in server.api._routes
+                     if h == server.api._h_unimplemented]
+    return {"answers": answers, "n_unimplemented": len(unimplemented)}
+
+
 async def test_same_script_same_answers_as_the_jax_server(tmp_path):
     jax = await jax_server(tmp_path / "jax")
     try:
@@ -520,11 +860,17 @@ async def test_same_script_same_answers_as_the_jax_server(tmp_path):
     assert len(got["matched"]) == 8
     assert got["claims"] == want["claims"]
     assert got["pool_after"] == want["pool_after"]
-    assert got["channel_join"] == {"code": 3, "message": "channel_join not available"}
+    assert got["channel_join"] == want["channel_join"] == {
+        "code": 3, "message": "invalid channel type"}
     assert got["play"] == want["play"]
     relays = [p for p in got["play"] if isinstance(p, dict) and "match_data" in p]
     assert len(relays) == 4 + 2  # each pair's relay, the echo to both
     assert got["play"][-1] == 0  # the closed party's ticket left the pool
+    # The routes of later slices: exactly these 30 answer 501.
+    assert len(LATER_ROUTES) == got["later"]["n_unimplemented"] == 30
+    assert all(answer == (501, {"error": "not yet implemented",
+                                "message": "not yet implemented", "code": 12})
+               for answer in got["later"]["answers"].values())
     # The scrapes: the same families and the same unlabeled series
     # (values differ with each server's own components and timings, and
     # labeled series appear with the backend's activity: the JAX
