@@ -29,8 +29,11 @@ haystack; then the rest of `core/`: friends with their notifications
 on the socket, DM channels with history, storage beside a seeded
 100,000-object collection, groups, wallets and an account delete),
 stops and restarts with the same pool, ranks and social state,
-and `python -m nakama_tpu_torch` serves and stops on SIGTERM in a
-subprocess. Then matches and parties on a fresh server (party
+and `python -m nakama_tpu_torch` serves a runtime rpc and stops on
+SIGTERM in a subprocess. Then the runtime: the same warm restart with
+Lua, JS and Python modules loaded, the Lua `matchmaker_matched` hook
+on every group the first interval forms, 64 clients sent into the JS
+match it names, its rpcs and a hooked record write. Then matches and parties on a fresh server (party
 matchmaking, token joins, an authoritative Python match found through
 `GET /v2/match`), and the leaderboard rank engine on the card over a
 10,000,000-record board against the host oracle, with its fault legs
@@ -2166,13 +2169,13 @@ def raise_fd_limit(need: int) -> dict:
             "hard": hard}
 
 
-async def build_server_checkpoint(pickled: bytes, cfg) -> dict:
+async def build_server_checkpoint(pickled: bytes, cfg, seed_objects: bool = True) -> dict:
     """The north-star snapshot restored into a matchmaker on the card and
     checkpointed through the port's `Checkpointer` into the server's
-    data_dir, beside its SQLite file, with the board created and the
-    social leg's storage collection seeded. Returns the checkpoint's
-    stats and each recovered ticket's query by session (the client-side
-    validity check needs the partners' queries)."""
+    data_dir, beside its SQLite file, with the board created and (with
+    `seed_objects`) the social leg's storage collection seeded. Returns
+    the checkpoint's stats and each recovered ticket's query by session
+    (the client-side validity check needs the partners' queries)."""
     from nakama_tpu_torch.recovery import Checkpointer, TicketJournal
     from nakama_tpu_torch.storage import Database
 
@@ -2195,7 +2198,7 @@ async def build_server_checkpoint(pickled: bytes, cfg) -> dict:
     boards = Leaderboards(StrictLogger(), db, LeaderboardRankCache())
     await boards.load()
     await boards.create(SERVER_BOARD, sort_order="desc")
-    storage_seed_s = await seed_storage(db)
+    storage_seed_s = await seed_storage(db) if seed_objects else 0.0
     await db.close()
     check_backend_clean(mm, "server build")
     mm.stop()
@@ -3256,12 +3259,28 @@ def phase_server(pickled: bytes) -> dict:
     return launches
 
 
+def write_modules(path: str, modules: dict) -> str:
+    """Runtime modules (file name → source) written into `path`."""
+    os.makedirs(path, exist_ok=True)
+    for name, text in modules.items():
+        with open(os.path.join(path, name), "w") as fh:
+            fh.write(text)
+    return path
+
+
+MODULE_LEG_RPC = '''
+def init_module(ctx, logger, nk, initializer):
+    initializer.register_rpc("smoke_ping", lambda ctx, payload: "pong:" + payload)
+'''
+
+
 def server_module_leg(out_dir: str, backend: str = "cuda") -> dict:
     """`python -X importtime -m nakama_tpu_torch` (on cuda:0 with the
-    default `backend`), flags only, a small pool: two clients matched,
-    two unmatchable tickets left, SIGTERM → exit 0; a restart reads
-    `recovered_tickets` 2 and `held_tickets` 2 (held for their players)
-    from its boot log. No module of JAX or of the
+    default `backend`), flags only, a small pool and `--runtime.path`
+    holding one Python rpc module: the rpc answers once (by `http_key`),
+    two clients matched, two unmatchable tickets left, SIGTERM → exit
+    0; a restart reads `recovered_tickets` 2 and `held_tickets` 2 (held
+    for their players) from its boot log. No module of JAX or of the
     JAX package is imported."""
     import shutil
 
@@ -3270,8 +3289,11 @@ def server_module_leg(out_dir: str, backend: str = "cuda") -> dict:
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
     here = os.path.dirname(os.path.abspath(__file__))
+    modules = write_modules(os.path.join(out_dir, "modules"),
+                            {"ping.py": MODULE_LEG_RPC})
     argv = [
         sys.executable, "-X", "importtime", "-m", "nakama_tpu_torch",
+        "--runtime.path", modules,
         "--socket.port", "0", "--matchmaker.interval_sec", "1",
         "--matchmaker.pool_capacity", "8192",
         "--database.address", os.path.join(out_dir, "server.db"),
@@ -3335,6 +3357,13 @@ def server_module_leg(out_dir: str, backend: str = "cuda") -> dict:
         port = lines[-1]["port"]
 
         async def clients():
+            r = await wsproto.request(
+                "127.0.0.1", port, "POST",
+                "/v2/rpc/smoke_ping?http_key=defaulthttpkey", body="hi")
+            if r.status != 200 or r.json() != {"id": "smoke_ping",
+                                               "payload": "pong:hi"}:
+                raise AssertionError(f"python -m rpc: {r.status} {r.body[:200]!r}")
+            out["rpc"] = r.json()
             socks = []
             for i, (mode, want) in enumerate(
                 [("duo", "duo"), ("duo", "duo"), ("a", "none0"), ("b", "none1")]
@@ -3393,6 +3422,380 @@ def server_module_leg(out_dir: str, backend: str = "cuda") -> dict:
         if proc.poll() is None:
             proc.kill()
     return out
+
+
+# ------------------------------------------------------------- runtime
+
+RUNTIME_CLIENTS = 64
+# The runtime phase's modules, loaded from `runtime.path` in file-name
+# order: the Lua matched hook sends every group that holds a client into
+# the JS `arena` match; the JS module also writes records by rpc and
+# rewrites (or refuses) the REST writes; the Python module stamps the
+# clients' tickets and counts the events.
+RUNTIME_MODULES = {
+    "a_matched.lua": """
+nk.register_matchmaker_matched(function(ctx, entries)
+  nk.metrics_counter_add("smoke_matched_hook_calls", nil, 1)
+  for _, e in ipairs(entries) do
+    if e.string_properties.arena == "js" then
+      return nk.match_create("arena", {size = #entries})
+    end
+  end
+  return ""
+end)
+""",
+    "b_arena.js": """
+function InitModule(ctx, logger, nk, initializer) {
+  initializer.registerMatch("arena", {
+    matchInit: function(ctx, params) {
+      return {state: {}, tickRate: 10, label: JSON.stringify({arena: "js"})};
+    },
+    matchJoinAttempt: function(ctx, d, tick, state, presence, metadata) {
+      return {state: state, accept: true};
+    },
+    matchJoin: function(ctx, d, tick, state, presences) {
+      return {state: state};
+    },
+    matchLeave: function(ctx, d, tick, state, presences) {
+      return {state: state};
+    },
+    matchLoop: function(ctx, d, tick, state, messages) {
+      for (var i = 0; i < messages.length; i++) {
+        var m = messages[i];
+        d.broadcastMessage(m.opCode + 1, m.data, [m.sender]);
+      }
+      return {state: state};
+    },
+    matchTerminate: function(ctx, d, tick, state, grace) {
+      return {state: state};
+    },
+    matchSignal: function(ctx, d, tick, state, data) {
+      return {state: state, data: data};
+    }
+  });
+  initializer.registerRpc("arena_write", function(ctx, payload) {
+    var input = JSON.parse(payload);
+    var record = nk.leaderboardRecordWrite(
+      "%(board)s", ctx.userId, ctx.username, input.score, 0, {via: "rpc"});
+    return JSON.stringify({score: record.score});
+  });
+  initializer.registerReqBefore("WriteLeaderboardRecord", function(ctx, body) {
+    var record = body.record || body;
+    if (record.score < 0) { return null; }
+    record.score = record.score * 10 + 1;
+    return body;
+  });
+}
+""" % {"board": SERVER_BOARD},
+    "c_hooks.py": '''
+COUNTS = {"events": 0, "session_start": 0, "session_end": 0, "shutdown": 0}
+
+
+def _bump(key):
+    COUNTS[key] += 1
+
+
+def init_module(ctx, logger, nk, initializer):
+    def matchmaker_add(ctx, key, body):
+        body["string_properties"] = {
+            **(body.get("string_properties") or {}), "arena": "js"}
+        return body
+
+    initializer.register_before_rt("MatchmakerAdd", matchmaker_add)
+    initializer.register_event(lambda ctx, event: _bump("events"))
+    initializer.register_event_session_start(
+        lambda ctx, t: _bump("session_start"))
+    initializer.register_event_session_end(
+        lambda ctx, reason: _bump("session_end"))
+    initializer.register_shutdown(lambda ctx: _bump("shutdown"))
+''',
+}
+
+
+async def runtime_client(port: int, i: int, rec: dict, key: str) -> None:
+    """One player of the runtime phase: device auth, /ws, a north-star
+    `matchmaker_add` (stamped by the Python hook), the matched envelope
+    (a match id from the Lua hook), `match_join` by that id and one
+    echo from the JS match; the JS rpc over the socket and over HTTP;
+    a REST record write (client 0's negative score is refused by the JS
+    before hook); one `/v2/event`."""
+    from nakama_tpu_torch.api import session_token, wsproto
+
+    q, strs, nums = north_star_ticket(np.random.default_rng(9000 + i))
+    rng = np.random.default_rng(9500 + i)
+    rec["device"] = f"smoke-runtime-{i:04d}"
+    r = await wsproto.request(
+        "127.0.0.1", port, "POST", "/v2/account/authenticate/device",
+        headers={"Authorization": "Basic " + base64.b64encode(
+            f"{SERVER_KEY}:".encode()).decode()},
+        body={"account": {"id": rec["device"]}})
+    if r.status != 200:
+        raise AssertionError(f"runtime client {i}: auth {r.status}")
+    rec["token"] = r.json()["token"]
+    rec["user_id"] = session_token.parse(key, rec["token"]).user_id
+    bearer = {"Authorization": f"Bearer {rec['token']}"}
+    ws = rec["ws"] = await wsproto.connect(
+        "127.0.0.1", port, f"/ws?token={rec['token']}")
+    inbox = Inbox(ws)
+    await ws.send(json.dumps({"cid": "add", "matchmaker_add": {
+        "min_count": 2, "max_count": 2, "query": q,
+        "string_properties": strs, "numeric_properties": nums}}))
+    tid = rec["ticket"] = (await inbox.take(
+        lambda e: "matchmaker_ticket" in e, 60))["matchmaker_ticket"]["ticket"]
+    try:
+        env = await inbox.take(lambda e: e.get(
+            "matchmaker_matched", {}).get("ticket") == tid, 30)
+        rec["matched"] = env["matchmaker_matched"]
+    except asyncio.TimeoutError:
+        rec["matched"] = None
+    if rec["matched"] is not None:
+        mid = rec["matched"].get("match_id")
+        if not mid:
+            raise AssertionError(f"runtime client {i}: no match id {rec['matched']}")
+        t0 = time.perf_counter()
+        await ws.send(json.dumps({"cid": "join", "match_join": {"match_id": mid}}))
+        joined = await inbox.take(lambda e: e.get("cid") == "join")
+        if joined.get("match", {}).get("match_id") != mid:
+            raise AssertionError(f"runtime client {i}: join answered {joined}")
+        data = base64.b64encode(rec["device"].encode()).decode()
+        await ws.send(json.dumps({"match_data_send": {
+            "match_id": mid, "op_code": 1, "data": data}}))
+        echo = (await inbox.take(lambda e: "match_data" in e))["match_data"]
+        rec["join_to_echo_ms"] = (time.perf_counter() - t0) * 1e3
+        if echo["op_code"] != 2 or echo["data"] != data:
+            raise AssertionError(f"runtime client {i}: echo {echo}")
+        rec["match_id"] = mid
+    # The REST write first (the hook's rewrite is its answer's score),
+    # then the JS rpc's two lower writes.
+    score = -1 if i == 0 else int(rng.integers(0, 20_000))
+    t0 = time.perf_counter()
+    r = await wsproto.request(
+        "127.0.0.1", port, "POST", f"/v2/leaderboard/{SERVER_BOARD}",
+        headers=bearer, body={"record": {"score": score}})
+    rec["write_ms"] = (time.perf_counter() - t0) * 1e3
+    rec["write"] = (score, r.status, r.json().get("score"))
+    t0 = time.perf_counter()
+    await ws.send(json.dumps({"cid": "rpc", "rpc": {
+        "id": "arena_write", "payload": json.dumps({"score": i})}}))
+    answer = await inbox.take(lambda e: e.get("cid") == "rpc")
+    rec["rpc_ws_ms"] = (time.perf_counter() - t0) * 1e3
+    if "rpc" not in answer:
+        raise AssertionError(f"runtime client {i}: socket rpc {answer}")
+    t0 = time.perf_counter()
+    r = await wsproto.request(
+        "127.0.0.1", port, "POST", "/v2/rpc/arena_write", headers=bearer,
+        body=json.dumps({"score": i + 1}))
+    rec["rpc_http_ms"] = (time.perf_counter() - t0) * 1e3
+    if r.status != 200:
+        raise AssertionError(f"runtime client {i}: HTTP rpc {r.status} {r.body[:200]!r}")
+    r = await wsproto.request(
+        "127.0.0.1", port, "POST", "/v2/event", headers=bearer,
+        body={"name": "smoke", "properties": {"i": str(i)}})
+    if r.status != 200:
+        raise AssertionError(f"runtime client {i}: event {r.status}")
+
+
+def phase_runtime(pickled: bytes) -> dict:
+    """The runtime on the card's main path: `NakamaServer` over the north
+    star's checkpoint (as in `server`, without the storage seed) loads a
+    Lua, a JS and a Python module from `runtime.path`; the Lua
+    `matchmaker_matched` hook runs on every group of every delivery
+    (the first holds the 100,000 restored tickets' groups, formed by
+    stage1_wgmma), and sends each group holding a client into the JS
+    echo match. 64 clients play it, call the JS rpc over the socket and
+    HTTP, write a record through the JS before hook and read their
+    haystacks on the card, and post an event. Asserts: stage1_wgmma
+    launched and stage1 not; the hook called once a delivered group;
+    every client given a match id joins it and gets its echo; every rank
+    the oracle's, the rewritten scores stored, the negative one refused;
+    64 events, 64 session starts and ends, one shutdown hook; no guest
+    worker thread after `stop()`; no error line in the server log."""
+    import shutil
+
+    from nakama_tpu_torch import kernels
+    from nakama_tpu_torch.api import wsproto
+    from nakama_tpu_torch.leaderboard import cuda as b8
+    from nakama_tpu_torch.runtime.js.runtime import GuestMatchCore
+    from nakama_tpu_torch.server import NakamaServer
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(OUT_DIR, "chip_smoke", "runtime")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    modules = write_modules(os.path.join(out_dir, "modules"), RUNTIME_MODULES)
+    cfg = server_config(out_dir)
+    cfg.runtime.path = modules
+    res: dict = {}
+    # The JS match's callbacks, on the loop (waits for the module's
+    # interpreter, which its rpc shares, included).
+    match_calls = {"calls": 0, "s": 0.0}
+    guest_call = GuestMatchCore._call
+
+    def timed_call(core, name, args):
+        t = time.perf_counter()
+        try:
+            return guest_call(core, name, args)
+        finally:
+            match_calls["s"] += time.perf_counter() - t
+            match_calls["calls"] += 1
+
+    async def run():
+        built = await build_server_checkpoint(pickled, cfg, seed_objects=False)
+        built.pop("queries")
+        res["build"] = built
+        gc.collect()
+        log = ServerLog(os.path.join(out_dir, "server.log"))
+        for k in kernels.KERNELS:
+            k.launches = 0
+        b8.reset_launches()
+        server = NakamaServer(cfg, log.logger)
+        # The hook's own time and calls, and each delivery's time and
+        # groups, wrapped as the runtime attaches at start().
+        hook = {"calls": 0, "s": 0.0}
+        deliveries: list = []
+        attach = server.attach_runtime
+
+        def timed_attach(runtime):
+            get_hook = runtime.matchmaker_matched
+
+            def timed_hook():
+                fn = get_hook()
+
+                def call(entries):
+                    t = time.perf_counter()
+                    try:
+                        return fn(entries)
+                    finally:
+                        hook["s"] += time.perf_counter() - t
+                        hook["calls"] += 1
+
+                return call
+
+            runtime.matchmaker_matched = timed_hook
+            attach(runtime)
+            handler = server.matchmaker.on_matched
+
+            def timed_handler(batch):
+                t = time.perf_counter()
+                try:
+                    return handler(batch)
+                finally:
+                    deliveries.append((len(batch), time.perf_counter() - t))
+
+            server.matchmaker.on_matched = timed_handler
+
+        server.attach_runtime = timed_attach
+        t0 = time.perf_counter()
+        await server.start()
+        res["start_s"] = time.perf_counter() - t0
+        res["modules"] = server.runtime.modules
+        counts = sys.modules["nakama_runtime_c_hooks"].COUNTS
+        beats: list = []
+
+        async def heartbeat():
+            while True:
+                t = time.perf_counter()
+                await asyncio.sleep(0.01)
+                beats.append((time.perf_counter() - t - 0.01) * 1e3)
+
+        beat = asyncio.get_running_loop().create_task(heartbeat())
+        recs = [{"i": i} for i in range(RUNTIME_CLIENTS)]
+        key = cfg.session.encryption_key
+        t0 = time.perf_counter()
+        await asyncio.gather(*(runtime_client(server.port, i, rec, key)
+                               for i, rec in enumerate(recs)))
+        res["client_leg_s"] = time.perf_counter() - t0
+        await asyncio.sleep(cfg.leaderboard.device_flush_interval_sec)
+        lex0 = kernels.LEX_RANKS.launches
+        hay = await asyncio.gather(*(
+            haystack_ranks(server.port, r["token"], r["user_id"]) for r in recs))
+        check_ranks(server, [w for _, w in hay])
+        beat.cancel()
+        try:
+            await beat
+        except asyncio.CancelledError:
+            pass
+        # Every REST write but client 0's was rewritten to 10 s + 1 (the
+        # rpc's later writes are lower: the board keeps the best).
+        bad = [r["write"] for r in recs[1:]
+               if r["write"][1:] != (200, 10 * r["write"][0] + 1)]
+        if recs[0]["write"][1] != 403 or bad:
+            raise AssertionError(f"hooked writes: {recs[0]['write']}, {bad[:5]}")
+        matched = [r for r in recs if r["matched"] is not None]
+        unmatched = [r for r in recs if r["matched"] is None]
+        for r in unmatched:
+            if server.matchmaker.store.get(r["ticket"]) is None:
+                raise AssertionError(f"runtime client {r['i']}: neither matched nor pooled")
+        scrape = (await wsproto.request(
+            "127.0.0.1", server.metrics_port, "GET", "/metrics")).body.decode()
+        lua_calls = sum(float(line.rsplit(" ", 1)[1]) for line in scrape.splitlines()
+                        if "smoke_matched_hook_calls" in line
+                        and not line.startswith("#") and "_created" not in line)
+        groups = sum(n for n, _ in deliveries)
+        if not (hook["calls"] == groups == lua_calls) or not groups:
+            raise AssertionError(
+                f"hook calls {hook['calls']} (Lua's count {lua_calls}),"
+                f" groups delivered {groups}")
+        res["lex_ranks_launches"] = kernels.LEX_RANKS.launches - lex0
+        if res["lex_ranks_launches"] <= 0:
+            raise AssertionError("the haystacks never launched lex_ranks")
+        res["sessions_before_stop"] = dict(counts)
+        t0 = time.perf_counter()
+        await server.stop()
+        res["stop_s"] = time.perf_counter() - t0
+        for r in recs:
+            try:
+                while True:
+                    await asyncio.wait_for(r["ws"].recv(), 10)
+            except wsproto.ConnectionClosed:
+                pass
+        if counts != {"events": RUNTIME_CLIENTS, "session_start": RUNTIME_CLIENTS,
+                      "session_end": RUNTIME_CLIENTS, "shutdown": 1}:
+            raise AssertionError(f"the Python module counted {counts}")
+        guests = [t.name for t in threading.enumerate()
+                  if t.name.startswith(("lua-", "js-"))]
+        if guests:
+            raise AssertionError(f"guest worker threads after stop(): {guests}")
+        errors = log.errors()
+        if errors:
+            raise AssertionError(f"the server logged errors: {errors[:5]}")
+
+        def pcts(samples):
+            return {k: v for k, v in ms_stats(samples).items() if k != "samples_ms"}
+
+        first_groups, first_s = deliveries[0]
+        res.update({
+            "clients": RUNTIME_CLIENTS, "matched": len(matched),
+            "still_pooled": len(unmatched),
+            "matches_joined": sum("match_id" in r for r in matched),
+            "first_delivery": {"groups": first_groups, "s": first_s},
+            "deliveries": len(deliveries), "groups": groups,
+            "hook": {"calls": hook["calls"], "s": hook["s"],
+                     "us_a_group": hook["s"] / hook["calls"] * 1e6},
+            "loop_stall_max_ms": max(beats),
+            # The heartbeat's lateness summed over the client leg.
+            "loop_stall_sum_ms": sum(beats),
+            "js_match_callbacks": match_calls,
+            "rpc_socket": pcts([r["rpc_ws_ms"] for r in recs]),
+            "rpc_http": pcts([r["rpc_http_ms"] for r in recs]),
+            "hooked_write": pcts([r["write_ms"] for r in recs]),
+            "join_to_echo": pcts([r["join_to_echo_ms"] for r in matched]),
+            "haystack": pcts([ms for ms, _ in hay]),
+            "counts": counts,
+        })
+
+    GuestMatchCore._call = timed_call
+    try:
+        asyncio.run(run())
+    finally:
+        GuestMatchCore._call = guest_call
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    check_routing(launches, "runtime")
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "runtime", "card": card(), **res, "launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
 
 
 # ------------------------------------------------------------- leaderboard
@@ -4127,6 +4530,8 @@ def main() -> int:
     del snap
     paths.append(phase_crash(recovery))
     paths.append(phase_server(pickled))
+    paths.append(phase_runtime(pickled))
+    del pickled
     paths.append(phase_match())
     lb_launches, lex = phase_leaderboard()
     paths.append(lb_launches)

@@ -5,6 +5,9 @@ up|down|redo|status`, `check`, else run the server.
 
 The server's matchmaker runs on the card (`matchmaker.backend` "cuda",
 the default) unless `--matchmaker.backend cpu` asks for the host oracle.
+`--runtime.path DIR` loads the `.py`, `.lua` and `.js` modules of DIR
+(their rpcs, hooks and matches) when the server starts;
+`--runtime.http_key` is the key of server-to-server `/v2/rpc` calls.
 """
 
 from __future__ import annotations

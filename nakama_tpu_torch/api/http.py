@@ -7,17 +7,21 @@ custom `/v2/account/authenticate/*` routes (server-key Basic auth),
 `/v2/account/session/refresh` and `/v2/session/logout`, the account,
 user and device/email/custom link and unlink routes, storage, friends
 (without the social imports), groups, notifications, channel history,
-`/v2/match`, and the leaderboard and tournament record routes, behind
+`/v2/match`, the leaderboard and tournament record routes, and
+`/v2/rpc/{id}` (GET and POST) and `/v2/event` into the runtime, behind
 the same overload middleware (admission classes, exempt paths, 429 +
 Retry-After, 504, the `traceparent` echo) and with the same error
 bodies (`{"error", "message", "code"}`) and status codes (`_map_error`).
 The JAX server's other routes (social authenticate, link and unlink,
-the Facebook and Steam friend imports, `/v2/rpc`, `/v2/event` and IAP)
-answer as its `_h_unimplemented` does (501) until their slices land
+the Facebook and Steam friend imports and IAP) answer as its
+`_h_unimplemented` does (501) until their slices land
 (`_LATER_ROUTES`); a path it does not route is 404, a method it does not
-route on a known path 405. The port has no runtime yet, so no
-before- or after-hook runs (the JAX server passes a request through
-unchanged when none is registered).
+route on a known path 405. The runtime's before- and after-request
+hooks run where the JAX server runs them (`_hooked`, `_after`): device,
+email and custom authenticate, `updateaccount`, `readstorageobjects`,
+`writestorageobjects`, `addfriends`, `creategroup` and
+`writeleaderboardrecord`; with no hook registered a request passes
+through unchanged.
 
 It runs over `wsproto` (the port's standard-library HTTP/1.1 and
 WebSocket transport), not `aiohttp`. The metrics listener serves the
@@ -85,15 +89,13 @@ _SOCIAL_PROVIDERS = (
 
 # The JAX package's routes that later slices port (method, path
 # pattern): each answers 501 here. Social authenticate, link and unlink
-# and the friend imports wait for `social/`, `/v2/rpc` and `/v2/event`
-# for the runtime, the IAP routes for `iap/` (ROADMAP.md §A).
+# and the friend imports wait for `social/`, the IAP routes for `iap/`
+# (ROADMAP.md §A).
 _LATER_ROUTES = (
     [("POST", f"/v2/account/authenticate/{p}") for p in _SOCIAL_PROVIDERS]
     + [("POST", f"/v2/account/{kind}/{p}")
        for kind in ("link", "unlink") for p in _SOCIAL_PROVIDERS]
     + [
-        ("POST", "/v2/rpc/{id}"), ("GET", "/v2/rpc/{id}"),
-        ("POST", "/v2/event"),
         ("POST", "/v2/friend/facebook"), ("POST", "/v2/friend/steam"),
         ("POST", "/v2/iap/purchase/apple"), ("POST", "/v2/iap/purchase/google"),
         ("POST", "/v2/iap/purchase/huawei"), ("GET", "/v2/iap/subscription"),
@@ -222,6 +224,9 @@ class ApiServer:
         routes += [
             ("GET", "/v2/notification", self._h_notification_list),
             ("DELETE", "/v2/notification", self._h_notification_delete),
+            ("POST", "/v2/rpc/{id}", self._h_rpc),
+            ("GET", "/v2/rpc/{id}", self._h_rpc),
+            ("POST", "/v2/event", self._h_event),
         ]
         routes += [(m, p, self._h_unimplemented) for m, p in _LATER_ROUTES]
         self._routes = [(m, _pattern(p), h) for m, p, h in routes]
@@ -503,6 +508,50 @@ class ApiServer:
             )
         return body if isinstance(body, dict) else {}
 
+    async def _hooked(self, method: str, ctx_claims, body: dict) -> dict:
+        """Run the before-request hook and return the body it gives back;
+        a None from the hook rejects the request with 403 (reference
+        api_*.go: a nil return from a before hook aborts with 404/403)."""
+        runtime = self.server.runtime
+        if runtime is None:
+            return body
+        fn = runtime.before_req(method)
+        if fn is None:
+            return body
+        ctx = runtime.context(mode="before")
+        if ctx_claims is not None:
+            ctx.user_id = ctx_claims.user_id
+            ctx.username = ctx_claims.username
+            ctx.vars = ctx_claims.vars
+        result = fn(ctx, body)
+        if asyncio.iscoroutine(result):
+            result = await result
+        if result is None:
+            raise ApiError(
+                "rejected by before hook", 403, GRPC_PERMISSION_DENIED
+            )
+        return result
+
+    async def _after(self, method: str, ctx_claims, body: dict, result):
+        runtime = self.server.runtime
+        if runtime is None:
+            return
+        fn = runtime.after_req(method)
+        if fn is None:
+            return
+        ctx = runtime.context(mode="after")
+        if ctx_claims is not None:
+            ctx.user_id = ctx_claims.user_id
+            ctx.username = ctx_claims.username
+        try:
+            out = fn(ctx, body, result)
+            if asyncio.iscoroutine(out):
+                await out
+        except Exception as e:
+            self.logger.error(
+                "after hook error", method=method, error=str(e)
+            )
+
     # ------------------------------------------------------------- basics
 
     async def _h_index(self, request):
@@ -538,6 +587,8 @@ class ApiServer:
             try:
                 self._check_server_key(request)
                 body = await self._json(request)
+                method = f"authenticate{provider}"
+                body = await self._hooked(method, None, body)
                 create = _parse_bool(
                     request.query.get("create", body.get("create", True))
                 )
@@ -574,6 +625,7 @@ class ApiServer:
                         user_id, uname, body.get("vars") or {}
                     ),
                 }
+                await self._after(method, None, body, result)
                 return json_response(result)
             except Exception as e:
                 return self._map_error(e)
@@ -650,6 +702,7 @@ class ApiServer:
         try:
             claims = self._session(request)
             body = await self._json(request)
+            body = await self._hooked("updateaccount", claims, body)
             await core_account.update_account(
                 self.server.db,
                 claims.user_id,
@@ -660,6 +713,7 @@ class ApiServer:
                 lang_tag=body.get("lang_tag"),
                 avatar_url=body.get("avatar_url"),
             )
+            await self._after("updateaccount", claims, body, {})
             return json_response({})
         except Exception as e:
             return self._map_error(e)
@@ -734,6 +788,7 @@ class ApiServer:
         try:
             claims = self._session(request)
             body = await self._json(request)
+            body = await self._hooked("readstorageobjects", claims, body)
             ops = [
                 StorageOpRead(
                     collection=o.get("collection", ""),
@@ -753,6 +808,7 @@ class ApiServer:
         try:
             claims = self._session(request)
             body = await self._json(request)
+            body = await self._hooked("writestorageobjects", claims, body)
             ops = []
             for o in body.get("objects", []):
                 value = o.get("value", "")
@@ -887,7 +943,9 @@ class ApiServer:
     async def _h_friend_add(self, request: HttpRequest):
         try:
             claims = self._session(request)
-            for fid in await self._resolve_target_ids(request):
+            ids = await self._resolve_target_ids(request)
+            body = await self._hooked("addfriends", claims, {"ids": ids})
+            for fid in body.get("ids", []):
                 await self.server.friends.add(
                     claims.user_id, claims.username, fid
                 )
@@ -921,6 +979,7 @@ class ApiServer:
         try:
             claims = self._session(request)
             body = await self._json(request)
+            body = await self._hooked("creategroup", claims, body)
             group = await self.server.groups.create(
                 claims.user_id,
                 body.get("name", ""),
@@ -1089,11 +1148,13 @@ class ApiServer:
 
     async def _h_lb_record_write(self, request: HttpRequest):
         """Reference WriteLeaderboardRecord (api_leaderboard.go): client
-        writes are refused on authoritative boards. (The JAX server runs
-        a runtime before-hook first; the port has no runtime yet.)"""
+        writes are refused on authoritative boards."""
         try:
             claims = self._session(request)
             body = await self._json(request)
+            body = await self._hooked(
+                "writeleaderboardrecord", claims, body
+            )
             record = body.get("record", body)
             result = await self.server.leaderboards.record_write(
                 self._id(request),
@@ -1225,6 +1286,84 @@ class ApiServer:
             return self._map_error(e)
 
     # ------------------------------------------------------------- errors
+
+    # ---------------------------------------------------------------- rpc
+
+    async def _h_rpc(self, request: HttpRequest):
+        """HTTP RPC (reference api.go:217 /v2/rpc/{id} hijack): bearer
+        session auth, or the runtime http_key for server-to-server calls."""
+        try:
+            rpc_id = self._id(request).lower()
+            runtime = self.server.runtime
+            if runtime is None:
+                raise ApiError("runtime not loaded", 501, GRPC_UNIMPLEMENTED)
+            fn = runtime.rpc(rpc_id)
+            if fn is None:
+                raise ApiError(
+                    f"RPC function not found: {rpc_id}",
+                    404,
+                    GRPC_NOT_FOUND,
+                )
+            http_key = request.query.get("http_key", "")
+            if http_key:
+                if http_key != self.config.runtime.http_key:
+                    raise ApiError(
+                        "invalid http key", 401, GRPC_UNAUTHENTICATED
+                    )
+                ctx = runtime.context(mode="rpc")
+            else:
+                claims = self._session(request)
+                ctx = runtime.context(
+                    mode="rpc",
+                    user_id=claims.user_id,
+                    username=claims.username,
+                    vars=claims.vars,
+                )
+            ctx.query_params = {
+                k: request.query_all(k) for k in request.query
+            }
+            if request.method == "POST":
+                payload = request.body.decode()
+                # grpc-gateway unwraps a JSON-string body ("\"x\"" -> x).
+                if payload.startswith('"') and payload.endswith('"'):
+                    try:
+                        payload = json.loads(payload)
+                    except ValueError:
+                        pass
+            else:
+                payload = request.query.get("payload", "")
+            try:
+                result = fn(ctx, payload)
+                if asyncio.iscoroutine(result):
+                    result = await result
+            except Exception as e:
+                raise ApiError(str(e), 500, GRPC_INTERNAL)
+            return json_response({"id": rpc_id, "payload": result or ""})
+        except Exception as e:
+            return self._map_error(e)
+
+    async def _h_event(self, request: HttpRequest):
+        try:
+            claims = self._session(request)
+            body = await self._json(request)
+            runtime = self.server.runtime
+            if runtime is not None:
+                ctx = runtime.context(
+                    mode="event",
+                    user_id=claims.user_id,
+                    username=claims.username,
+                )
+                runtime.fire_event(
+                    ctx,
+                    {
+                        "name": body.get("name", ""),
+                        "properties": body.get("properties") or {},
+                        "external": True,
+                    },
+                )
+            return json_response({})
+        except Exception as e:
+            return self._map_error(e)
 
     def _map_error(self, e: Exception) -> HttpResponse:
         if isinstance(e, ApiError):

@@ -9,8 +9,9 @@ every matched presence.
 
 The port's copy of the JAX package's `api/matchmaker_events.py`. It
 iterates the port's columnar `MatchBatch`, whose entry lists materialize
-per match as the loop reaches them; the runtime hook stays unset until
-the port has a runtime.
+per match as the loop reaches them, and calls the runtime's
+`matchmaker_matched` hook (when one is registered) once for each group,
+on the loop's thread, with that group's `MatchmakerEntry` list.
 """
 
 from __future__ import annotations

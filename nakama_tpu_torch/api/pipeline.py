@@ -9,9 +9,9 @@ the handlers of `ping`/`pong`, `matchmaker_add`/`remove`,
 `status_follow`/`unfollow`/`update`, `match_*`, `party_*` (one node:
 the JAX package's cross-node join and data branches are left out) and
 `channel_join`/`leave`/`message_send`/`update`/`remove` over the port's
-`core/channel.py`. `rpc` answers what the JAX `_dispatch` answers for a
-key without a handler: BAD_INPUT "rpc not available" (the runtime is a
-later slice, ROADMAP.md §A.2).
+`core/channel.py`, and `rpc` into the runtime's registered functions.
+The runtime's before and after realtime hooks run around every handler
+but `rpc`'s, as in the JAX pipeline.
 """
 
 from __future__ import annotations
@@ -74,6 +74,7 @@ class Components:
     db: Any = None  # user resolution (status follow)
     metrics: Metrics | None = None
     overload: Any = None  # OverloadController (overload.py); None in tests
+    runtime: Any = None
 
 
 class Pipeline:
@@ -188,6 +189,21 @@ class Pipeline:
         if not isinstance(body, dict):
             body = {}
 
+        runtime = self.c.runtime
+        if runtime is not None and key != "rpc":
+            before = runtime.before_rt(key)
+            if before is not None:
+                try:
+                    body = await _maybe_await(before(session, key, body))
+                except Exception as e:
+                    session.send(
+                        error(ErrorCode.RUNTIME_EXCEPTION, str(e), cid)
+                    )
+                    return True
+                if body is None:
+                    # Hook rejected the message silently.
+                    return True
+
         try:
             with trace_api.span(f"pipeline.{key}"):
                 await _maybe_await(handler(session, cid, body))
@@ -208,6 +224,15 @@ class Pipeline:
             if sp is not None:
                 sp.set_status("error", f"{type(e).__name__}: {e}")
             session.send(error(ErrorCode.RUNTIME_EXCEPTION, "internal error", cid))
+            return True
+
+        if runtime is not None and key != "rpc":
+            after = runtime.after_rt(key)
+            if after is not None:
+                try:
+                    await _maybe_await(after(session, key, body))
+                except Exception as e:
+                    self.logger.error("after hook error", key=key, error=str(e))
         return True
 
     # ---------------------------------------------------------------- ping
@@ -958,6 +983,34 @@ class Pipeline:
             if k in message:
                 ack[k] = message[k]
         out: dict = {"channel_message_ack": ack}
+        if cid:
+            out["cid"] = cid
+        session.send(out)
+
+    # ----------------------------------------------------------------- rpc
+
+    async def _h_rpc(self, session, cid, body):
+        runtime = _require(self.c.runtime, "runtime")
+        rpc_id = (body.get("id") or "").lower()
+        fn = runtime.rpc(rpc_id)
+        if fn is None:
+            raise PipelineError(
+                f"RPC function not found: {rpc_id}",
+                ErrorCode.RUNTIME_FUNCTION_NOT_FOUND,
+            )
+        payload = body.get("payload", "")
+        try:
+            result = await _maybe_await(
+                fn(
+                    runtime.session_context(session),
+                    payload,
+                )
+            )
+        except Exception as e:
+            raise PipelineError(
+                str(e), ErrorCode.RUNTIME_FUNCTION_EXCEPTION
+            ) from e
+        out: dict = {"rpc": {"id": rpc_id, "payload": result or ""}}
         if cid:
             out["cid"] = cid
         session.send(out)

@@ -13,7 +13,8 @@ that the server's stop closed (kind "shutdown", code 1012 with a
 Retry-After hint) keeps its tickets, which the restarted server holds
 for the player's next session (`recovery.HeldTickets`); the JAX
 acceptor removes them, and a graceful stop loses the tickets of every
-connected player.
+connected player. The runtime's session start and end events fire
+through `on_session_start`/`on_session_end`, as in the JAX acceptor.
 """
 
 from __future__ import annotations
@@ -50,6 +51,8 @@ class SocketAcceptor:
         metrics: Metrics | None = None,
         matchmaker=None,
         held=None,
+        on_session_start=None,
+        on_session_end=None,
     ):
         self.config = config
         self.logger = logger.with_fields(subsystem="socket")
@@ -61,6 +64,8 @@ class SocketAcceptor:
         self.metrics = metrics
         self.matchmaker = matchmaker
         self.held = held
+        self.on_session_start = on_session_start
+        self.on_session_end = on_session_end
 
     async def handle(self, ws: Any):
         """Serve one upgraded `/ws` connection (`wsproto.WebSocket`)."""
@@ -128,6 +133,8 @@ class SocketAcceptor:
             # A player back after a graceful restart: the tickets the
             # stop kept return to the pool under this session.
             self.held.reown(session)
+        if self.on_session_start is not None:
+            self.on_session_start(session)
         await session.consume(self.pipeline.process)
 
     async def _session_closed(self, session: WebSocketSession):
@@ -140,3 +147,5 @@ class SocketAcceptor:
         self.tracker.untrack_all(session.id)
         self.status_registry.unfollow_all(session.id)
         self.sessions.remove(session.id)
+        if self.on_session_end is not None:
+            self.on_session_end(session)

@@ -5,8 +5,8 @@ Field names, defaults and comments follow the JAX package's `config.py`
 section for section (reference server/config.go:35-1073), for the
 sections the port serves so far: the server's own fields (`name`,
 `data_dir`, `shutdown_grace_sec`), `logger`, `metrics`, `session`,
-`socket`, `database`, `matchmaker`, `match`, `tracker`, `leaderboard`,
-`overload`, `tracing`, `recovery` and `devobs`. The matchmaker section drops the mesh-sharding
+`socket`, `database`, `matchmaker`, `match`, `tracker`, `runtime`,
+`leaderboard`, `overload`, `tracing`, `recovery` and `devobs`. The matchmaker section drops the mesh-sharding
 knobs (the port runs on one card); `socket` has no `grpc_port` and
 `database` no `group_commit` (the port has neither path), and fields no
 port code reads yet are left out until the code that reads them lands
@@ -16,7 +16,7 @@ port code reads yet are left out until the code that reads them lands
 `conn_max_lifetime_ms`), and `leaderboard` drops
 `device_read_budget_ms` (the port's rank engine reads a board on the
 card whatever a request's deadline has left). A section the
-port does not have yet (`cluster`, `console`, `runtime`, ...) is an
+port does not have yet (`cluster`, `console`, `social`, ...) is an
 unknown key to `load_config`, as a typo is. `--config file.yml` imports
 PyYAML only when a file is given; flags alone need nothing outside the
 standard library. `apply_observability` hands the tracing and devobs
@@ -120,6 +120,15 @@ class MatchConfig:
 @dataclass
 class TrackerConfig:
     event_queue_size: int = 1024
+
+
+@dataclass
+class RuntimeConfig:
+    path: str = ""
+    env: dict[str, str] = field(default_factory=dict)
+    http_key: str = "defaulthttpkey"
+    event_queue_size: int = 65_536
+    event_queue_workers: int = 8
 
 
 @dataclass
@@ -346,6 +355,7 @@ class Config:
     matchmaker: MatchmakerConfig = field(default_factory=MatchmakerConfig)
     match: MatchConfig = field(default_factory=MatchConfig)
     tracker: TrackerConfig = field(default_factory=TrackerConfig)
+    runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
     leaderboard: LeaderboardConfig = field(default_factory=LeaderboardConfig)
     overload: OverloadConfig = field(default_factory=OverloadConfig)
     tracing: TracingConfig = field(default_factory=TracingConfig)

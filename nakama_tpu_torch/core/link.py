@@ -7,9 +7,10 @@ remains (the reference enforces this with a guarded conditional UPDATE; we
 count methods in the same transaction).
 
 The port's copy of the JAX package's `core/link.py` for device, email
-and custom ids. The social providers' link and unlink come with
-`social/` (ROADMAP.md §A.6); their columns still count as auth methods,
-since the schema is shared."""
+and custom ids, and the social providers' unlinks (they clear a column
+and need no provider; the runtime's `nk` calls them). The social links,
+which verify with a provider, come with `social/` (ROADMAP.md §A.6);
+the social columns count as auth methods, since the schema is shared."""
 
 from __future__ import annotations
 
@@ -181,3 +182,30 @@ async def link_custom(db: Database, user_id: str, custom_id: str) -> None:
 
 async def unlink_custom(db: Database, user_id: str) -> None:
     await _unlink_column(db, user_id, "custom_id")
+
+
+# ------------------------------------------------------------------ social
+
+
+async def unlink_facebook(db: Database, user_id: str) -> None:
+    await _unlink_column(db, user_id, "facebook_id")
+
+
+async def unlink_facebook_instant(db: Database, user_id: str) -> None:
+    await _unlink_column(db, user_id, "facebook_instant_game_id")
+
+
+async def unlink_google(db: Database, user_id: str) -> None:
+    await _unlink_column(db, user_id, "google_id")
+
+
+async def unlink_apple(db: Database, user_id: str) -> None:
+    await _unlink_column(db, user_id, "apple_id")
+
+
+async def unlink_steam(db: Database, user_id: str) -> None:
+    await _unlink_column(db, user_id, "steam_id")
+
+
+async def unlink_gamecenter(db: Database, user_id: str) -> None:
+    await _unlink_column(db, user_id, "gamecenter_id")

@@ -6,11 +6,14 @@ router → match registry → matchmaker (`CudaBackend` on the card) →
 recovery plane → tracing and device telemetry → overload plane → party
 registry → channels, notifications, wallets, friends and groups →
 leaderboards (the `DeviceRankEngine` on the matchmaker's device) →
-pipeline → socket acceptor → API server — and graceful shutdown in
-reverse, ending with drain-to-durable. The port's copy of the JAX
-package's `server.py`; the cluster, runtime, purchases, social, IAP,
-console and gRPC of the JAX server come with their own slices
-(ROADMAP.md §A).
+pipeline → socket acceptor → API server, the runtime's Python, Lua and
+JS modules loaded at `start()` (`runtime.path`, or `runtime_modules`)
+and attached to the pipeline, the API, the matched handler, the match
+registry, the socket's session events and the leaderboard scheduler —
+and graceful shutdown in reverse, ending with drain-to-durable. The
+port's copy of the JAX package's `server.py`; the cluster, purchases,
+social, IAP, console and gRPC of the JAX server come with their own
+slices (ROADMAP.md §A).
 """
 
 from __future__ import annotations
@@ -49,12 +52,17 @@ class NakamaServer:
         config: Config,
         logger: Logger | None = None,
         matchmaker_backend=None,
+        runtime_modules: list | None = None,
     ):
         """`matchmaker_backend=None` builds the backend that
         `config.matchmaker.backend` names: "cuda" (the default) is
         `CudaBackend` on cuda:0 and raises here when there is no CUDA
-        device; "cpu" is the host oracle."""
+        device; "cpu" is the host oracle. `runtime_modules`: init_module
+        callables (or (name, callable) pairs) loaded at `start()` before
+        the modules of `config.runtime.path`."""
         self.config = config
+        self._runtime_modules = runtime_modules or []
+        self.runtime = None
         self.logger = logger or setup_logging(config.logger)
         log = self.logger
         node = config.name
@@ -283,16 +291,73 @@ class NakamaServer:
             # a warm restart.
             self.recovery.checkpointer.rank_engine = lb_device
         self.tournaments = Tournaments(self.leaderboards)
-        # No runtime yet (ROADMAP.md §A): resets run without hooks.
+        # The runtime's reset and end hooks attach at start().
         self.leaderboard_scheduler = LeaderboardScheduler(
             log, self.leaderboards, self.tournaments, runtime=None
         )
         self.leaderboards.on_change = self.leaderboard_scheduler.update
 
+    def attach_runtime(self, runtime):
+        """Wire the extensibility runtime into the pipeline, the matchmaker
+        matched hook, the match registry (named match factories), and the
+        session start/end events (reference NewRuntime wiring,
+        main.go:155-160; session_ws.go Close path)."""
+        self.runtime = runtime
+        self.pipeline.c.runtime = runtime
+        self.matchmaker.on_matched = make_matched_handler(
+            self.logger,
+            self.router,
+            self.config.name,
+            self.config.session.encryption_key,
+            runtime=runtime,
+        )
+        override = getattr(runtime, "matchmaker_override", None)
+        if override is not None and override() is not None:
+            self.matchmaker.override_fn = override()
+        match_names = getattr(runtime, "match_names", None)
+        if match_names is not None:
+            for name in match_names():
+                self.match_registry.register(
+                    name, runtime.match_factory(name)
+                )
+        fire_start = getattr(runtime, "fire_session_start", None)
+        if fire_start is not None:
+            self.acceptor.on_session_start = fire_start
+            self.acceptor.on_session_end = runtime.fire_session_end
+        self.leaderboard_scheduler.runtime = runtime
+
+    def _load_runtime(self):
+        from .runtime import load_runtime
+
+        return load_runtime(
+            self.logger,
+            self.config,
+            modules=self._runtime_modules,
+            db=self.db,
+            session_cache=self.session_cache,
+            session_registry=self.session_registry,
+            tracker=self.tracker,
+            router=self.router,
+            stream_manager=self.stream_manager,
+            status_registry=self.status_registry,
+            matchmaker=self.matchmaker,
+            match_registry=self.match_registry,
+            party_registry=self.party_registry,
+            metrics=self.metrics,
+            leaderboards=self.leaderboards,
+            tournaments=self.tournaments,
+            channels=self.channels,
+            friends=self.friends,
+            groups=self.groups,
+            notifications=self.notifications,
+            wallet=self.wallets,
+        )
+
     # ------------------------------------------------------------ lifecycle
 
     async def start(self):
-        # Match tasks always land on this loop.
+        # Match tasks always land on this loop, even when create_match is
+        # driven from a guest-module worker thread.
         self.match_registry.loop = asyncio.get_running_loop()
         if not self._db_connected:
             await self.db.connect()
@@ -322,6 +387,12 @@ class NakamaServer:
                 held_tickets=held,
                 recovery_ms=round(recovered["duration_s"] * 1000, 1),
             )
+        if self.runtime is None and (
+            self._runtime_modules or self.config.runtime.path
+        ):
+            self.attach_runtime(self._load_runtime())
+        if self.runtime is not None:
+            self.runtime.start_events()
         await self.leaderboards.load()
         self.leaderboard_scheduler.start()
         self.tracker.start()
@@ -477,6 +548,8 @@ class NakamaServer:
             )
         await self.api.wait_closed()
         self.tracker.stop()
+        if self.runtime is not None:
+            await self.runtime.shutdown()
         if self.recovery is not None:
             # Drain-to-durable tail: flush the journal and write one
             # final checkpoint so the next boot replays nothing.

@@ -11,12 +11,21 @@ server its host oracle; the tickets come in unique pairs plus a few
 that fit no one, so the groups do not depend on arrival order or the
 backend. Then the rest of `core/` over REST and the socket (accounts,
 links, storage, friends and their notifications, groups, chat channels
-and their history, an account delete before a board listing), and on
-the port alone the 30 routes of later slices, each 501. Also: parsed
+and their history, an account delete before a board listing), then
+the runtime: both servers load the same directory of Python, Lua and JS
+modules (`RT_MODULES`, each server its own copy) and must give the same
+answers to rpcs over the socket and over HTTP (by session and by
+`http_key`, POST and GET), to before-hooks that change or reject
+realtime messages and requests, to `/v2/event`, and to a
+`matchmaker_matched` hook that sends a pair into a JS match that echoes
+their data; the modules' own counts (events, session events, after
+hooks, the shutdown hook) must agree after the stop. On the port alone
+the 27 routes of later slices, each 501; with no runtime loaded, `rpc`
+answers as the JAX server's. Also: parsed
 `/metrics` scrapes, `Config.check()` and
 `parse_args`, and `python -m nakama_tpu_torch` in a subprocess (JAX
-never imported; SIGTERM exits 0; a restart recovers the unmatched
-tickets).
+never imported, also after it loads the modules and serves an rpc;
+SIGTERM exits 0; a restart recovers the unmatched tickets).
 
 Stated tolerance: none — every compared value must be equal."""
 
@@ -75,16 +84,22 @@ def bearer(token):
     return {"Authorization": f"Bearer {token}"}
 
 
-async def jax_server(data_dir):
+def runtime_flags(runtime_dir) -> list:
+    return [] if runtime_dir is None else ["--runtime.path", str(runtime_dir)]
+
+
+async def jax_server(data_dir, runtime_dir=None):
     cfg = jax_config.parse_args(
-        FLAGS + ["--matchmaker.backend", "cpu", "--data_dir", str(data_dir)])
+        FLAGS + ["--matchmaker.backend", "cpu", "--data_dir", str(data_dir)]
+        + runtime_flags(runtime_dir))
     server = JaxServer(cfg, quiet_logger())
     await server.start()
     return server
 
 
-async def torch_server(data_dir):
-    cfg = port_config.parse_args(FLAGS + ["--data_dir", str(data_dir)])
+async def torch_server(data_dir, runtime_dir=None):
+    cfg = port_config.parse_args(
+        FLAGS + ["--data_dir", str(data_dir)] + runtime_flags(runtime_dir))
     log = port_logger()
     backend = CudaBackend(
         cfg.matchmaker, log, device="cpu", row_block=8, col_block=64,
@@ -164,6 +179,9 @@ class Normaliser:
                     out[k] = "<time>"
                 elif k in CURSOR_KEYS and isinstance(v, str) and v:
                     out[k] = self.cursor(v)
+                elif k == "payload" and isinstance(v, str):
+                    # An rpc's answer: a string that may hold ids.
+                    out[k] = self.text(v)
                 else:
                     out[k] = self(v)
             if "user_id_one" in out:
@@ -402,6 +420,7 @@ async def run_script(server, key: str) -> dict:
             }
     await play(server, norm, out, clients, tokens, call)
     await social(server, key, norm, clients, tokens, call)
+    await runtime_leg(server, norm, out, clients, tokens, call)
     if key == "torch":
         out["later"] = await later_routes(server, tokens)
     out["http"] = [(method, shown or norm.text(path), status, norm(payload))
@@ -814,13 +833,310 @@ async def social(server, key, norm, clients, tokens, call):
     await call("GET", "/v2/account", auth[a])
 
 
+# The runtime's modules: Python, Lua and JS, each server loading its own
+# copy. Every hook acts on marked requests only, so the rest of the
+# script runs as it does without them.
+RT_MODULES = {
+    "a_rt.lua": """
+local matched_calls = 0
+nk.register_matchmaker_matched(function(ctx, entries)
+  matched_calls = matched_calls + 1
+  nk.metrics_counter_add("rt_matched_calls", nil, 1)
+  for _, e in ipairs(entries) do
+    if e.string_properties.arena == "js" then
+      return nk.match_create("arena", {from = "lua", size = #entries})
+    end
+  end
+  return ""
+end)
+nk.register_rpc(function(ctx, payload)
+  return json.encode({payload = payload, user = ctx.user_id,
+                      matched_calls = matched_calls})
+end, "lua_echo")
+nk.register_rpc(function(ctx, payload) return 42 end, "lua_bad_return")
+nk.register_rt_before(function(ctx, env)
+  if env.status == "rt-reject" then return nil end
+  if env.status == "rt-upper" then env.status = "RT-UPPER" end
+  return env
+end, "status_update")
+nk.register_req_before(function(ctx, body)
+  for _, id in ipairs(body.ids or {}) do
+    if id == "00000000-0000-0000-0000-00000000dead" then return nil end
+  end
+  return body
+end, "addfriends")
+""",
+    "b_arena.js": """
+function InitModule(ctx, logger, nk, initializer) {
+  initializer.registerMatch("arena", {
+    matchInit: function(ctx, params) {
+      return {state: {joins: 0}, tickRate: 10,
+              label: JSON.stringify({arena: "js", from: params.from,
+                                     size: params.size})};
+    },
+    matchJoinAttempt: function(ctx, d, tick, state, presence, metadata) {
+      return {state: state, accept: true};
+    },
+    matchJoin: function(ctx, d, tick, state, presences) {
+      state.joins += presences.length;
+      return {state: state};
+    },
+    matchLeave: function(ctx, d, tick, state, presences) {
+      return {state: state};
+    },
+    matchLoop: function(ctx, d, tick, state, messages) {
+      for (var i = 0; i < messages.length; i++) {
+        var m = messages[i];
+        d.broadcastMessage(m.opCode + 1, m.data, [m.sender]);
+      }
+      return {state: state};
+    },
+    matchTerminate: function(ctx, d, tick, state, grace) {
+      return {state: state};
+    },
+    matchSignal: function(ctx, d, tick, state, data) {
+      return {state: state, data: data};
+    }
+  });
+  initializer.registerRpc("js_echo", function(ctx, payload) {
+    return JSON.stringify({payload: payload, user: ctx.userId || ""});
+  });
+  initializer.registerRpc("js_throws", function(ctx, payload) {
+    throw {message: "js says no"};
+  });
+  initializer.registerReqBefore("CreateGroup", function(ctx, body) {
+    if (body.name === "rt-forbidden") { return null; }
+    if (body.name === "rt-group") { body.description = "set by hook"; }
+    return body;
+  });
+  initializer.registerReqBefore("WriteLeaderboardRecord", function(ctx, body) {
+    var rec = body.record || body;
+    if (rec.metadata && rec.metadata.hook) {
+      if (rec.score < 0) { return null; }
+      rec.score = rec.score * 10 + 1;
+    }
+    return body;
+  });
+}
+""",
+    "c_hooks.py": '''
+import json
+
+COUNTS = {"events": [], "session_start": 0, "session_end": 0,
+          "after_auth": 0, "after_update": 0, "shutdown": 0}
+
+
+def _bump(key):
+    COUNTS[key] += 1
+
+
+def init_module(ctx, logger, nk, initializer):
+    def py_echo(ctx, payload):
+        return json.dumps({"payload": payload, "user": ctx.user_id,
+                           "mode": ctx.execution_mode,
+                           "query": ctx.query_params})
+
+    def py_raises(ctx, payload):
+        raise ValueError("py says no: " + payload)
+
+    async def counts(ctx, payload):
+        return json.dumps(COUNTS, sort_keys=True)
+
+    def matchmaker_add(ctx, key, body):
+        if "banned" in body.get("query", ""):
+            return None
+        props = body.get("string_properties") or {}
+        if props.get("mode") == "rt-arena":
+            body["string_properties"] = {**props, "arena": "js"}
+        return body
+
+    def auth_custom(ctx, body):
+        account = body.get("account") or {}
+        if account.get("id") == "custom-rt-reject":
+            return None
+        if account.get("id") == "custom-rt-rename":
+            body["username"] = "renamed-by-hook"
+        return body
+
+    def update_account(ctx, body):
+        if body.get("display_name") == "reject":
+            return None
+        if body.get("display_name") == "shout":
+            body["display_name"] = "SHOUT"
+        return body
+
+    def storage(ctx, body):
+        objects = body.get("objects") or body.get("object_ids") or []
+        if any(o.get("key") == "forbidden" for o in objects):
+            return None
+        for o in objects:
+            if o.get("key") == "stamped":
+                o["value"] = {"stamped": True, "was": o.get("value")}
+        return body
+
+    initializer.register_rpc("py_echo", py_echo)
+    initializer.register_rpc("py_raises", py_raises)
+    initializer.register_rpc("counts", counts)
+    initializer.register_before_rt("MatchmakerAdd", matchmaker_add)
+    initializer.register_before_req("AuthenticateCustom", auth_custom)
+    initializer.register_after_req(
+        "authenticate_custom", lambda ctx, body, out: _bump("after_auth"))
+    initializer.register_before_req("UpdateAccount", update_account)
+    initializer.register_after_req(
+        "UpdateAccount", lambda ctx, body, out: _bump("after_update"))
+    initializer.register_before_req("ReadStorageObjects", storage)
+    initializer.register_before_req("WriteStorageObjects", storage)
+    initializer.register_event(
+        lambda ctx, e: COUNTS["events"].append(
+            [e["name"], e["properties"], e.get("external", False),
+             ctx.username]))
+    initializer.register_event_session_start(
+        lambda ctx, t: _bump("session_start"))
+    initializer.register_event_session_end(
+        lambda ctx, reason: _bump("session_end"))
+    initializer.register_shutdown(lambda ctx: _bump("shutdown"))
+''',
+}
+
+
+def runtime_dir(path):
+    path.mkdir(parents=True)
+    for name, text in RT_MODULES.items():
+        (path / name).write_text(text)
+    return path
+
+
+async def runtime_leg(server, norm, out, clients, tokens, call):
+    """The runtime's rpcs, hooks, events and matched hook, as a client
+    sees them (`out["runtime"]`; HTTP answers go to `out["http"]`)."""
+    rt = out["runtime"] = []
+    devs = sorted(tokens)
+    ws, log = clients[devs[0]][:2]
+    auth = bearer(tokens[devs[0]][0])
+    # rpc over the socket.
+    for i, (rid, payload) in enumerate((
+        ("py_echo", "hello"), ("PY_ECHO", ""), ("lua_echo", '{"n": 1}'),
+        ("js_echo", "x"), ("nope", "x"), ("py_raises", "now"),
+        ("js_throws", ""), ("lua_bad_return", ""),
+    )):
+        await ws.send(json.dumps({"cid": f"rpc{i}", "rpc": {
+            "id": rid, "payload": payload}}))
+        rt.append(norm(await recv_until(ws, "cid", log)))
+    # rpc over HTTP: by session and by http_key, POST and GET.
+    await call("POST", "/v2/rpc/py_echo", auth, "by session")
+    await call("POST", "/v2/rpc/js_echo", auth, {"not": "a string"})
+    await call("POST", "/v2/rpc/lua_echo?http_key=defaulthttpkey", None, "k")
+    await call("GET", "/v2/rpc/py_echo?http_key=defaulthttpkey&payload=q1"
+               "&extra=a&extra=b")
+    await call("GET", "/v2/rpc/js_echo?payload=q2", auth)
+    await call("POST", "/v2/rpc/py_echo?http_key=wrong", None, "x")
+    await call("POST", "/v2/rpc/py_echo", None, "x")
+    await call("POST", "/v2/rpc/nope", auth, "x")
+    await call("POST", "/v2/rpc/py_raises", auth, "x")
+    await call("POST", "/v2/rpc/js_throws", auth, "x")
+    # Before-hooks on realtime messages: changed, rejected, unchanged.
+    for status in ("rt-upper", "rt-reject", "plain"):
+        await ws.send(json.dumps({"cid": f"st-{status}", "status_update": {
+            "status": status}}))
+        await ws.send(json.dumps({"cid": f"after-{status}", "ping": {}}))
+        await recv_until(ws, "pong", log)
+    # Before- and after-hooks on requests.
+    for account in ("custom-rt-reject", "custom-rt-rename", "custom-rt-plain"):
+        await call("POST", "/v2/account/authenticate/custom", basic(),
+                   {"account": {"id": account}})
+    for name in ("reject", "shout"):
+        await call("PUT", "/v2/account", auth, {"display_name": name})
+    await call("GET", "/v2/account", auth)
+    await call("PUT", "/v2/storage", auth, {"objects": [
+        {"collection": "rt", "key": "forbidden", "value": {"a": 1}}]})
+    await call("PUT", "/v2/storage", auth, {"objects": [
+        {"collection": "rt", "key": "stamped", "value": {"a": 1}}]})
+    await call("POST", "/v2/storage", auth, {"object_ids": [
+        {"collection": "rt", "key": "stamped"}]})
+    await call("POST", "/v2/storage", auth, {"object_ids": [
+        {"collection": "rt", "key": "forbidden"}]})
+    await call("POST", "/v2/friend?ids=00000000-0000-0000-0000-00000000dead",
+               auth)
+    for name in ("rt-forbidden", "rt-group"):
+        _, group = await call("POST", "/v2/group", auth, {"name": name})
+        if isinstance(group, dict) and "id" in group:
+            norm.learn(group["id"], f"group:{name}")
+    for score in (3, -1):
+        await call("POST", "/v2/leaderboard/arena", auth, {"record": {
+            "score": score, "metadata": {"hook": True}}})
+    await call("GET", "/v2/leaderboard/arena?limit=3", auth)
+    # Custom events.
+    await call("POST", "/v2/event", auth, {"name": "rt-evt",
+                                           "properties": {"a": "1"}})
+    await call("POST", "/v2/event", None, {"name": "no-session"})
+    # The matched hook: a pair whose tickets the matchmaker_add hook
+    # stamps is sent into the JS `arena` match, which echoes their data.
+    pair = {}
+    for device in ("device-rt-a", "device-rt-b"):
+        _, body = await call(
+            "POST", f"/v2/account/authenticate/device?username={device}",
+            basic(), {"account": {"id": device}})
+        claims = port_token.parse("defaultencryptionkey", body["token"])
+        norm.learn(claims.user_id, f"user:{device}")
+        sock = await wsproto.connect(HOST, server.port,
+                                     f"/ws?token={body['token']}")
+        pair[device] = (sock, [])
+    for device, (sock, plog) in pair.items():
+        event = await recv_until(sock, "stream_presence_event", plog)
+        norm.learn(event["stream_presence_event"]["joins"][0]["session_id"],
+                   f"session:{device}")
+        await sock.send(json.dumps({"cid": "banned", "matchmaker_add": {
+            "min_count": 2, "max_count": 2, "query": "+properties.banned:x"}}))
+        await sock.send(json.dumps({"cid": "add", "matchmaker_add": {
+            "min_count": 2, "max_count": 2, "query": "+properties.mode:rt-arena",
+            "string_properties": {"mode": "rt-arena"},
+            "numeric_properties": {"skill": 1.5}}}))
+        ack = await recv_until(sock, "matchmaker_ticket", plog)
+        norm.learn(ack["matchmaker_ticket"]["ticket"], f"ticket:{device}")
+    server.matchmaker.process()
+    mids = set()
+    for device, (sock, plog) in pair.items():
+        body = (await recv_until(sock, "matchmaker_matched", plog))[
+            "matchmaker_matched"]
+        mids.add(body["match_id"])
+        norm.learn(body["match_id"], "match:arena")
+        body["users"].sort(key=lambda u: norm(u["presence"]["user_id"]))
+        rt.append(norm(body))
+    assert len(mids) == 1
+    mid = mids.pop()
+    for device, (sock, plog) in pair.items():
+        await sock.send(json.dumps({"cid": "j", "match_join": {"match_id": mid}}))
+        rt.append(_sorted_presences(norm(await recv_until(sock, "match", plog))))
+    await call("GET", "/v2/match?query=%2Blabel.arena%3Ajs", auth)
+    for i, (device, (sock, plog)) in enumerate(pair.items()):
+        await sock.send(json.dumps({"match_data_send": {
+            "match_id": mid, "op_code": 3 + i,
+            "data": base64.b64encode(device.encode()).decode()}}))
+        rt.append(norm(await recv_until(sock, "match_data", plog)))
+    await ws.send(json.dumps({"cid": "lua", "rpc": {"id": "lua_echo"}}))
+    rt.append(norm(await recv_until(ws, "cid", log)))
+    for sock, plog in pair.values():
+        rt.append([norm(e) for e in plog if "match_presence_event" not in e])
+        await sock.close()
+    # Events are queued: read the module's counts once the event and the
+    # pair's session ends are in.
+    await ws.send(json.dumps({"cid": "counts", "rpc": {"id": "counts"}}))
+    for _ in range(200):
+        env = await recv_until(ws, "cid", [])
+        counts = json.loads(env["rpc"]["payload"])
+        if counts["events"] and counts["session_end"] >= 2:
+            break
+        await asyncio.sleep(0.01)
+        await ws.send(json.dumps({"cid": "counts", "rpc": {"id": "counts"}}))
+    rt.append(norm(counts))
+
+
 # The routes that stay 501 on the port until their slices land.
 LATER_ROUTES = (
     [("POST", f"/v2/account/authenticate/{p}") for p in SOCIAL]
     + [("POST", f"/v2/account/{kind}/{p}") for kind in ("link", "unlink")
        for p in SOCIAL]
-    + [("POST", "/v2/rpc/x"), ("GET", "/v2/rpc/x"), ("POST", "/v2/event"),
-       ("POST", "/v2/friend/facebook"), ("POST", "/v2/friend/steam")]
+    + [("POST", "/v2/friend/facebook"), ("POST", "/v2/friend/steam")]
     + [("POST", f"/v2/iap/purchase/{s}") for s in ("apple", "google", "huawei")]
     + [("GET", "/v2/iap/subscription"), ("POST", "/v2/iap/subscription/apple"),
        ("POST", "/v2/iap/subscription/google"), ("GET", "/v2/iap/subscription/x")]
@@ -842,12 +1158,19 @@ async def later_routes(server, tokens) -> dict:
 
 
 async def test_same_script_same_answers_as_the_jax_server(tmp_path):
-    jax = await jax_server(tmp_path / "jax")
+    jax = await jax_server(tmp_path / "jax", runtime_dir(tmp_path / "jax-rt"))
+    # Each server's Python module (the second load replaces the first in
+    # sys.modules under the same name).
+    jax_module = sys.modules["nakama_runtime_c_hooks"]
     try:
         want = await run_script(jax, "jax")
     finally:
         await jax.stop()
-    port = await torch_server(tmp_path / "torch")
+    jax_threads = set(threading.enumerate())
+    port = await torch_server(
+        tmp_path / "torch", runtime_dir(tmp_path / "torch-rt"))
+    port_module = sys.modules["nakama_runtime_c_hooks"]
+    assert port_module is not jax_module
     try:
         got = await run_script(port, "torch")
     finally:
@@ -866,8 +1189,30 @@ async def test_same_script_same_answers_as_the_jax_server(tmp_path):
     relays = [p for p in got["play"] if isinstance(p, dict) and "match_data" in p]
     assert len(relays) == 4 + 2  # each pair's relay, the echo to both
     assert got["play"][-1] == 0  # the closed party's ticket left the pool
-    # The routes of later slices: exactly these 30 answer 501.
-    assert len(LATER_ROUTES) == got["later"]["n_unimplemented"] == 30
+    # The runtime: rpcs, hooks, the matched hook's JS match and its echo.
+    assert got["runtime"] == want["runtime"]
+    echoes = [e["match_data"] for e in got["runtime"]
+              if isinstance(e, dict) and "match_data" in e]
+    # Each player's data back to it alone, op_code + 1 (a broadcast with
+    # no sender).
+    assert [(e["op_code"], base64.b64decode(e["data"])) for e in echoes] == [
+        (4, b"device-rt-a"), (5, b"device-rt-b")]
+    # The modules' counts after the stop: every session's start and end,
+    # the event, the after hooks, the shutdown hook once.
+    assert port_module.COUNTS == jax_module.COUNTS
+    counts = port_module.COUNTS
+    # (after_auth: the script's two successful custom authenticates
+    # before the runtime leg's two.)
+    assert counts["shutdown"] == 1 and counts["after_auth"] == 4
+    assert counts["after_update"] == 2
+    assert counts["session_start"] == counts["session_end"] == 12
+    assert [e[0] for e in counts["events"]] == ["rt-evt"]
+    # The port stops its guest modules' worker threads (the JAX server's
+    # stay until the process exits: ROADMAP.md §C).
+    assert not [t for t in threading.enumerate() if t not in jax_threads
+                and t.name.startswith(("lua-", "js-"))]
+    # The routes of later slices: exactly these 27 answer 501.
+    assert len(LATER_ROUTES) == got["later"]["n_unimplemented"] == 27
     assert all(answer == (501, {"error": "not yet implemented",
                                 "message": "not yet implemented", "code": 12})
                for answer in got["later"]["answers"].values())
@@ -884,8 +1229,8 @@ async def test_same_script_same_answers_as_the_jax_server(tmp_path):
 def test_check_and_parse_args_agree_on_the_shared_sections():
     shared = [
         "logger", "metrics", "session", "socket", "database", "matchmaker",
-        "match", "tracker", "leaderboard", "overload", "tracing", "recovery",
-        "devobs",
+        "match", "tracker", "runtime", "leaderboard", "overload", "tracing",
+        "recovery", "devobs",
     ]
     argv = [
         "--name", "node-7", "--data_dir", "/tmp/x", "--shutdown_grace_sec", "5",
@@ -900,6 +1245,8 @@ def test_check_and_parse_args_agree_on_the_shared_sections():
         "--leaderboard.blacklist_rank_cache", "a,b",
         "--leaderboard.device_min_board_size", "100",
         "--leaderboard.device_flush_interval_sec", "0.5",
+        "--runtime.path", "/tmp/modules", "--runtime.env", "a=1,b=x",
+        "--runtime.http_key", "k2", "--runtime.event_queue_workers", "2",
     ]
     port = port_config.parse_args(argv)
     jax = jax_config.parse_args(argv)
@@ -1042,12 +1389,22 @@ async def _client(port, device):
 
 def test_python_m_serves_matches_and_recovers_on_restart(tmp_path):
     tmp = str(tmp_path)
-    proc = _start(tmp)
+    modules = runtime_dir(tmp_path / "modules")
+    proc = _start(tmp, ("--runtime.path", str(modules)))
     try:
         lines = _boot_lines(proc, "server listening")
         port = lines[-1]["port"]
+        loaded = [r for r in lines if r.get("msg") == "runtime modules loaded"]
+        assert loaded and loaded[0]["modules"] == 3 and loaded[0]["rpcs"] == 7
 
         async def drive():
+            # The runtime's Python, Lua and JS rpcs, by http_key.
+            for rid in ("py_echo", "lua_echo", "js_echo"):
+                r = await wsproto.request(
+                    HOST, port, "POST",
+                    f"/v2/rpc/{rid}?http_key=defaulthttpkey", body="hi")
+                assert r.status == 200, r.body
+                assert json.loads(r.json()["payload"])["payload"] == "hi"
             a = await _client(port, "device-sub-a1")
             b = await _client(port, "device-sub-b1")
             lonely = [await _client(port, f"device-sub-l{i}") for i in range(2)]
@@ -1104,6 +1461,42 @@ def test_python_m_serves_matches_and_recovers_on_restart(tmp_path):
     finally:
         if proc.poll() is None:
             proc.kill()
+
+
+async def test_rpc_without_a_runtime_answers_as_the_jax_server(tmp_path):
+    """No module loaded: `/v2/rpc` is 501 "runtime not loaded", the
+    socket's `rpc` is BAD_INPUT "runtime not available", `/v2/event`
+    answers `{}`, as on the JAX server."""
+    answers = []
+    for make, name in ((jax_server, "jax"), (torch_server, "torch")):
+        server = await make(tmp_path / name)
+        try:
+            got = []
+            r = await wsproto.request(
+                HOST, server.port, "POST", "/v2/account/authenticate/device",
+                headers=basic(), body={"account": {"id": "device-no-runtime"}})
+            token = r.json()["token"]
+            for method, path, body in (
+                ("POST", "/v2/rpc/x", "p"), ("GET", "/v2/rpc/x?payload=p", None),
+                ("POST", "/v2/rpc/x?http_key=defaulthttpkey", "p"),
+                ("POST", "/v2/event", {"name": "e"}),
+            ):
+                r = await wsproto.request(HOST, server.port, method, path,
+                                          headers=bearer(token), body=body)
+                got.append((method, path, r.status, r.json()))
+            ws = await wsproto.connect(HOST, server.port, f"/ws?token={token}")
+            await ws.send(json.dumps({"cid": "r", "rpc": {"id": "x"}}))
+            got.append(await recv_until(ws, "cid", []))
+            await ws.close()
+            answers.append(got)
+        finally:
+            await server.stop()
+    assert answers[0] == answers[1]
+    assert answers[1][0][2:] == (501, {"error": "runtime not loaded",
+                                       "message": "runtime not loaded",
+                                       "code": 12})
+    assert answers[1][-1] == {"cid": "r", "error": {
+        "code": 3, "message": "runtime not available"}}
 
 
 async def test_a_graceful_stop_keeps_connected_players_tickets(tmp_path):
