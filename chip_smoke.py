@@ -22,18 +22,23 @@ the card's busy share), and a 32,768-ticket pool driven through the
 breaker ladder with armed faults. Then crash recovery (a checkpoint and
 journal tail recovered; SIGKILLed children that lose no acknowledged
 ticket) and the server: `NakamaServer` warm-restarts the 100,000-ticket
-pool and serves 256 socket clients (HTTP auth, /ws, matchmaker adds; the
-matched pairs join their match by token and relay data, each client
-writes a record to a 100,000-record board on the card and reads its
-haystack; then the rest of `core/`: friends with their notifications
-on the socket, DM channels with history, storage beside a seeded
-100,000-object collection, groups, wallets and an account delete),
+pool and serves 256 socket clients, every odd one on `format=protobuf`
+through the port's own rtapi codec (HTTP auth, /ws, matchmaker adds;
+the matched pairs, one JSON and one protobuf player, join their match by
+token and relay data, each client writes a record to a 100,000-record
+board on the card and reads its haystack; then the rest of `core/`:
+friends with their notifications on the socket, DM channels with
+history, storage beside a seeded 100,000-object collection, groups,
+wallets and an account delete), while the admin console takes a
+profiler capture of the first interval and then serves its status,
+matchmaker, device, rank-engine and record views and its data routes,
 stops and restarts with the same pool, ranks and social state,
 and `python -m nakama_tpu_torch` serves a runtime rpc and stops on
 SIGTERM in a subprocess. Then the runtime: the same warm restart with
 Lua, JS and Python modules loaded, the Lua `matchmaker_matched` hook
-on every group the first interval forms, 64 clients sent into the JS
-match it names, its rpcs and a hooked record write. Then matches and parties on a fresh server (party
+on every group the first interval forms, 64 clients (half of them on
+protobuf) sent into the JS match it names, its rpcs and a hooked record
+write. Then matches and parties on a fresh server (party
 matchmaking, token joins, an authoritative Python match found through
 `GET /v2/match`), and the leaderboard rank engine on the card over a
 10,000,000-record board against the host oracle, with its fault legs
@@ -2236,24 +2241,24 @@ def seed_board(path: str, board: str, n: int) -> None:
         con.close()
 
 
-async def server_client(server, ticks: list, added: dict, delivered: dict,
-                        i: int, results: list, shared: dict):
-    """One player: device auth over HTTP, /ws, one north-star
-    matchmaker_add, then waits for the ticket and the match. The
-    server's side counts its intervals (`ticks[0]`) and stamps each
-    client ticket with the interval count when it was added (`added`)
-    and when its match was delivered (`delivered`): a ticket must be
-    matched by a cohort of one of the 3 intervals after its add, or
-    still be in the pool after them. A matched player redeems its token
-    with `match_join`. Then it plays a relayed match with its partner
-    client `i ^ 1` (`play_match`) and writes one leaderboard record.
-    The socket stays open for the stop."""
+async def server_client(server, watch: DeliveryWatch, i: int, results: list,
+                        shared: dict):
+    """One player: device auth over HTTP, /ws in its format
+    (`client_format`), one north-star matchmaker_add, then waits for the
+    ticket and the match. The server's side counts its intervals and
+    stamps each client ticket (`DeliveryWatch`): a ticket must be matched
+    by a cohort of one of the 3 intervals after its add, or still be in
+    the pool after them. A matched player redeems its token with
+    `match_join`. Then it plays a relayed match with its partner client
+    `i ^ 1` (`play_match`) and writes one leaderboard record. The socket
+    stays open for the stop."""
     from nakama_tpu_torch.api import session_token, wsproto
 
     q, strs, nums = north_star_ticket(np.random.default_rng(5000 + i))
     rng = np.random.default_rng(7000 + i)
     device = f"smoke-device-{i:04d}"
-    rec: dict = {"i": i, "query": q, "device": device}
+    fmt = client_format(i)
+    rec: dict = {"i": i, "query": q, "device": device, "fmt": fmt}
     t0 = time.perf_counter()
     r = await wsproto.request(
         "127.0.0.1", server.port, "POST", "/v2/account/authenticate/device",
@@ -2269,14 +2274,14 @@ async def server_client(server, ticks: list, added: dict, delivered: dict,
     rec["token"] = r.json()["token"]
     rec["user_id"] = session_token.parse(key, rec["token"]).user_id
     ws = await wsproto.connect(
-        "127.0.0.1", server.port, f"/ws?token={rec['token']}")
+        "127.0.0.1", server.port, f"/ws?token={rec['token']}&format={fmt}")
     rec["ws"] = ws
-    inbox = rec["inbox"] = Inbox(ws)
+    inbox = rec["inbox"] = Inbox(ws, fmt)
     t_add = time.perf_counter()
-    await ws.send(json.dumps({"cid": f"c{i}", "matchmaker_add": {
+    await inbox.send({"cid": f"c{i}", "matchmaker_add": {
         "min_count": 2, "max_count": 2, "query": q,
         "string_properties": strs, "numeric_properties": nums,
-    }}))
+    }})
     ack = await inbox.take(lambda e: "matchmaker_ticket" in e, 30)
     rec["add_to_ticket_ms"] = (time.perf_counter() - t_add) * 1e3
     tid = rec["ticket"] = ack["matchmaker_ticket"]["ticket"]
@@ -2289,7 +2294,7 @@ async def server_client(server, ticks: list, added: dict, delivered: dict,
         except asyncio.TimeoutError:
             # The 4th interval since the add has begun and no match was
             # delivered: the ticket must be in the pool.
-            if ticks[0] - added[tid] > 3 and tid not in delivered:
+            if watch.ticks - watch.added[tid] > 3 and tid not in watch.delivered:
                 if server.matchmaker.store.get(tid) is None:
                     raise AssertionError(
                         f"client {i}: neither matched nor in the pool") from None
@@ -2317,12 +2322,50 @@ async def server_client(server, ticks: list, added: dict, delivered: dict,
     results.append(rec)
 
 
-class Inbox:
-    """A client socket's envelopes, each kept until a `take` wants it."""
+# The frames the smoke's clients received, by (format, frame kind).
+FRAMES: collections.Counter = collections.Counter()
 
-    def __init__(self, ws):
+
+def client_format(i: int) -> str:
+    """Every odd client speaks `format=protobuf`, every even one JSON:
+    each relay pair (`i`, `i ^ 1`) is one of each."""
+    return "protobuf" if i % 2 else "json"
+
+
+def relay_payload(i: int) -> bytes:
+    """What client `i` relays to its partner: its device id and bytes
+    that are not UTF-8, so a payload crossing formats is checked byte for
+    byte."""
+    return f"smoke-device-{i:04d}".encode() + bytes([0, 0x80, 0xFF])
+
+
+class Inbox:
+    """A client socket's envelopes in its format (`json`, or `protobuf`
+    through the port's own codec), each kept until a `take` wants it. A
+    protobuf socket must receive binary frames only, each an Envelope:
+    a text frame or a frame that does not decode fails the phase."""
+
+    def __init__(self, ws, fmt: str = "json"):
         self.ws = ws
+        self.fmt = fmt
         self.kept: list = []
+
+    async def send(self, env: dict) -> None:
+        from nakama_tpu_torch.proto import encode_envelope
+
+        await self.ws.send(
+            json.dumps(env) if self.fmt == "json" else encode_envelope(env))
+
+    def decode(self, raw) -> dict:
+        from nakama_tpu_torch.proto import decode_envelope
+
+        kind = "binary" if isinstance(raw, bytes) else "text"
+        FRAMES[(self.fmt, kind)] += 1
+        if self.fmt == "json":
+            return json.loads(raw)
+        if kind != "binary":
+            raise AssertionError(f"a text frame on a protobuf socket: {raw[:200]!r}")
+        return decode_envelope(raw)
 
     async def take(self, want, timeout: float = 30.0) -> dict:
         for j, env in enumerate(self.kept):
@@ -2331,7 +2374,7 @@ class Inbox:
 
         async def loop():
             while True:
-                env = json.loads(await self.ws.recv())
+                env = self.decode(await self.ws.recv())
                 if want(env):
                     return env
                 self.kept.append(env)
@@ -2339,13 +2382,124 @@ class Inbox:
         return await asyncio.wait_for(loop(), timeout)
 
 
+class DeliveryWatch:
+    """The server's intervals and what delivered each client ticket.
+    `process()` calls are counted (`ticks`), each with the stage-1
+    kernels it launched (`launched[t]`: stage1_wgmma's and stage1's
+    launches); client tickets are stamped with the interval count at
+    their add (`added`) and at their match's delivery (`delivered`), and
+    with the interval whose dispatch formed that match (`dispatch_of`):
+    the matchmaker's loop and its delivery stage share the event loop, so
+    a delivery inside process() `t` collects the cohort of interval
+    `t - 1`, and one between intervals (the delivery stage) the cohort of
+    interval `t`."""
+
+    def __init__(self, server):
+        from nakama_tpu_torch import kernels
+
+        mm = server.matchmaker
+        self.ticks = 0
+        self.inside = False
+        self.launched: dict = {}
+        self.added: dict = {}
+        self.delivered: dict = {}
+        self.dispatch_of: dict = {}
+        self.client_slots: dict = {}
+        process, add = mm.process, mm.add
+
+        def counted_process():
+            self.ticks += 1
+            self.inside = True
+            w0, s0 = kernels.STAGE1_WGMMA.launches, kernels.STAGE1.launches
+            try:
+                return process()
+            finally:
+                self.inside = False
+                self.launched[self.ticks] = (
+                    kernels.STAGE1_WGMMA.launches - w0, kernels.STAGE1.launches - s0)
+
+        def counted_add(*args, **kwargs):
+            tid, created = add(*args, **kwargs)
+            self.added[tid] = self.ticks
+            self.client_slots[mm.store.slot_by_id(tid)] = tid
+            return tid, created
+
+        mm.process = counted_process
+        mm.add = counted_add
+
+    def wrap(self, handler):
+        """`handler` (the server's `on_matched`) with the deliveries of
+        client tickets stamped."""
+
+        def on_matched(batch):
+            try:
+                return handler(batch)
+            finally:
+                dispatch = self.ticks - 1 if self.inside else self.ticks
+                if self.client_slots:
+                    keys = np.fromiter(self.client_slots, dtype=np.int64)
+                    for s in np.intersect1d(np.asarray(batch.slots), keys).tolist():
+                        tid = self.client_slots.pop(s)
+                        self.delivered[tid] = self.ticks
+                        self.dispatch_of[tid] = dispatch
+
+        return on_matched
+
+    def via_wgmma(self, tid: str) -> bool:
+        """The match of `tid` came from an interval that launched
+        stage1_wgmma and not stage1."""
+        wgmma, first = self.launched.get(self.dispatch_of.get(tid), (0, 0))
+        return wgmma > 0 and first == 0
+
+
+class EncodeClock:
+    """The server's socket writers' encodes (`api/protocol.encode`), timed
+    while installed: every protobuf frame must come out as bytes, and
+    each `matchmaker_matched` encoded for a protobuf recipient is timed
+    in microseconds."""
+
+    def __init__(self):
+        from nakama_tpu_torch.api import protocol
+
+        self.protocol = protocol
+        self.encode = protocol.encode
+        self.matched_us: list = []
+        self.frames: collections.Counter = collections.Counter()
+        protocol.encode = self
+
+    def __call__(self, envelope: dict, fmt: str):
+        t = time.perf_counter()
+        out = self.encode(envelope, fmt)
+        us = (time.perf_counter() - t) * 1e6
+        self.frames[fmt] += 1
+        if fmt == "protobuf":
+            if not isinstance(out, bytes):
+                raise AssertionError(f"a protobuf frame encoded as {type(out)}")
+            if "matchmaker_matched" in envelope:
+                self.matched_us.append(us)
+        return out
+
+    def close(self) -> dict:
+        self.protocol.encode = self.encode
+        us = sorted(self.matched_us)
+        return {
+            "frames_sent": dict(self.frames),
+            "matched_encodes": len(us),
+            "matched_encode_us": {
+                "median": statistics.median(us) if us else None,
+                "p99": us[max(0, -(-99 * len(us) // 100) - 1)] if us else None,
+                "max": us[-1] if us else None,
+            },
+        }
+
+
 async def join_by_token(rec: dict, inbox: Inbox) -> None:
     """The matched player redeems its match token with `match_join`: the
     answer names the match the token names, with this player as `self`.
     Its partner is a restored ticket whose player is not connected, or
     another client, which may join too. Times matched -> joined."""
-    await inbox.ws.send(json.dumps({"cid": "token", "match_join": {
-        "token": rec["matched"]["token"]}}))
+    await inbox.send({"cid": "token", "match_join": {
+        "token": rec["matched"]["token"]}})
     env = await inbox.take(lambda e: e.get("cid") == "token")
     rec["matched_to_joined_ms"] = (time.perf_counter() - rec["matched_at"]) * 1e3
     joined = env.get("match")
@@ -2360,39 +2514,39 @@ async def play_match(rec: dict, inbox: Inbox, shared: dict) -> None:
     creates it (`match_create`), the second joins it by id; each sees
     the other among the match's presences (in its join's answer, or in a
     presence event when the other joins later), sends one
-    `match_data_send` and receives the other's. Times the relay from
+    `match_data_send` (`relay_payload`) and receives the other's: one
+    of each pair speaks JSON, the other protobuf. Times the relay from
     the partner's send to this receipt."""
     i, k = rec["i"], rec["i"] // 2
     loop = asyncio.get_running_loop()
     created = shared["created"].setdefault(k, loop.create_future())
     if i % 2 == 0:
-        await inbox.ws.send(json.dumps({"cid": "play", "match_create": {}}))
+        await inbox.send({"cid": "play", "match_create": {}})
         joined = (await inbox.take(lambda e: e.get("cid") == "play"))["match"]
         created.set_result(joined["match_id"])
     else:
         mid = await asyncio.wait_for(created, 120)
-        await inbox.ws.send(json.dumps({"cid": "play", "match_join": {
-            "match_id": mid}}))
+        await inbox.send({"cid": "play", "match_join": {"match_id": mid}})
         joined = (await inbox.take(lambda e: e.get("cid") == "play"))["match"]
     mid = joined["match_id"]
     partner = shared["users"].setdefault(i ^ 1, loop.create_future())
     me = shared["users"].setdefault(i, loop.create_future())
     me.set_result(rec["user_id"])
     partner_id = await asyncio.wait_for(partner, 120)
-    if partner_id not in {p["user_id"] for p in joined["presences"]}:
+    if partner_id not in {p["user_id"] for p in joined.get("presences", ())}:
         await inbox.take(lambda e: e.get("match_presence_event", {}).get(
             "match_id") == mid and partner_id in {
                 p["user_id"] for p in e["match_presence_event"].get("joins", ())})
     shared["relay_sent"][rec["user_id"]] = time.perf_counter()
-    await inbox.ws.send(json.dumps({"match_data_send": {
+    await inbox.send({"match_data_send": {
         "match_id": mid, "op_code": 1,
-        "data": base64.b64encode(rec["device"].encode()).decode()}}))
+        "data": base64.b64encode(relay_payload(i)).decode()}})
     got = (await inbox.take(lambda e: e.get("match_data", {}).get(
         "match_id") == mid))["match_data"]
     rec["relay_ms"] = (time.perf_counter() - shared["relay_sent"][partner_id]) * 1e3
     if got["presence"]["user_id"] != partner_id:
         raise AssertionError(f"client {i}: relayed {got}")
-    rec["partner_device"] = base64.b64decode(got["data"]).decode()
+    rec["partner_payload"] = base64.b64decode(got["data"])
 
 
 async def haystack_ranks(port: int, token: str, owner: str) -> tuple[float, list]:
@@ -2446,9 +2600,11 @@ def check_client_groups(results: list, queries_by_session: dict) -> dict:
             for b in users:
                 if b is a:
                     continue
-                doc = {f"properties.{k}": v for k, v in b["string_properties"].items()}
+                # (A protobuf recipient's envelope leaves out empty maps.)
+                doc = {f"properties.{k}": v
+                       for k, v in b.get("string_properties", {}).items()}
                 doc.update({f"properties.{k}": float(v)
-                            for k, v in b["numeric_properties"].items()})
+                            for k, v in b.get("numeric_properties", {}).items()})
                 if not matches(parse_query(q), doc):
                     raise AssertionError(f"client {r['i']}: {q!r} rejects {b}")
         claims = r["claims"]
@@ -2535,7 +2691,7 @@ async def social_client(port: int, rec: dict, shared: dict) -> None:
         return shared.setdefault(kind, {}).setdefault(j, loop.create_future())
 
     async def socket(env: dict, key: str) -> dict:
-        await inbox.ws.send(json.dumps(env))
+        await inbox.send(env)
         got = await inbox.take(lambda e: e.get("cid") == env["cid"], 60)
         if key not in got:
             raise AssertionError(f"client {i}: {env} answered {got}")
@@ -2794,9 +2950,6 @@ def auth_breakdown(results, auth_server, auth_db, admit_waits, beats, commits) -
     the heartbeat's stalls inside the auth window (their sum and
     largest), the write queue's deepest point there, and the group
     commits of the client leg."""
-    def pcts(samples):
-        return {k: v for k, v in ms_stats(samples).items() if k != "samples_ms"}
-
     before, inside, after, db = [], [], [], []
     for r in results:
         t0, t1 = r["auth_at"]
@@ -2819,6 +2972,177 @@ def auth_breakdown(results, auth_server, auth_db, admit_waits, beats, commits) -
         "write_queue_max": max((b[2] for b in window), default=0),
         "group_commits": commits,
     }
+
+
+def pcts(samples: list) -> dict | None:
+    """Median and p99 of `samples` (ms), None for none."""
+    if not samples:
+        return None
+    return {k: v for k, v in ms_stats(samples).items() if k != "samples_ms"}
+
+
+def by_format(results: list, watch: DeliveryWatch) -> dict:
+    """Per client format: add -> ticket and add -> matched, which
+    interval's dispatch formed each client's match, and how many of those
+    intervals launched stage1_wgmma (and not stage1)."""
+    out = {}
+    for fmt in ("json", "protobuf"):
+        rs = [r for r in results if r["fmt"] == fmt]
+        matched = [r for r in rs if r["matched"]]
+        out[fmt] = {
+            "clients": len(rs), "matched": len(matched),
+            "add_to_ticket": pcts([r["add_to_ticket_ms"] for r in rs if
+                                   "add_to_ticket_ms" in r]),
+            "add_to_matched": pcts([r["add_to_matched_ms"] for r in matched
+                                    if "add_to_matched_ms" in r]),
+            "dispatch_interval": dict(collections.Counter(
+                watch.dispatch_of.get(r["ticket"]) for r in matched)),
+            "via_stage1_wgmma": sum(watch.via_wgmma(r["ticket"]) for r in matched),
+        }
+    return out
+
+
+CONSOLE_CAPTURE_MS = 3000
+# The trace event (category, name part) the capture must hold: B1's
+# Hopper kernel.
+CAPTURE_KERNEL = ("kernel", "stage1_wgmma_kernel")
+CONSOLE_VIEWER = ("smoke-viewer", "smoke-viewer-pw")
+
+
+async def console_call(port: int, method: str, path: str, token: str = "",
+                       body=None, want: int = 200, lat: dict | None = None):
+    """One console request; its time under its method and route (ids
+    left out) into `lat`; an unexpected status raises."""
+    from nakama_tpu_torch.api import wsproto
+
+    headers = {"Authorization": f"Bearer {token}"} if token else {}
+    t0 = time.perf_counter()
+    r = await wsproto.request("127.0.0.1", port, method, path, headers=headers,
+                              body=body)
+    if lat is not None:
+        route = re.sub(r"/[0-9a-f-]{36}", "/{id}", path.split("?")[0])
+        lat.setdefault(f"{method} {route}", []).append(
+            (time.perf_counter() - t0) * 1e3)
+    if r.status != want:
+        raise AssertionError(f"console {method} {path}: {r.status} {r.body[:300]!r}")
+    return r.json()
+
+
+async def console_capture(port: int) -> dict:
+    """The root admin's `POST /v2/console/device/capture` of
+    `CONSOLE_CAPTURE_MS` (under the default `capture_max_ms`)."""
+    t0 = time.perf_counter()
+    login = await console_call(port, "POST", "/v2/console/authenticate",
+                               body={"username": "admin", "password": "password"})
+    out = await console_call(port, "POST", "/v2/console/device/capture",
+                             login["token"], {"duration_ms": CONSOLE_CAPTURE_MS})
+    out["ms"] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+async def console_leg(server, results: list, capture) -> dict:
+    """The admin console on `server.console_port`, with the card's state
+    behind it: the profiler capture asked for as `start()` returned holds
+    stage1_wgmma's kernel and a busy share in [0, 1]; the root login, and
+    a read-only console user refused a write (403); the status and
+    matchmaker views (the first interval's 100,000 actives, B1's stage in
+    the delivery ledger's device timeline); the device view (the
+    `matchmaker.stage1` and `leaderboard.rank` clocks with calls, the
+    card's name); the rank engine's view (the 100,000-row board adopted
+    on the card); the board's first 100 records ranked by B8 on the card
+    (`lex_ranks` launched by the call; every rank the host oracle's); an
+    account browse, a ban and unban of one client, and a storage browse
+    of the seeded collection. Returns each route's latency."""
+    from nakama_tpu_torch import kernels
+    from nakama_tpu_torch.tracing import busy_share
+
+    port, lat, out = server.console_port, {}, {}
+
+    async def call(method, path, token=None, body=None, want=200):
+        return await console_call(port, method, path,
+                                  admin if token is None else token, body,
+                                  want, lat)
+
+    cap = await capture
+    traces = [os.path.join(cap["path"], f) for f in os.listdir(cap["path"])
+              if f.endswith(".json")]
+    if len(traces) != 1:
+        raise AssertionError(f"the console capture wrote {traces}")
+    with open(traces[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    wgmma = [e for e in events if e.get("cat") == CAPTURE_KERNEL[0]
+             and CAPTURE_KERNEL[1] in e.get("name", "")]
+    busy = busy_share({"traceEvents": events}, "device_trace")
+    out["capture"] = {"duration_ms": cap["duration_ms"], "request_ms": cap["ms"],
+                      "trace_mb": os.path.getsize(traces[0]) / 2**20,
+                      "stage1_wgmma_kernels": len(wgmma), **busy}
+    if not wgmma or not 0.0 <= busy["busy_share"] <= 1.0:
+        seen = sorted({(e.get("cat"), e.get("name", "")[:60]) for e in events
+                       if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")})
+        raise AssertionError(f"the console capture: {out['capture']}, {seen[:12]}")
+    login = await call("POST", "/v2/console/authenticate", "",
+                       {"username": "admin", "password": "password"})
+    admin = login["token"]
+    await call("POST", "/v2/console/user", body={
+        "username": CONSOLE_VIEWER[0], "password": CONSOLE_VIEWER[1], "role": 4})
+    viewer = (await call("POST", "/v2/console/authenticate", "", {
+        "username": CONSOLE_VIEWER[0], "password": CONSOLE_VIEWER[1]}))["token"]
+    uid = results[0]["user_id"]
+    await call("POST", f"/v2/console/account/{uid}/ban", viewer, want=403)
+    status = await call("GET", "/v2/console/status")
+    if status["matchmaker_tickets"] != len(server.matchmaker) or status[
+            "sessions"] < len(results):
+        raise AssertionError(f"console status {status}")
+    mm = await call("GET", "/v2/console/matchmaker?n=256")
+    first = max(mm["intervals"], key=lambda c: c.get("actives", 0))
+    stage1 = [ev for d in mm["deliveries"] for ev in d.get("device_timeline", ())
+              if ev["kernel"] == "matchmaker.stage1"]
+    out["matchmaker"] = {"backend": mm["backend"],
+                         "first_interval_actives": first["actives"],
+                         "intervals": len(mm["intervals"]),
+                         "deliveries": len(mm["deliveries"]),
+                         "stage1_events": len(stage1),
+                         "stage1_device_ms": [ev["device_ms"] for ev in stage1][:4]}
+    if first["actives"] < N_TICKETS or not stage1:
+        raise AssertionError(f"console matchmaker view {out['matchmaker']}")
+    device = await call("GET", "/v2/console/device?n=256")
+    clocks = {k["kernel"]: k for k in device["kernels"]}
+    names = [d["name"] for d in device["mesh"]["devices"]]
+    out["device"] = {
+        "cards": names,
+        **{name: {key: clocks[name][key] for key in
+                  ("calls", "device_calls", "p50_ms", "device_p50_ms")}
+           for name in ("matchmaker.stage1", "leaderboard.rank")}}
+    if (clocks["matchmaker.stage1"]["calls"] <= 0
+            or clocks["leaderboard.rank"]["calls"] <= 0
+            or names[:1] != [torch.cuda.get_device_name(0)]):
+        raise AssertionError(f"console device view {out['device']}")
+    engine = await call("GET", "/v2/console/leaderboard/device")
+    board = [b for b in engine["boards"] if b["board_id"] == SERVER_BOARD]
+    out["rank_engine"] = {"device": engine["device"], "board": board}
+    if (engine["device"] != str(DEVICE) or len(board) != 1 or board[0]["host_only"]
+            or board[0]["entries"] != SERVER_BOARD_RECORDS + SERVER_CLIENTS):
+        raise AssertionError(f"console rank engine {out['rank_engine']}")
+    lex0 = kernels.LEX_RANKS.launches
+    records = (await call("GET", f"/v2/console/leaderboard/{SERVER_BOARD}?limit=100"))
+    ranks = [r["rank"] for r in records["records"]]
+    oracle = server.leaderboards.ranks
+    wrong = [r for r in records["records"]
+             if oracle.get(SERVER_BOARD, 0.0, r["owner_id"]) + 1 != r["rank"]]
+    out["records"] = {"n": len(ranks), "lex_ranks_launches":
+                      kernels.LEX_RANKS.launches - lex0}
+    if ranks != list(range(1, 101)) or wrong or out["records"]["lex_ranks_launches"] <= 0:
+        raise AssertionError(f"console records {out['records']}, {wrong[:3]}")
+    users = await call("GET", f"/v2/console/account?filter={uid}")
+    if [u["id"] for u in users["users"]] != [uid]:
+        raise AssertionError(f"console account browse {users}")
+    await call("POST", f"/v2/console/account/{uid}/ban")
+    await call("POST", f"/v2/console/account/{uid}/unban")
+    objects = await call("GET", f"/v2/console/storage?collection={SOCIAL_SEED}&limit=100")
+    if [o["key"] for o in objects["objects"]] != [f"obj-{j:06d}" for j in range(100)]:
+        raise AssertionError(f"console storage browse {objects['objects'][:2]}")
+    out["latency"] = {k: pcts(v) for k, v in lat.items()}
+    return out
 
 
 def phase_server(pickled: bytes) -> dict:
@@ -2881,13 +3205,6 @@ def phase_server(pickled: bytes) -> dict:
         handler = server.matchmaker.on_matched
         callbacks: list = []
 
-        # Interval counts at each client ticket's add and at its match's
-        # delivery, by ticket id (client tickets by their slot until then).
-        ticks = [0]
-        added: dict = {}
-        delivered: dict = {}
-        client_slots: dict = {}
-
         def timed_handler(batch):
             t = time.perf_counter()
             try:
@@ -2895,28 +3212,11 @@ def phase_server(pickled: bytes) -> dict:
             finally:
                 callbacks.append({"groups": len(batch),
                                   "callback_s": time.perf_counter() - t})
-                if client_slots:
-                    keys = np.fromiter(client_slots, dtype=np.int64)
-                    for s in np.intersect1d(np.asarray(batch.slots), keys).tolist():
-                        delivered[client_slots.pop(s)] = ticks[0]
 
-        server.matchmaker.on_matched = timed_handler
-        process = server.matchmaker.process
-
-        def counted_process():
-            ticks[0] += 1
-            return process()
-
-        server.matchmaker.process = counted_process
-        add = server.matchmaker.add
-
-        def counted_add(*args, **kwargs):
-            tid, created = add(*args, **kwargs)
-            added[tid] = ticks[0]
-            client_slots[server.matchmaker.store.slot_by_id(tid)] = tid
-            return tid, created
-
-        server.matchmaker.add = counted_add
+        # Interval counts at each client ticket's add and at its match's
+        # delivery, and the stage-1 kernels of the interval that formed it.
+        watch = DeliveryWatch(server)
+        server.matchmaker.on_matched = watch.wrap(timed_handler)
         # Where an auth request's time goes: the server's middleware
         # (admission and handler), the handler's database part, and the
         # admission waits of the RPC class (the auth requests').
@@ -2966,13 +3266,24 @@ def phase_server(pickled: bytes) -> dict:
         t0 = time.perf_counter()
         await server.start()
         res["start_s"] = time.perf_counter() - t0
+        # The console's profiler capture, asked for as start() returns:
+        # its window spans the first interval (the restored 100,000
+        # tickets, stage1_wgmma's dispatch). The interval loop waits for
+        # the window to open: the console sets its busy flag and starts
+        # the profiler before it first yields.
+        server.matchmaker.pause()
+        capture = asyncio.get_running_loop().create_task(
+            console_capture(server.console_port))
+        while not server.console._capture_busy and not capture.done():
+            await asyncio.sleep(0.005)
+        server.matchmaker.resume()
         rec = server.recovered
         res["recover"] = {k: v for k, v in rec.items()
                           if k not in ("unpublished_lsns", "repooled_ids")}
         if rec["tickets"] != built["tickets"]:
             raise AssertionError(
                 f"start() recovered {rec['tickets']} of {built['tickets']} tickets")
-        if ticks[0]:
+        if watch.ticks:
             raise AssertionError("an interval ran before recover() finished")
         # The loop's stalls while the clients are served: a 10 ms
         # heartbeat's lateness, with the write queue's depth beside it.
@@ -2992,11 +3303,16 @@ def phase_server(pickled: bytes) -> dict:
         # sent its match data.
         shared: dict = {"created": {}, "users": {}, "relay_sent": {}}
         commits0 = scrape_db(server.metrics.scrape())
+        FRAMES.clear()
+        encodes = EncodeClock()
         t0 = time.perf_counter()
-        await asyncio.gather(*(
-            server_client(server, ticks, added, delivered, i, results, shared)
-            for i in range(SERVER_CLIENTS)
-        ))
+        try:
+            await asyncio.gather(*(
+                server_client(server, watch, i, results, shared)
+                for i in range(SERVER_CLIENTS)
+            ))
+        finally:
+            res["protobuf_encodes"] = encodes.close()
         res["client_leg_s"] = time.perf_counter() - t0
         # Haystack reads once every write is in: past the flush interval
         # (the staleness contract), the first read flushes the board.
@@ -3023,7 +3339,8 @@ def phase_server(pickled: bytes) -> dict:
         mm = server.matchmaker
         for r in results:
             if r["matched"]:
-                r["intervals_to_match"] = delivered[r["ticket"]] - added[r["ticket"]]
+                r["intervals_to_match"] = (
+                    watch.delivered[r["ticket"]] - watch.added[r["ticket"]])
         unmatched = [r for r in results if r["matched"] is None]
         late = [r["i"] for r in results
                 if r["matched"] and r["intervals_to_match"] > 3]
@@ -3045,9 +3362,6 @@ def phase_server(pickled: bytes) -> dict:
                 r["intervals_to_match"] for r in results if r["matched"])),
         }
         res["client_groups"] = check_client_groups(results, queries_by_session)
-        def pcts(samples):
-            return {k: v for k, v in ms_stats(samples).items() if k != "samples_ms"}
-
         res["auth_latency"] = pcts([r["auth_ms"] for r in results])
         res["add_to_ticket"] = pcts([r["add_to_ticket_ms"] for r in results])
         res["add_to_matched"] = pcts(
@@ -3055,11 +3369,20 @@ def phase_server(pickled: bytes) -> dict:
         res["matched_to_joined"] = pcts(
             [r["matched_to_joined_ms"] for r in results if r["matched"]])
         res["relay"] = pcts([r["relay_ms"] for r in results])
+        res["by_format"] = by_format(results, watch)
+        res["frames_received"] = {f"{k[0]}_{k[1]}": n for k, n in FRAMES.items()}
+        if FRAMES[("protobuf", "binary")] <= 0 or res["protobuf_encodes"][
+                "matched_encodes"] < res["by_format"]["protobuf"]["matched"]:
+            raise AssertionError(
+                f"protobuf frames {res['frames_received']},"
+                f" {res['protobuf_encodes']}")
         res["record_write"] = pcts([r["write_ms"] for r in results])
         res["haystack"] = pcts([ms for ms, _ in hay])
         board = lb_device._boards.get((SERVER_BOARD, 0.0))
         res["leaderboard"] = {
-            "relays": sum(r["partner_device"] == f"smoke-device-{r['i'] ^ 1:04d}"
+            # Byte for byte, across formats (each pair is one JSON and
+            # one protobuf player).
+            "relays": sum(r["partner_payload"] == relay_payload(r["i"] ^ 1)
                           for r in results),
             "board_entries": board.count if board is not None else None,
             "device": str(lb_device.device),
@@ -3079,6 +3402,8 @@ def phase_server(pickled: bytes) -> dict:
                 or lb_device.device != DEVICE or lb_device.fallbacks
                 or lb_device.breaker.failures):
             raise AssertionError(f"the server's matches and board: {res['leaderboard']}")
+        res["console"] = await console_leg(server, results, capture)
+        emit({"phase": "server_console", "card": card(), **res["console"]})
         # The social leg, once every client has been matched and has
         # played: its latencies measure these routes, not the matched
         # handler's stall.
@@ -3524,6 +3849,8 @@ async def runtime_client(port: int, i: int, rec: dict, key: str) -> None:
     q, strs, nums = north_star_ticket(np.random.default_rng(9000 + i))
     rng = np.random.default_rng(9500 + i)
     rec["device"] = f"smoke-runtime-{i:04d}"
+    fmt = rec["fmt"] = client_format(i)
+    rec["stage"] = "auth"
     r = await wsproto.request(
         "127.0.0.1", port, "POST", "/v2/account/authenticate/device",
         headers={"Authorization": "Basic " + base64.b64encode(
@@ -3535,13 +3862,15 @@ async def runtime_client(port: int, i: int, rec: dict, key: str) -> None:
     rec["user_id"] = session_token.parse(key, rec["token"]).user_id
     bearer = {"Authorization": f"Bearer {rec['token']}"}
     ws = rec["ws"] = await wsproto.connect(
-        "127.0.0.1", port, f"/ws?token={rec['token']}")
-    inbox = Inbox(ws)
-    await ws.send(json.dumps({"cid": "add", "matchmaker_add": {
+        "127.0.0.1", port, f"/ws?token={rec['token']}&format={fmt}")
+    inbox = Inbox(ws, fmt)
+    rec["stage"] = "ticket"
+    await inbox.send({"cid": "add", "matchmaker_add": {
         "min_count": 2, "max_count": 2, "query": q,
-        "string_properties": strs, "numeric_properties": nums}}))
+        "string_properties": strs, "numeric_properties": nums}})
     tid = rec["ticket"] = (await inbox.take(
         lambda e: "matchmaker_ticket" in e, 60))["matchmaker_ticket"]["ticket"]
+    rec["stage"] = "matched"
     try:
         env = await inbox.take(lambda e: e.get(
             "matchmaker_matched", {}).get("ticket") == tid, 30)
@@ -3549,34 +3878,38 @@ async def runtime_client(port: int, i: int, rec: dict, key: str) -> None:
     except asyncio.TimeoutError:
         rec["matched"] = None
     if rec["matched"] is not None:
-        mid = rec["matched"].get("match_id")
+        mid = rec["match_id"] = rec["matched"].get("match_id")
         if not mid:
             raise AssertionError(f"runtime client {i}: no match id {rec['matched']}")
+        rec["stage"] = "join"
         t0 = time.perf_counter()
-        await ws.send(json.dumps({"cid": "join", "match_join": {"match_id": mid}}))
+        await inbox.send({"cid": "join", "match_join": {"match_id": mid}})
         joined = await inbox.take(lambda e: e.get("cid") == "join")
         if joined.get("match", {}).get("match_id") != mid:
             raise AssertionError(f"runtime client {i}: join answered {joined}")
         data = base64.b64encode(rec["device"].encode()).decode()
-        await ws.send(json.dumps({"match_data_send": {
-            "match_id": mid, "op_code": 1, "data": data}}))
+        rec["stage"] = "echo"
+        rec["echo_sent_s"] = time.perf_counter()
+        await inbox.send({"match_data_send": {
+            "match_id": mid, "op_code": 1, "data": data}})
         echo = (await inbox.take(lambda e: "match_data" in e))["match_data"]
         rec["join_to_echo_ms"] = (time.perf_counter() - t0) * 1e3
         if echo["op_code"] != 2 or echo["data"] != data:
             raise AssertionError(f"runtime client {i}: echo {echo}")
-        rec["match_id"] = mid
     # The REST write first (the hook's rewrite is its answer's score),
     # then the JS rpc's two lower writes.
     score = -1 if i == 0 else int(rng.integers(0, 20_000))
+    rec["stage"] = "write"
     t0 = time.perf_counter()
     r = await wsproto.request(
         "127.0.0.1", port, "POST", f"/v2/leaderboard/{SERVER_BOARD}",
         headers=bearer, body={"record": {"score": score}})
     rec["write_ms"] = (time.perf_counter() - t0) * 1e3
     rec["write"] = (score, r.status, r.json().get("score"))
+    rec["stage"] = "rpc"
     t0 = time.perf_counter()
-    await ws.send(json.dumps({"cid": "rpc", "rpc": {
-        "id": "arena_write", "payload": json.dumps({"score": i})}}))
+    await inbox.send({"cid": "rpc", "rpc": {
+        "id": "arena_write", "payload": json.dumps({"score": i})}})
     answer = await inbox.take(lambda e: e.get("cid") == "rpc")
     rec["rpc_ws_ms"] = (time.perf_counter() - t0) * 1e3
     if "rpc" not in answer:
@@ -3593,6 +3926,40 @@ async def runtime_client(port: int, i: int, rec: dict, key: str) -> None:
         body={"name": "smoke", "properties": {"i": str(i)}})
     if r.status != 200:
         raise AssertionError(f"runtime client {i}: event {r.status}")
+    rec["stage"] = "done"
+
+
+def runtime_failure_report(server, recs: list, watch, stalls: list, log,
+                           t_phase: float) -> None:
+    """Where the runtime phase's clients stood when one failed, to
+    standard error: each client's stage and, for a client waiting on its
+    match, that match's state (alive, tick, presences, queued input and
+    calls); the loop's stalls over 1 s (phase second, ms); the intervals'
+    stage-1 launches; the server log's error lines."""
+    handlers = server.match_registry._handlers
+    waiting = []
+    for r in recs:
+        if r.get("stage") in ("join", "echo"):
+            h = handlers.get(r.get("match_id"))
+            waiting.append({
+                "i": r["i"], "fmt": r["fmt"], "stage": r["stage"],
+                "dispatch": watch.dispatch_of.get(r.get("ticket")),
+                "since_echo_sent_s": (time.perf_counter() - r["echo_sent_s"]
+                                      if "echo_sent_s" in r else None),
+                "match": None if h is None else {
+                    "tick": h.tick, "stopped": h.stopped,
+                    "presences": len(h.presences), "input": h._input.qsize(),
+                    "calls": h._calls.qsize(),
+                    "task_done": h._task is None or h._task.done()},
+            })
+    print(json.dumps({
+        "runtime_failure": {
+            "stages": dict(collections.Counter(r.get("stage") for r in recs)),
+            "waiting": waiting, "matches": len(handlers),
+            "stalls": stalls, "intervals": watch.launched,
+            "phase_s": time.perf_counter() - t_phase,
+            "server_errors": log.errors()[:10]}}, default=str),
+        file=sys.stderr, flush=True)
 
 
 def phase_runtime(pickled: bytes) -> dict:
@@ -3604,8 +3971,10 @@ def phase_runtime(pickled: bytes) -> dict:
     stage1_wgmma), and sends each group holding a client into the JS
     echo match. 64 clients play it, call the JS rpc over the socket and
     HTTP, write a record through the JS before hook and read their
-    haystacks on the card, and post an event. Asserts: stage1_wgmma
-    launched and stage1 not; the hook called once a delivered group;
+    haystacks on the card, and post an event; every odd client speaks
+    protobuf. Asserts: stage1_wgmma launched and stage1 not; every
+    protobuf client's match came from an interval that launched
+    stage1_wgmma and not stage1; the hook called once a delivered group;
     every client given a match id joins it and gets its echo; every rank
     the oracle's, the rewritten scores stored, the negative one refused;
     64 events, 64 session starts and ends, one shutdown hook; no guest
@@ -3649,6 +4018,7 @@ def phase_runtime(pickled: bytes) -> dict:
             k.launches = 0
         b8.reset_launches()
         server = NakamaServer(cfg, log.logger)
+        watch = DeliveryWatch(server)
         # The hook's own time and calls, and each delivery's time and
         # groups, wrapped as the runtime attaches at start().
         hook = {"calls": 0, "s": 0.0}
@@ -3682,7 +4052,7 @@ def phase_runtime(pickled: bytes) -> dict:
                 finally:
                     deliveries.append((len(batch), time.perf_counter() - t))
 
-            server.matchmaker.on_matched = timed_handler
+            server.matchmaker.on_matched = watch.wrap(timed_handler)
 
         server.attach_runtime = timed_attach
         t0 = time.perf_counter()
@@ -3691,20 +4061,41 @@ def phase_runtime(pickled: bytes) -> dict:
         res["modules"] = server.runtime.modules
         counts = sys.modules["nakama_runtime_c_hooks"].COUNTS
         beats: list = []
+        stalls: list = []
 
         async def heartbeat():
             while True:
                 t = time.perf_counter()
                 await asyncio.sleep(0.01)
                 beats.append((time.perf_counter() - t - 0.01) * 1e3)
+                if beats[-1] > 1000:
+                    stalls.append((round(t - t_phase, 3), beats[-1]))
 
         beat = asyncio.get_running_loop().create_task(heartbeat())
         recs = [{"i": i} for i in range(RUNTIME_CLIENTS)]
         key = cfg.session.encryption_key
+        FRAMES.clear()
+        encodes = EncodeClock()
         t0 = time.perf_counter()
-        await asyncio.gather(*(runtime_client(server.port, i, rec, key)
-                               for i, rec in enumerate(recs)))
+        try:
+            await asyncio.gather(*(runtime_client(server.port, i, rec, key)
+                                   for i, rec in enumerate(recs)))
+        except BaseException:
+            runtime_failure_report(server, recs, watch, stalls, log, t_phase)
+            raise
+        finally:
+            res["protobuf_encodes"] = encodes.close()
         res["client_leg_s"] = time.perf_counter() - t0
+        # The protobuf players' groups came from B1's Hopper kernel (the
+        # first interval over the checkpoint), through the Lua hook.
+        res["by_format"] = by_format(recs, watch)
+        res["frames_received"] = {f"{k[0]}_{k[1]}": n for k, n in FRAMES.items()}
+        binary = [r for r in recs if r["fmt"] == "protobuf" and r["matched"]]
+        off_b1 = [r["i"] for r in binary if not watch.via_wgmma(r["ticket"])]
+        if not binary or off_b1 or FRAMES[("protobuf", "text")]:
+            raise AssertionError(
+                f"protobuf clients matched {len(binary)}, not by stage1_wgmma:"
+                f" {off_b1[:8]}; frames {res['frames_received']}")
         await asyncio.sleep(cfg.leaderboard.device_flush_interval_sec)
         lex0 = kernels.LEX_RANKS.launches
         hay = await asyncio.gather(*(
@@ -3760,14 +4151,11 @@ def phase_runtime(pickled: bytes) -> dict:
         if errors:
             raise AssertionError(f"the server logged errors: {errors[:5]}")
 
-        def pcts(samples):
-            return {k: v for k, v in ms_stats(samples).items() if k != "samples_ms"}
-
         first_groups, first_s = deliveries[0]
         res.update({
             "clients": RUNTIME_CLIENTS, "matched": len(matched),
             "still_pooled": len(unmatched),
-            "matches_joined": sum("match_id" in r for r in matched),
+            "matches_joined": sum("join_to_echo_ms" in r for r in matched),
             "first_delivery": {"groups": first_groups, "s": first_s},
             "deliveries": len(deliveries), "groups": groups,
             "hook": {"calls": hook["calls"], "s": hook["s"],

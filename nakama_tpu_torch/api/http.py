@@ -229,6 +229,9 @@ class ApiServer:
             ("POST", "/v2/event", self._h_event),
         ]
         routes += [(m, p, self._h_unimplemented) for m, p in _LATER_ROUTES]
+        # (method, path template) of every route: the console's endpoint
+        # list.
+        self.routes = [(m, p) for m, p, _ in routes]
         self._routes = [(m, _pattern(p), h) for m, p, h in routes]
 
     # ----------------------------------------------------------- lifecycle

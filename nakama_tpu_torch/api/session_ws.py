@@ -8,7 +8,12 @@ pipeline, ping/pong liveness (the transport's keepalive, `wsproto`:
 untracks all presences, unfollows statuses, deregisters the session, and
 fires the session-end callback. The port's copy of the JAX package's
 `api/session_ws.py`; the session records the kind it closed with
-(`close_kind`), which the acceptor reads.
+(`close_kind`), which the acceptor reads. Its one encode and one decode
+site go through `protocol.py` in the socket's format: a `format=protobuf`
+session sends binary frames, reads a text frame as the bytes of its
+text (as the JAX decode does), closes on a frame that is not an
+Envelope, and closes with 1011 when an outgoing envelope cannot be
+encoded.
 """
 
 from __future__ import annotations

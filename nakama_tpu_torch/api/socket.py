@@ -7,8 +7,10 @@ notifications stream (and the status stream when `status=true`), optional
 single-socket enforcement, then the blocking consume loop.
 
 The port's copy of the JAX package's `api/socket.py`, over a `wsproto`
-connection. It accepts `format=json` only (close 4000 "unsupported
-format" otherwise, protocol.py). One difference by design: a session
+connection. It accepts `format=json` and `format=protobuf` (the port's
+own rtapi codec, protocol.py; such a socket is sent binary frames) and
+closes any other format with 4000 "unsupported format". One difference
+by design: a session
 that the server's stop closed (kind "shutdown", code 1012 with a
 Retry-After hint) keeps its tickets, which the restarted server holds
 for the player's next session (`recovery.HeldTickets`); the JAX

@@ -6,7 +6,8 @@ section for section (reference server/config.go:35-1073), for the
 sections the port serves so far: the server's own fields (`name`,
 `data_dir`, `shutdown_grace_sec`), `logger`, `metrics`, `session`,
 `socket`, `database`, `matchmaker`, `match`, `tracker`, `runtime`,
-`leaderboard`, `overload`, `tracing`, `recovery` and `devobs`. The matchmaker section drops the mesh-sharding
+`console`, `leaderboard`, `overload`, `tracing`, `recovery` and
+`devobs`. The matchmaker section drops the mesh-sharding
 knobs (the port runs on one card); `socket` has no `grpc_port` and
 `database` no `group_commit` (the port has neither path), and fields no
 port code reads yet are left out until the code that reads them lands
@@ -16,7 +17,7 @@ port code reads yet are left out until the code that reads them lands
 `conn_max_lifetime_ms`), and `leaderboard` drops
 `device_read_budget_ms` (the port's rank engine reads a board on the
 card whatever a request's deadline has left). A section the
-port does not have yet (`cluster`, `console`, `social`, ...) is an
+port does not have yet (`cluster`, `iap`, `social`, ...) is an
 unknown key to `load_config`, as a typo is. `--config file.yml` imports
 PyYAML only when a file is given; flags alone need nothing outside the
 standard library. `apply_observability` hands the tracing and devobs
@@ -129,6 +130,17 @@ class RuntimeConfig:
     http_key: str = "defaulthttpkey"
     event_queue_size: int = 65_536
     event_queue_workers: int = 8
+
+
+@dataclass
+class ConsoleConfig:
+    port: int = 7351
+    address: str = ""
+    username: str = "admin"
+    password: str = "password"
+    signing_key: str = "defaultsigningkey"
+    max_message_size_bytes: int = 4_194_304
+    token_expiry_sec: int = 86_400
 
 
 @dataclass
@@ -333,9 +345,12 @@ class DevObsConfig:
     # are expected; after it, a build on the hot path is counted as a
     # recompile and WARNs.
     warmup_intervals: int = 3
-    # Bounded kernel-event timeline depth (delivery-ledger device phase
-    # chains slice it by wall window).
+    # Bounded kernel-event timeline depth (console last-interval view;
+    # delivery-ledger device phase chains slice it by wall window).
     timeline_depth: int = 256
+    # Upper bound on one console-triggered torch.profiler capture; the
+    # endpoint clamps requested durations here (output under data_dir).
+    capture_max_ms: int = 10_000
 
 
 @dataclass
@@ -356,6 +371,7 @@ class Config:
     match: MatchConfig = field(default_factory=MatchConfig)
     tracker: TrackerConfig = field(default_factory=TrackerConfig)
     runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
+    console: ConsoleConfig = field(default_factory=ConsoleConfig)
     leaderboard: LeaderboardConfig = field(default_factory=LeaderboardConfig)
     overload: OverloadConfig = field(default_factory=OverloadConfig)
     tracing: TracingConfig = field(default_factory=TracingConfig)
@@ -382,12 +398,16 @@ class Config:
             warnings.append("session.encryption_key is the insecure default")
         if self.socket.server_key == "defaultkey":
             warnings.append("socket.server_key is the insecure default")
+        if self.console.password == "password":
+            warnings.append("console.password is the insecure default")
         if self.matchmaker.max_tickets < 1:
             raise ValueError("matchmaker.max_tickets must be >= 1")
         if self.matchmaker.interval_sec < 1:
             raise ValueError("matchmaker.interval_sec must be >= 1")
         if self.matchmaker.max_intervals < 1:
             raise ValueError("matchmaker.max_intervals must be >= 1")
+        if self.socket.port == self.console.port:
+            raise ValueError("socket.port and console.port must differ")
         if self.overload.admission_max_concurrent < 1:
             raise ValueError(
                 "overload.admission_max_concurrent must be >= 1"
@@ -408,6 +428,11 @@ class Config:
             warnings.append("tracing.slo_target should be in (0, 1)")
         if self.devobs.warmup_intervals < 0:
             raise ValueError("devobs.warmup_intervals must be >= 0")
+        if self.devobs.capture_max_ms > 60_000:
+            warnings.append(
+                "devobs.capture_max_ms over 60s — a console-triggered"
+                " profiler capture of that length can fill data_dir"
+            )
         if self.recovery.checkpoint_interval_sec < 1:
             raise ValueError(
                 "recovery.checkpoint_interval_sec must be >= 1"

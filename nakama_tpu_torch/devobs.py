@@ -31,6 +31,10 @@ threading an instance through each of them. Three instruments:
    adjusted at dispatch/fetch, with a high-watermark, cross-checked
    against `torch.cuda.memory_stats()` where a card is present, plus
    h2d/d2h transfer counters per call site.
+
+`describe_devices` lists the `torch` devices the process sees, for the
+console's device view (the JAX package's `describe_mesh`; the port runs
+on one card and describes no mesh).
 """
 
 from __future__ import annotations
@@ -504,6 +508,13 @@ class DeviceTelemetry:
                     break
         return out
 
+    def recent_timeline(self, n: int = 64) -> list[dict]:
+        """The newest `n` kernel events (the console's device view)."""
+        return [
+            {"kernel": k, "ts": ts, "ms": ms, "device_ms": dev_ms}
+            for k, ts, ms, dev_ms in list(self.timeline)[-n:]
+        ]
+
     def memory_by_owner(self) -> dict[str, int]:
         with self._lock:
             return dict(self._memory)
@@ -590,3 +601,23 @@ class DeviceTelemetry:
 # The process-wide plane (faults.PLANE precedent): configured from
 # config.devobs (`DevObsConfig`); tests reset/configure it directly.
 DEVOBS = DeviceTelemetry()
+
+
+def describe_devices() -> dict:
+    """The CUDA devices the process sees (index, name, memory), for the
+    console's device view; `mesh` is None (the port shards nothing).
+    Never raises; a host without a card reports `devices: []`."""
+    devices = []
+    try:
+        import torch
+
+        if torch.cuda.is_available():
+            for i in range(torch.cuda.device_count()):
+                props = torch.cuda.get_device_properties(i)
+                devices.append(
+                    {"index": i, "name": props.name,
+                     "memory_bytes": int(props.total_memory)}
+                )
+    except Exception:
+        devices = []
+    return {"devices": devices, "mesh": None}

@@ -122,6 +122,15 @@ class MatchHandler:
                     continue
                 except asyncio.TimeoutError:
                     pass
+                # Calls queued before this tick (a presence's join, a
+                # leave) apply before it, also while late ticks are
+                # caught up back to back after a loop stall: there the
+                # zero-timeout wait above never serves a call, so a
+                # player's data could reach match_loop before its join.
+                while not self.stopped and not self._calls.empty():
+                    await self._calls.get_nowait()()
+                if self.stopped:
+                    break
                 next_tick += period
                 if not self._loop_once():
                     break

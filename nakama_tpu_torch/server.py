@@ -6,14 +6,15 @@ router → match registry → matchmaker (`CudaBackend` on the card) →
 recovery plane → tracing and device telemetry → overload plane → party
 registry → channels, notifications, wallets, friends and groups →
 leaderboards (the `DeviceRankEngine` on the matchmaker's device) →
-pipeline → socket acceptor → API server, the runtime's Python, Lua and
+pipeline → socket acceptor → API server → console, the runtime's Python, Lua and
 JS modules loaded at `start()` (`runtime.path`, or `runtime_modules`)
 and attached to the pipeline, the API, the matched handler, the match
 registry, the socket's session events and the leaderboard scheduler —
 and graceful shutdown in reverse, ending with drain-to-durable. The
 port's copy of the JAX package's `server.py`; the cluster, purchases,
-social, IAP, console and gRPC of the JAX server come with their own
-slices (ROADMAP.md §A).
+social, IAP and gRPC of the JAX server come with their own slices
+(ROADMAP.md §A). The console is the second listener, on `console.port`
+(0 when `socket.port` is 0), as in the JAX server.
 """
 
 from __future__ import annotations
@@ -250,9 +251,12 @@ class NakamaServer:
             held=None if self.recovery is None else self.recovery.held,
         )
         from .api.http import ApiServer
+        from .console import ConsoleServer
 
         self.api = ApiServer(self)
+        self.console = ConsoleServer(self)
         self.port: int | None = None
+        self.console_port: int | None = None
         self.metrics_port: int | None = None
         self.recovered: dict | None = None
         self._release_held: asyncio.TimerHandle | None = None
@@ -496,9 +500,16 @@ class NakamaServer:
             self.config.socket.port,
         )
         self.metrics_port = self.api.metrics_port
+        # Second listener for operators (reference StartConsoleServer,
+        # console.go:167); port 0 when the API's is.
+        self.console_port = await self.console.start(
+            self.config.console.address or "127.0.0.1",
+            0 if self.config.socket.port == 0 else self.config.console.port,
+        )
         self.logger.info(
             "server listening",
             port=self.port,
+            console=self.console_port,
             metrics=self.metrics_port,
             backend=type(self.matchmaker.backend).__name__,
             device=str(getattr(self.matchmaker.backend, "device", "cpu")),
@@ -522,6 +533,7 @@ class NakamaServer:
             # Retry-After while the front doors finish in-flight
             # requests — the crash-only-software front half.
             self.overload.enter_drain()
+        await self.console.stop()
         await self.api.stop()
         await self.match_registry.stop_all(grace)
         self.leaderboard_scheduler.stop()
@@ -569,6 +581,20 @@ class NakamaServer:
             await self.db.close()
             self._db_connected = False
         self.logger.info("server stopped")
+
+    def issue_session(self, user_id: str, username: str) -> str:
+        """Create a session token and register it with the cache (the
+        auth core's tail; for tests and operator tooling)."""
+        from .api import session_token
+
+        token, claims = session_token.generate(
+            self.config.session.encryption_key,
+            user_id,
+            username,
+            self.config.session.token_expiry_sec,
+        )
+        self.session_cache.add(user_id, claims.expires_at, claims.token_id)
+        return token
 
 
 async def _amain(config: Config):

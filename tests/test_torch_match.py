@@ -15,11 +15,16 @@ Ticks are driven by the test (`MatchHandler._loop_once`), not by the
 wall clock, so the counts are exact: in both packages the match task
 serves its call queue only.
 
+One test drives the port's own tick task (`MatchHandler._run`) on the
+wall clock: a player's join queued while the task catches up on late
+ticks reaches the match before that player's data.
+
 Stated tolerance: none — every compared value must be equal."""
 
 import asyncio
 import base64
 import json
+import time
 
 import pytest
 
@@ -42,12 +47,17 @@ from nakama_tpu_torch.api import session_token as port_token
 from nakama_tpu_torch.logger import test_logger as port_logger
 from nakama_tpu_torch.match import LocalMatchRegistry, LocalPartyRegistry
 from nakama_tpu_torch.match import handler as port_handler
+from nakama_tpu_torch.match.core import MatchMessage
 from nakama_tpu_torch.matchmaker import LocalMatchmaker
 from nakama_tpu_torch.matchmaker.cuda import CudaBackend
 from nakama_tpu_torch.realtime import (
     LocalMessageRouter,
     LocalSessionRegistry,
     LocalTracker,
+    Presence,
+    PresenceID,
+    PresenceMeta,
+    Stream,
     StreamMode,
 )
 
@@ -370,3 +380,59 @@ async def test_max_empty_sec_ends_an_empty_match(name, monkeypatch):
     _tick(handler, 1)
     await asyncio.sleep(0)
     assert rig.matches.get(match_id) is None and handler.tick == 4
+
+
+async def test_a_join_queued_during_late_ticks_applies_before_the_next_tick():
+    """The port's tick task after a loop stall: at tick 3 the match loop
+    blocks the event loop for 3.5 periods while the player's join is
+    queued and its data arrives. The late ticks then run back to back,
+    and the join must apply before the tick that reads the data, so the
+    echo, addressed to the live presences, reaches the sender."""
+    player = Presence(
+        PresenceID("node", "s1"),
+        Stream(StreamMode.MATCH_AUTHORITATIVE, subject="m.node"), "u1",
+        PresenceMeta())
+    sent = []
+
+    class Registry:
+        def remove(self, match_id):
+            pass
+
+    class Router:
+        def send_to_presence_ids(self, targets, envelope):
+            sent.append(list(targets))
+
+    class StallingEcho:
+        seen = []
+
+        def match_init(self, ctx, params):
+            return {}, 10, ""
+
+        def match_join(self, ctx, dispatcher, tick, state, presences):
+            return state
+
+        def match_loop(self, ctx, dispatcher, tick, state, messages):
+            if tick == 3:
+                asyncio.get_running_loop().create_task(handler.join([player]))
+                time.sleep(0.35)
+                handler.queue_data(MatchMessage(player, 1, b"x"))
+            for m in messages:
+                live = [p for p in handler.presences.list()
+                        if p.id == m.sender.id]
+                self.seen.append((tick, len(live)))
+                dispatcher.broadcast_message(2, m.data, live)
+            return state
+
+    handler = port_handler.MatchHandler(
+        port_logger(), port_config.MatchConfig(), Registry(), Router(),
+        "m.node", "node", StallingEcho(), {})
+    handler.start()
+    try:
+        for _ in range(100):
+            await asyncio.sleep(0.02)
+            if StallingEcho.seen:
+                break
+    finally:
+        handler.stopped = True
+    assert StallingEcho.seen == [(4, 1)]
+    assert sent == [[player.id]]

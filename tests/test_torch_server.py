@@ -1229,8 +1229,8 @@ async def test_same_script_same_answers_as_the_jax_server(tmp_path):
 def test_check_and_parse_args_agree_on_the_shared_sections():
     shared = [
         "logger", "metrics", "session", "socket", "database", "matchmaker",
-        "match", "tracker", "runtime", "leaderboard", "overload", "tracing",
-        "recovery", "devobs",
+        "match", "tracker", "runtime", "console", "leaderboard", "overload",
+        "tracing", "recovery", "devobs",
     ]
     argv = [
         "--name", "node-7", "--data_dir", "/tmp/x", "--shutdown_grace_sec", "5",
@@ -1247,6 +1247,8 @@ def test_check_and_parse_args_agree_on_the_shared_sections():
         "--leaderboard.device_flush_interval_sec", "0.5",
         "--runtime.path", "/tmp/modules", "--runtime.env", "a=1,b=x",
         "--runtime.http_key", "k2", "--runtime.event_queue_workers", "2",
+        "--console.port", "7400", "--console.username", "ops",
+        "--devobs.capture_max_ms", "2500",
     ]
     port = port_config.parse_args(argv)
     jax = jax_config.parse_args(argv)
@@ -1261,10 +1263,13 @@ def test_check_and_parse_args_agree_on_the_shared_sections():
         # The port adds no field of its own; the JAX fields it drops
         # are the ones its config docstring names.
         assert set(pd[section]) <= set(jd[section])
-    assert port.check() == [
-        w for w in jax.check() if not w.startswith("console.")
-    ]
-    for bad in (["--name", "a.b"], ["--matchmaker.interval_sec", "0"]):
+    assert port.check() == jax.check()
+    for capture in (["--devobs.capture_max_ms", "60001"],
+                    ["--console.password", "s3cret"]):
+        assert port_config.parse_args(capture).check() == (
+            jax_config.parse_args(capture).check())
+    for bad in (["--name", "a.b"], ["--matchmaker.interval_sec", "0"],
+                ["--socket.port", "7351"]):
         with pytest.raises(ValueError) as p_err:
             port_config.parse_args(bad).check()
         with pytest.raises(ValueError) as j_err:
@@ -1637,25 +1642,23 @@ async def test_a_server_without_the_plane_still_serves(tmp_path, plane):
 
 def test_cli_subcommands_answer_as_the_jax_cli(tmp_path, capsys):
     """`--version`, `check` and `migrate up|status` of `python -m
-    nakama_tpu_torch` print what the JAX package's CLI prints (the JAX
-    `check` is given a console password: the port has no console)."""
+    nakama_tpu_torch` print what the JAX package's CLI prints (`check`
+    with and without the console's default password)."""
     from nakama_tpu import __main__ as jax_main
     from nakama_tpu_torch import __main__ as port_main
 
     outputs = {}
-    for name, cli, extra in (
-        ("jax", jax_main, ["--console.password", "pw2"]),
-        ("torch", port_main, []),
-    ):
+    for name, cli in (("jax", jax_main), ("torch", port_main)):
         db = str(tmp_path / f"{name}.db")
         seen = []
         for argv in (
             ["--version"],
             ["check", "--socket.server_key", "k2", "--database.address", db,
-             *extra],
+             "--console.password", "pw2"],
             ["migrate", "status", "--database.address", db],
             ["migrate", "up", "--database.address", db],
             ["migrate", "status", "--database.address", db],
+            ["check", "--socket.server_key", "k2", "--database.address", db],
         ):
             assert cli.main(argv) == 0
             seen.append(capsys.readouterr().out)
@@ -1663,6 +1666,7 @@ def test_cli_subcommands_answer_as_the_jax_cli(tmp_path, capsys):
     assert outputs["torch"] == outputs["jax"]
     assert "config ok (1 warnings)" in outputs["torch"][1]  # the session key
     assert "applied" in outputs["torch"][4] and "pending" in outputs["torch"][2]
+    assert "console.password is the insecure default" in outputs["torch"][5]
 
 
 def test_cuda_backend_without_a_card_raises_at_construction():

@@ -11,8 +11,9 @@ drained through the pipelined queue. A subprocess checks that the port —
 an interval, the service loop with tracing, telemetry and an armed
 fault, a snapshot restored, the ticket journal and a checkpoint over
 the SQLite engine, a warm restart, a metrics scrape and the overload
-ladder — runs without JAX, the JAX package or prometheus_client in the
-interpreter.
+ladder, the rank engine, the console and an envelope through the rtapi
+codec — runs without JAX, the JAX package, prometheus_client or
+google.protobuf in the interpreter.
 """
 
 import os
@@ -400,11 +401,21 @@ HYGIENE = textwrap.dedent(
     assert engine.adopt_board("b", 0.0, 1)
     owners = ["o3", "o7", "nobody"]
     assert engine.get_many("b", 0.0, owners) == cache.get_many("b", 0.0, owners)
+    # The console and the rtapi codec import no more, and the codec
+    # needs no google.protobuf.
+    from nakama_tpu_torch.console import ConsoleServer  # noqa: F401
+    from nakama_tpu_torch.proto import decode_envelope, encode_envelope
+
+    env = {"cid": "1", "matchmaker_add": {
+        "query": "*", "min_count": 2, "max_count": 2,
+        "numeric_properties": {"rank": -1.5}}}
+    assert decode_envelope(encode_envelope(env)) == env
     bad = sorted(
         m for m in sys.modules
         if m == "jax" or m.startswith("jax.")
         or m == "nakama_tpu" or m.startswith("nakama_tpu.")
         or m == "prometheus_client" or m.startswith("prometheus_client.")
+        or m == "google.protobuf" or m.startswith("google.protobuf.")
     )
     assert not bad, bad
     print("ok")

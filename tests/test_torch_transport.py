@@ -2,13 +2,17 @@
 held against the libraries the JAX package serves and tests with: the
 port's server against the `websockets` client (fragmented text,
 interleaved pings, keepalive, 1009 above the size limit, the acceptor's
-4000/4001 and the shutdown's 1012), its HTTP side against raw sockets
-(keep-alive, 413, a refused handshake), and the port's client against
-the JAX `ApiServer` (`aiohttp`)."""
+4000 for an unknown format, 4001 and the shutdown's 1012), its HTTP side
+against raw sockets (keep-alive, 413, a refused handshake), the port's
+client against the JAX `ApiServer` (`aiohttp`), and one script of a
+`format=protobuf` client and a JSON client matched together and
+relaying match data both ways, on the port's server and on the JAX
+server, with the same answers once ids are normalised."""
 
 import asyncio
 import base64
 import json
+import re
 import time
 
 import pytest
@@ -16,9 +20,10 @@ import websockets
 
 from fixtures import quiet_logger
 
+from nakama_tpu import config as jax_config
 from nakama_tpu.config import Config as JaxConfig
 from nakama_tpu.server import NakamaServer as JaxServer
-from nakama_tpu_torch.api import wsproto
+from nakama_tpu_torch.api import protocol, wsproto
 from nakama_tpu_torch.config import parse_args
 from nakama_tpu_torch.logger import test_logger as port_logger
 from nakama_tpu_torch.server import NakamaServer
@@ -304,7 +309,7 @@ async def test_acceptor_close_codes_4000_4001_and_shutdown_1012(tmp_path):
     try:
         token = await token_for(port)
         async with websockets.connect(
-            f"ws://{HOST}:{port}/ws?token={token}&format=protobuf"
+            f"ws://{HOST}:{port}/ws?token={token}&format=xml"
         ) as ws:
             with pytest.raises(websockets.ConnectionClosed) as e:
                 await asyncio.wait_for(ws.recv(), 5)
@@ -380,3 +385,146 @@ async def test_port_client_against_the_jax_api_server(tmp_path):
             assert e.code == 4001
     finally:
         await server.stop()
+
+
+# ------------------------------ format=protobuf beside format=json
+
+
+MIXED_FLAGS = ["--socket.port", "0", "--matchmaker.backend", "cpu",
+               "--matchmaker.interval_sec", "100",
+               "--matchmaker.interval_pipelining", "false",
+               "--matchmaker.pool_capacity", "2048"]
+_ID = re.compile(
+    r"[0-9a-f]{8}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{12}(\.[\w-]+)?")
+
+
+class Ids:
+    """Random ids named by first appearance; tokens masked."""
+
+    def __init__(self):
+        self.names: dict[str, str] = {}
+
+    def __call__(self, obj):
+        if isinstance(obj, dict):
+            return {k: "<token>" if k == "token" else self(v)
+                    for k, v in obj.items()}
+        if isinstance(obj, list):
+            return [self(v) for v in obj]
+        if isinstance(obj, str):
+            return _ID.sub(
+                lambda m: self.names.setdefault(
+                    m.group(0), f"<id{len(self.names)}>"), obj)
+        return obj
+
+
+class Client:
+    """One player socket in `fmt`, every envelope kept in arrival order;
+    a protobuf socket must send binary frames only."""
+
+    def __init__(self, ws, fmt: str):
+        self.ws, self.fmt, self.seen = ws, fmt, []
+
+    async def send(self, env: dict):
+        await self.ws.send(protocol.encode(env, self.fmt))
+
+    async def take(self, key: str, timeout: float = 5.0) -> dict:
+        async def loop():
+            while True:
+                raw = await self.ws.recv()
+                if self.fmt == "protobuf":
+                    assert isinstance(raw, bytes), raw
+                env = protocol.decode(raw, self.fmt)
+                self.seen.append(env)
+                if key in env:
+                    return env
+        return await asyncio.wait_for(loop(), timeout)
+
+
+def _by_user(env: dict) -> dict:
+    """A matched envelope's users in username order."""
+    body = env.get("matchmaker_matched")
+    if body is not None:
+        body["users"] = sorted(
+            body["users"], key=lambda u: u["presence"]["username"])
+    return env
+
+
+async def mixed_script(server) -> dict:
+    port = server.port
+    raw = bytes(range(250, 256)) + "é".encode()  # not UTF-8 text
+    clients = {}
+    for name, fmt in (("pb", "protobuf"), ("js", "json")):
+        r = await wsproto.request(
+            HOST, port, "POST", f"/v2/account/authenticate/device?username={name}",
+            headers=basic(), body={"account": {"id": f"device-mixed-{name}"}})
+        token = r.json()["token"]
+        ws = await wsproto.connect(HOST, port, f"/ws?token={token}&format={fmt}")
+        clients[name] = Client(ws, fmt)
+    pb, js = clients["pb"], clients["js"]
+    add = {"cid": "mm", "matchmaker_add": {
+        "min_count": 2, "max_count": 2, "query": "+properties.mode:duel",
+        "string_properties": {"mode": "duel"},
+        "numeric_properties": {"rank": -3.5}}}
+    for c in (pb, js):
+        await c.send(add)
+        await c.take("matchmaker_ticket")
+    server.matchmaker.process()
+    matched = {n: _by_user(await c.take("matchmaker_matched"))
+               for n, c in clients.items()}
+    assert (matched["pb"]["matchmaker_matched"]["token"]
+            == matched["js"]["matchmaker_matched"]["token"])
+    token = matched["pb"]["matchmaker_matched"]["token"]
+    for c in (pb, js):
+        await c.send({"cid": "join", "match_join": {"token": token}})
+        await c.take("match")
+    mid = pb.seen[-1]["match"]["match_id"]
+    # Relay both ways: the raw bytes arrive byte for byte.
+    await pb.send({"match_data_send": {
+        "match_id": mid, "op_code": 7, "data": base64.b64encode(raw).decode()}})
+    got_js = await js.take("match_data")
+    assert base64.b64decode(got_js["match_data"]["data"]) == raw
+    await js.send({"match_data_send": {
+        "match_id": mid, "op_code": 8,
+        "data": base64.urlsafe_b64encode(raw[::-1]).decode().rstrip("=")}})
+    got_pb = await pb.take("match_data")
+    assert base64.b64decode(got_pb["match_data"]["data"]) == raw[::-1]
+    # A payload that is not base64 is refused in the pipeline; the
+    # protobuf recipient's socket lives on.
+    await js.send({"cid": "bad", "match_data_send": {
+        "match_id": mid, "op_code": 9, "data": "!!"}})
+    await js.take("error")
+    await pb.send({"cid": "alive", "ping": {}})
+    await pb.take("pong")
+    # A text frame on the protobuf socket is read as its bytes (this
+    # envelope's bytes are all ASCII).
+    await pb.ws.send(protocol.encode(
+        {"cid": "txt", "matchmaker_remove": {"ticket": "nope"}},
+        "protobuf").decode())
+    await pb.take("error")
+    for c in (pb, js):
+        await c.ws.close()
+    ids = Ids()
+    return {n: ids([_by_user(e) for e in c.seen]) for n, c in clients.items()}
+
+
+async def test_protobuf_and_json_clients_match_and_relay_as_on_the_jax_server(
+        tmp_path):
+    cfg = parse_args(MIXED_FLAGS + ["--data_dir", str(tmp_path / "port")])
+    server = NakamaServer(cfg, port_logger())
+    await server.start()
+    try:
+        port_seen = await mixed_script(server)
+    finally:
+        await server.stop()
+    jcfg = jax_config.parse_args(MIXED_FLAGS + ["--data_dir", str(tmp_path / "jax")])
+    jserver = JaxServer(jcfg, quiet_logger())
+    await jserver.start()
+    try:
+        jax_seen = await mixed_script(jserver)
+    finally:
+        await jserver.stop()
+    assert port_seen == jax_seen
+    assert [next(k for k in e if k != "cid") for e in port_seen["pb"]] == [
+        "stream_presence_event", "matchmaker_ticket", "matchmaker_matched",
+        "match", "match_presence_event", "match_presence_event",
+        "match_data", "pong", "error"]
