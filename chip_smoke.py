@@ -3,17 +3,19 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written kernels and native library from the
-sources in this checkout, holds both stage-1 kernels against their plain
-PyTorch version on the card and times them in turns at the main path's
-shapes and the wide route's (m = 5 and 8, E = 32, D = 776), runs the
-port's device self-check (the first kernel's path, m = 32), then drives
-the matchmaker's main path through its public entry point
+sources in this checkout, holds the three stage-1 kernels against their
+plain PyTorch version on the card and times each Hopper kernel in turns
+with the first at the main path's shapes, the wide route's (m = 5 and 8,
+E = 32, D = 776) and the selection kernel's (m = 9 to 64), runs the
+port's device self-check (m = 32: the selection kernel's path), then
+drives the matchmaker's main path through its public entry point
 (`LocalMatchmaker` with the default `backend="cuda"`) at the default
 widths: 100,000 1v1 tickets (the device-pairing path; each synchronous
 interval split into its breadcrumb stages, kernel clocks and HBM
 ledger), 32,768 1v1 tickets at 128 candidates a ticket (the wide route,
-m = 8) and 100,000 embedding-scored 5v5 tickets (the native-assembler
-path). Then the
+m = 8), the same at 256 (m = 16, the selection kernel) and with 48
+numeric and 32 string fields (D = 1032, the first kernel), and 100,000
+embedding-scored 5v5 tickets (the native-assembler path). Then the
 service surface: the 100,000-ticket pool's snapshot restored into a
 fresh matchmaker (same groups as the original's interval), restored
 again into one that runs `start()`'s interval loop and delivery stage
@@ -222,16 +224,20 @@ def phase_build() -> None:
 def ptxas_report(log: str) -> dict:
     """Registers and spills of every compiled kernel instantiation in an
     `nvcc -Xptxas -v` log, keyed by entry name (template arguments of
-    stage1_wgmma_kernel shown as m=, rev=, emb=, wide=)."""
+    stage1_wgmma_kernel shown as m=, rev=, emb=, wide=; of
+    stage1_select_kernel as rev=, emb=, ncw=)."""
     report: dict[str, list[str]] = {}
     name = "?"
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1] if "'" in line else line
             t = re.search(r"ILi(\d+)ELb([01])ELb([01])ELb([01])E", name)
+            u = re.search(r"select_kernelILb([01])ELb([01])ELi(\d+)E", name)
             if t:
                 name = (f"stage1_wgmma_kernel<m={t[1]},rev={t[2]},emb={t[3]},"
                         f"wide={t[4]}>")
+            elif u:
+                name = f"stage1_select_kernel<rev={u[1]},emb={u[2]},ncw={u[3]}>"
             report[name] = []
         elif "arning" in line or re.search(r"\(C\d+\)", line):
             code = re.search(r"\((C\d+)\)", line)
@@ -354,9 +360,10 @@ def stage1_bound_ms(args: dict, out_words: int, peak_01: float) -> tuple[float, 
 
 
 def hold_kernels(pool, grid, cases, max_err: dict, fn=24, fs=16) -> None:
-    """Every case through each B1 kernel that takes it, against the plain
-    version on the same inputs. A case is (rows, active, n_cols, bn); the
-    pool's field counts are `fn`, `fs`, its embedding width its own."""
+    """Every case through the first B1 kernel and the Hopper kernel its
+    shape routes to, against the plain version on the same inputs. A case
+    is (rows, active, n_cols, bn); the pool's field counts are `fn`, `fs`,
+    its embedding width its own."""
     from nakama_tpu_torch import kernels
     from nakama_tpu_torch.matchmaker import device2 as td2
 
@@ -373,8 +380,9 @@ def hold_kernels(pool, grid, cases, max_err: dict, fn=24, fs=16) -> None:
                 kw = dict(f_tot=float(fn + fs + 1), m=m, bn=bn, emb_scale=256.0, **args)
                 want = td2.stage1_plain(fn=fn, fs=fs, m=m, bn=bn, emb_scale=256.0, **args)
                 launches = [kernels.stage1]
-                if td2.stage1_route(m, d, e) is kernels.STAGE1_WGMMA:
-                    launches.append(kernels.stage1_wgmma)
+                route = td2.stage1_route(m, d, e)
+                if route is not kernels.STAGE1:
+                    launches.append(getattr(kernels, route.name))
                 case = {"phase": "kernels", "rows": rows, "cols": n_cols, "bn": bn,
                         "m": m, "d": d, "e": e, "rev": rev, "with_embedding": emb}
                 for launch in launches:
@@ -398,9 +406,9 @@ def hold_kernels(pool, grid, cases, max_err: dict, fn=24, fs=16) -> None:
 def time_stage1(pool, grid, rows, n_cols, emb, max_err: dict, *, fn=24, fs=16,
                 k=K, bn=BN, n_active=N_TICKETS) -> dict:
     """The B1 kernels at one shape, held against the plain version and
-    timed: where the Hopper kernel takes the shape, both in turns (first,
-    new, new, first), else the first kernel alone; beside the bounds and
-    the library products."""
+    timed: where a Hopper kernel takes the shape, it and the first kernel
+    in turns (first, Hopper, Hopper, first), else the first kernel alone;
+    beside the bounds and the library products."""
     from nakama_tpu_torch import kernels
     from nakama_tpu_torch.matchmaker import device2 as td2
 
@@ -410,7 +418,8 @@ def time_stage1(pool, grid, rows, n_cols, emb, max_err: dict, *, fn=24, fs=16,
     args = stage1_case(pool, grid, n_cols, rows, active, False, emb, fn, fs)
     d = args["uq"].shape[1]
     e = args["ue"].shape[1] if emb else 0
-    both = td2.stage1_route(m, d, e) is kernels.STAGE1_WGMMA
+    route = td2.stage1_route(m, d, e)
+    hopper = None if route is kernels.STAGE1 else getattr(kernels, route.name)
     kw = dict(f_tot=float(fn + fs + 1), m=m, bn=bn, emb_scale=256.0, **args)
 
     def plain():
@@ -418,7 +427,7 @@ def time_stage1(pool, grid, rows, n_cols, emb, max_err: dict, *, fn=24, fs=16,
 
     want = plain()
     checks = {}
-    for launch in (kernels.stage1_wgmma, kernels.stage1) if both else (kernels.stage1,):
+    for launch in (hopper, kernels.stage1) if hopper else (kernels.stage1,):
         got = launch(**kw)
         torch.cuda.synchronize()
         res = compare_winners(got, want, emb, launch.__name__)
@@ -429,9 +438,9 @@ def time_stage1(pool, grid, rows, n_cols, emb, max_err: dict, *, fn=24, fs=16,
     del want
     first = [cuda_time_ms(lambda: kernels.stage1(**kw), 3)]
     new = []
-    if both:
-        new.append(cuda_time_ms(lambda: kernels.stage1_wgmma(**kw), 5))
-        new.append(cuda_time_ms(lambda: kernels.stage1_wgmma(**kw), 5))
+    if hopper:
+        new.append(cuda_time_ms(lambda: hopper(**kw), 5))
+        new.append(cuda_time_ms(lambda: hopper(**kw), 5))
     first.append(cuda_time_ms(lambda: kernels.stage1(**kw), 3))
     plain_ms = cuda_time_ms(plain, 2)
     bound_int8, by_int8 = stage1_bound_ms(args, out_words, PEAK_INT8_OPS)
@@ -451,7 +460,7 @@ def time_stage1(pool, grid, rows, n_cols, emb, max_err: dict, *, fn=24, fs=16,
     torch.cuda.empty_cache()
     timing = {
         "rows": rows, "cols": n_cols, "bn": bn, "k": k, "m": m, "d": d, "e": e,
-        "with_embedding": emb,
+        "with_embedding": emb, "route": route.name,
         "ops_01": ops01, "ops_emb": ops_emb, "bytes": nbytes,
         "stage1_ms": first, "first_ms": statistics.median(first),
         "plain_ms": plain_ms,
@@ -466,11 +475,11 @@ def time_stage1(pool, grid, rows, n_cols, emb, max_err: dict, *, fn=24, fs=16,
         ),
         "checks": checks,
     }
-    if both:
+    if hopper:
         timing.update({
-            "stage1_wgmma_ms": new, "wgmma_ms": statistics.median(new),
+            f"{route.name}_ms": new, "hopper_ms": statistics.median(new),
             "speedup": statistics.median(first) / statistics.median(new),
-            "wgmma_share_of_int8_bound": bound_int8 / statistics.median(new),
+            "hopper_share_of_int8_bound": bound_int8 / statistics.median(new),
         })
     emit({"phase": "kernels", "timing": timing})
     return timing
@@ -479,30 +488,39 @@ def time_stage1(pool, grid, rows, n_cols, emb, max_err: dict, *, fn=24, fs=16,
 def phase_kernels(dev) -> dict:
     pool, grid_lo, grid_inv = bench_pool(131_072, 24, 16, 16, 16, 7, dev)
     grid = (grid_lo, grid_inv)
-    max_err = {"stage1": 0, "stage1_wgmma": 0}
+    max_err = {"stage1": 0, "stage1_wgmma": 0, "stage1_select": 0}
     # At k = 64, bn = 1024: m = 2 at the north-star extent (112 blocks),
     # m = 1 at 128 blocks, m = 5 at 26, m = 8 at 16, m = 2k on a one-block
     # pool (first kernel only); at bn = 256: m = 4 at 32 blocks and m = 3
-    # at 43, on 4,000 rows (not a multiple of either row tile). Every flag
-    # pair.
+    # at 43, on 4,000 rows (not a multiple of any row tile; a case's
+    # active rows are at most its columns, the rest padding). The selection
+    # kernel's route: m = 9 at 15 blocks of 1024, 11 at 12 of 256, 16 at
+    # 8 of 1024, 32 at 4 of 256 (the self-check's), 64 (its limit) at 2
+    # of 1024. Every flag pair.
     hold_kernels(pool, grid, [
         (4096, 4000, 114_688, BN), (4096, 4000, 131_072, BN),
         (4096, 1024, 1024, BN), (4000, 4000, 32 * 256, 256),
         (4000, 4000, 43 * 256, 256), (4096, 4000, 26 * BN, BN),
         (4096, 4000, 16 * BN, BN),
+        (4000, 4000, 15 * BN, BN), (4000, 3000, 12 * 256, 256),
+        (4096, 4000, 8 * BN, BN), (4000, 1000, 4 * 256, 256),
+        (4000, 2000, 2 * BN, BN),
     ], max_err)
 
     # The main path's shapes: the first interval dispatches 100,000
     # actives padded to 131,072 rows against 114,688 columns; the
     # north-star pool without embeddings, the assembler's with them. The
-    # wide phase's: 32,768 rows and columns at k = 128 (m = 8).
+    # wide phases': 32,768 rows and columns at k = 128 (m = 8) and at
+    # k = 256 (m = 16, the selection kernel).
     rows, n_cols = 131_072, 114_688
     north = time_stage1(pool, grid, rows, n_cols, False, max_err)
     asm = time_stage1(pool, grid, rows, n_cols, True, max_err)
     wide_m8 = time_stage1(pool, grid, 32_768, 32_768, False, max_err, k=128,
                           n_active=32_768)
+    wide_m16 = time_stage1(pool, grid, 32_768, 32_768, False, max_err, k=256,
+                           n_active=32_768)
     active = torch.arange(N_TICKETS, dtype=torch.int32, device=dev)
-    phase_layers(pool, grid, rows, n_cols, active, north["wgmma_ms"])
+    phase_layers(pool, grid, rows, n_cols, active, north["hopper_ms"])
     del pool
     torch.cuda.empty_cache()
 
@@ -516,20 +534,28 @@ def phase_kernels(dev) -> dict:
     del pool
     pool, grid_lo, grid_inv = bench_pool(131_072, 32, 32, 16, 16, 7, dev)
     grid = (grid_lo, grid_inv)
-    hold_kernels(pool, grid, [(4096, 4000, 114_688, BN), (4096, 4000, 16 * BN, BN)],
+    hold_kernels(pool, grid, [(4096, 4000, 114_688, BN), (4096, 4000, 16 * BN, BN),
+                              (4000, 4000, 8 * BN, BN)],
                  max_err, fn=32, fs=32)
     d776 = time_stage1(pool, grid, rows, n_cols, False, max_err, fn=32, fs=32)
     del pool
-    # The first kernel's own route (m > 8): the self-check's two-stage
-    # shape (pool 1,024, threshold 256, 256-column blocks, k = 64: m = 32;
-    # fn = fs = 8).
+    # What stays on the first kernel: 48 numeric and 32 string fields
+    # (D = 1032 > 1024), the wide_fields phase's 32,768 tickets at k = 64.
+    pool, grid_lo, grid_inv = bench_pool(32_768, 48, 32, 16, 16, 7, dev)
+    d1032 = time_stage1(pool, (grid_lo, grid_inv), 32_768, 32_768, False, max_err,
+                        fn=48, fs=32, n_active=32_768)
+    del pool
+    # The self-check's two-stage shape (pool 1,024, threshold 256,
+    # 256-column blocks, k = 64: m = 32; fn = fs = 8): the selection
+    # kernel against the first, in turns.
     pool, grid_lo, grid_inv = bench_pool(1024, 8, 8, 8, 16, 7, dev)
-    first = time_stage1(pool, (grid_lo, grid_inv), 1024, 1024, False, max_err,
-                        fn=8, fs=8, bn=256, n_active=1000)
+    selfcheck = time_stage1(pool, (grid_lo, grid_inv), 1024, 1024, False, max_err,
+                            fn=8, fs=8, bn=256, n_active=1000)
     del pool
     torch.cuda.empty_cache()
     return {"max_err": max_err, "north_star": north, "assembler": asm,
-            "wide_m8": wide_m8, "e32": e32, "d776": d776, "first_m32": first}
+            "wide_m8": wide_m8, "wide_m16": wide_m16, "e32": e32, "d776": d776,
+            "d1032": d1032, "selfcheck_m32": selfcheck}
 
 
 def phase_layers(pool, grid, rows, n_cols, active, stage1_ms) -> None:
@@ -575,8 +601,8 @@ def phase_layers(pool, grid, rows, n_cols, active, stage1_ms) -> None:
 
 def phase_selfcheck() -> dict:
     """The port's device self-check on cuda:0; its two-stage legs (pool
-    1,024 at threshold 256, m = 32 winners per block) are the path of
-    the first stage-1 kernel. Returns the launches of the run."""
+    1,024 at threshold 256, m = 32 winners per block) run stage 1 on the
+    selection kernel. Returns the launches of the run."""
     from nakama_tpu_torch import kernels
     from nakama_tpu_torch.matchmaker.selfcheck import run_chip_selfcheck
 
@@ -590,8 +616,7 @@ def phase_selfcheck() -> dict:
         "phase": "selfcheck", "results": results, "log": lines,
         "seconds": round(time.perf_counter() - t0, 3), "launches": launches,
     })
-    if launches["stage1"] <= 0:
-        raise AssertionError(f"the self-check never launched stage1: {launches}")
+    check_routing(launches, "self-check", "stage1_select")
     return launches
 
 
@@ -2017,15 +2042,20 @@ def crash_leg(name: str, env_extra: dict, check_double: bool, *,
     return leg
 
 
-def check_routing(launches: dict, path: str) -> None:
-    """The main path's stage 1 goes through the Hopper kernel only: its
-    calls all have m <= 8, which the routing never sends to the first."""
-    if launches["stage1_wgmma"] <= 0:
-        raise AssertionError(f"the {path} path never launched stage1_wgmma")
-    if launches["stage1"] != 0:
+B1_KERNELS = ("stage1", "stage1_wgmma", "stage1_select")
+
+
+def check_routing(launches: dict, path: str, route: str = "stage1_wgmma") -> None:
+    """A path's stage 1 goes through the one B1 kernel its shapes route
+    to, and no other: `stage1_wgmma` on the main path (its calls all have
+    m <= 8), `stage1_select` at k = 256 (m = 16) and in the self-check
+    (m = 32), `stage1` at D > 1024."""
+    if launches[route] <= 0:
+        raise AssertionError(f"the {path} path never launched {route}")
+    others = {k: launches[k] for k in B1_KERNELS if k != route and launches[k]}
+    if others:
         raise AssertionError(
-            f"the {path} path launched the first stage-1 kernel "
-            f"{launches['stage1']} times"
+            f"the {path} path launched {others} beside {route}"
         )
 
 
@@ -2059,27 +2089,28 @@ def phase_assembler() -> dict:
 
 WIDE_TICKETS = 32_768
 WIDE_K = 128
+WIDE_K256 = 256
 
 
-def phase_wide() -> dict:
-    """The Hopper kernel's wide route on a path a user reaches: 32,768
-    north-star tickets (bench.py:44-58) in a `LocalMatchmaker` with
-    `candidates_per_ticket = 128`, the rest of `MatchmakerConfig` at its
+def drive_wide(name: str, route: str, m: int, intervals: int = 3, **cfg_kw) -> dict:
+    """A B1 route on a path a user reaches: 32,768 north-star tickets
+    (bench.py:44-58, the same ones in every such phase) in a
+    `LocalMatchmaker` whose `MatchmakerConfig` takes `cfg_kw` over its
     defaults (capacity 131,072, threshold 32,768, 24 numeric and 16
-    string fields). The pool spans 32 selection blocks, so stage 1 keeps
-    m = ceil(2 * 128 / 32) = 8 winners a block. Three synchronous
-    intervals; every match valid, >= 80% matched in the first, stage 1
-    on stage1_wgmma at m = 8 and never on the first kernel."""
+    string fields, k = 64). The pool spans 32 selection blocks, so stage
+    1 keeps m = ceil(2k / 32) winners a block. `intervals` synchronous
+    intervals; every match valid, >= 80% of the pool matched in the
+    first, every stage-1 launch on `route` at `m`, no other B1 kernel
+    launched."""
     from nakama_tpu_torch import kernels
     from nakama_tpu_torch.config import MatchmakerConfig
     from nakama_tpu_torch.matchmaker import LocalMatchmaker
 
-    cfg = MatchmakerConfig(interval_pipelining=False,
-                           candidates_per_ticket=WIDE_K)
+    cfg = MatchmakerConfig(interval_pipelining=False, **cfg_kw)
     mm = LocalMatchmaker(StrictLogger(), cfg)
     rng = np.random.default_rng(77)
     seen_m: list[int] = []
-    launch = kernels.stage1_wgmma
+    launch = getattr(kernels, route)
 
     def recorded(*args, **kw):  # the m of every launch, then the launch
         seen_m.append(kw["m"])
@@ -2087,32 +2118,51 @@ def phase_wide() -> dict:
 
     for k in kernels.KERNELS:
         k.launches = 0
-    kernels.stage1_wgmma = recorded
+    setattr(kernels, route, recorded)
     try:
         records, batches, valid = run_intervals(
-            mm, rng, "1v1", 2, 3, 0, target=WIDE_TICKETS)
+            mm, rng, "1v1", 2, intervals, 0, target=WIDE_TICKETS)
     finally:
-        kernels.stage1_wgmma = launch
+        setattr(kernels, route, launch)
     launches = {k.name: k.launches for k in kernels.KERNELS}
-    check_backend_clean(mm, "wide")
+    check_backend_clean(mm, name)
     mm.stop()
-    check_routing(launches, "wide")
-    if not seen_m or set(seen_m) != {8}:
-        raise AssertionError(f"the wide path's stage 1 ran at m = {seen_m}")
+    check_routing(launches, name, route)
+    if not seen_m or set(seen_m) != {m}:
+        raise AssertionError(f"the {name} path's stage 1 ran at m = {seen_m}")
     first = records[0]["matched_entries"]
     stage1_clock = [
         r["split"]["kernel_clocks"].get("matchmaker.stage1") for r in records]
     emit({
-        "phase": "wide", "tickets": WIDE_TICKETS, "k": WIDE_K,
-        "stage1_m": seen_m, "intervals": records,
+        "phase": name, "tickets": WIDE_TICKETS, "config": cfg_kw,
+        "route": route, "stage1_m": seen_m, "intervals": records,
         "sync_interval": ms_stats([r["process_ms"] for r in records]),
         "stage1_clock": stage1_clock,
         "first_interval_matched_share": first / WIDE_TICKETS,
         "matched_entries_validated": valid, "launches": launches,
     })
     if first < 0.8 * WIDE_TICKETS:
-        raise AssertionError(f"first wide interval matched {first} < 80% of pool")
+        raise AssertionError(f"first {name} interval matched {first} < 80% of pool")
     return launches
+
+
+def phase_wide() -> dict:
+    """`stage1_wgmma`'s widest m: k = 128 gives m = 8."""
+    return drive_wide("wide", "stage1_wgmma", 8, candidates_per_ticket=WIDE_K)
+
+
+def phase_wide_k256() -> dict:
+    """The selection kernel's route by one knob: k = 256 gives m = 16."""
+    return drive_wide("wide_k256", "stage1_select", 16,
+                      candidates_per_ticket=WIDE_K256)
+
+
+def phase_wide_fields() -> dict:
+    """What stays on the first kernel: 48 numeric and 32 string fields
+    give D = 1032 > 1024 (at k = 64, m = 4). One interval: the route is
+    held, not timed, here."""
+    return drive_wide("wide_fields", "stage1", 4, intervals=1, numeric_fields=48,
+                      string_fields=32)
 
 
 # ------------------------------------------------------------ server phase
@@ -4877,6 +4927,13 @@ def phase_match() -> dict:
     return launches
 
 
+def extract(timing: dict) -> dict:
+    """A Hopper kernel's numbers at a second shape, for its kernel line."""
+    return {key: timing[key] for key in (
+        "rows", "cols", "bn", "m", "d", "hopper_ms", "first_ms", "plain_ms",
+        "bound_int8_ms", "bound_int8_by", "matmul_bf16_ms")}
+
+
 def kernel_line(kernel, launches: int, err: int, timing: dict, ms_key: str,
                 bound_key: str, **extra) -> dict:
     return {
@@ -4909,9 +4966,9 @@ def main() -> int:
     north = timing["north_star"]
     # Every path of the main path: counts set to 0 before each, read after.
     paths = [phase_selfcheck()]
-    launches, snap, first_groups = phase_north_star(north["wgmma_ms"])
-    paths += [launches, phase_wide(), phase_assembler(),
-              phase_snapshot(snap, first_groups)]
+    launches, snap, first_groups = phase_north_star(north["hopper_ms"])
+    paths += [launches, phase_wide(), phase_wide_k256(), phase_wide_fields(),
+              phase_assembler(), phase_snapshot(snap, first_groups)]
     recovery_launches, recovery = phase_recovery(snap)
     paths += [recovery_launches, phase_service(snap), phase_faults()]
     pickled = snap.pop("pickled")
@@ -4926,17 +4983,24 @@ def main() -> int:
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 1)})
     total = {k.name: sum(p[k.name] for p in paths) for k in kernels.KERNELS}
     err = timing["max_err"]
-    # The first kernel at its own path's shape (the self-check's, m = 32),
-    # its north-star time beside; the Hopper kernel at the north star's.
-    first = timing["first_m32"]
+    # Each B1 kernel at its own path's shape: the first kernel at
+    # wide_fields' (D = 1032), its north-star and self-check times beside;
+    # the wgmma kernel at the north star's; the selection kernel at
+    # wide_k256's (m = 16), the self-check's (m = 32) beside.
+    fields, sel = timing["d1032"], timing["wide_m16"]
     emit({"kernels": [
-        kernel_line(kernels.STAGE1, total["stage1"], err["stage1"], first,
-                    "first_ms", "bound_bf16", north_star_ms=north["first_ms"]),
+        kernel_line(kernels.STAGE1, total["stage1"], err["stage1"], fields,
+                    "first_ms", "bound_bf16", north_star_ms=north["first_ms"],
+                    wide_m16_ms=sel["first_ms"],
+                    selfcheck_m32_ms=timing["selfcheck_m32"]["first_ms"]),
         kernel_line(kernels.STAGE1_WGMMA, total["stage1_wgmma"],
-                    err["stage1_wgmma"], north, "wgmma_ms", "bound_int8",
-                    wide_m8_ms=timing["wide_m8"]["wgmma_ms"],
-                    e32_ms=timing["e32"]["wgmma_ms"],
-                    d776_ms=timing["d776"]["wgmma_ms"]),
+                    err["stage1_wgmma"], north, "hopper_ms", "bound_int8",
+                    wide_m8_ms=timing["wide_m8"]["hopper_ms"],
+                    e32_ms=timing["e32"]["hopper_ms"],
+                    d776_ms=timing["d776"]["hopper_ms"]),
+        kernel_line(kernels.STAGE1_SELECT, total["stage1_select"],
+                    err["stage1_select"], sel, "hopper_ms", "bound_int8",
+                    selfcheck_m32=extract(timing["selfcheck_m32"])),
         {
             "name": kernels.LEX_RANKS.name, "route": "cuda",
             "source": "nakama_tpu_torch/csrc/" + kernels.LEX_RANKS.source,

@@ -200,7 +200,15 @@ class WebSocketSession:
         if retry_after_sec is not None:
             # Ahead of the writer-drain below so it flushes with any
             # queued traffic; a full queue just drops the hint (the
-            # close code still signals restart).
+            # close code still signals restart). rtapi's
+            # Notification.content is a Struct, so a protobuf session
+            # gets the object; the JSON wire keeps its JSON string.
+            content = {
+                "reason": reason,
+                "retry_after_sec": float(retry_after_sec),
+            }
+            if self._format != "protobuf":
+                content = json.dumps(content)
             try:
                 self._outgoing.put_nowait(
                     {
@@ -209,14 +217,7 @@ class WebSocketSession:
                                 {
                                     "subject": "server_restart",
                                     "code": -2,
-                                    "content": json.dumps(
-                                        {
-                                            "reason": reason,
-                                            "retry_after_sec": float(
-                                                retry_after_sec
-                                            ),
-                                        }
-                                    ),
+                                    "content": content,
                                     "persistent": False,
                                 }
                             ]

@@ -60,6 +60,13 @@ STAGE1_WGMMA = Kernel(
     source="stage1_wgmma.cu",
     replaces="nakama_tpu/matchmaker/device2.py:302",
 )
+# B1's calls with 8 < m <= 64 winners per block: the Hopper mainloop of
+# stage1_wgmma.cu with a threshold-and-queue selection as its epilogue.
+STAGE1_SELECT = Kernel(
+    name="stage1_select",
+    source="stage1_select.cu",
+    replaces="nakama_tpu/matchmaker/device2.py:302",
+)
 # B8's batched rank search: a jax.jit program in the JAX package (not a
 # Pallas kernel), given a hand kernel because its plain version is
 # launch-bound (PERF.md).
@@ -68,13 +75,17 @@ LEX_RANKS = Kernel(
     source="lex_ranks.cu",
     replaces="nakama_tpu/leaderboard/tpu.py:67",
 )
-KERNELS = [STAGE1, STAGE1_WGMMA, LEX_RANKS]
+KERNELS = [STAGE1, STAGE1_WGMMA, STAGE1_SELECT, LEX_RANKS]
 # What stage1_wgmma.cu takes: winners per block (a running top-8),
 # operand width (8 128-byte chunks; above 5 the row tile halves), and
 # embedding width (4 bf16 k16 steps).
 WGMMA_MAX_M = 8
 WGMMA_MAX_D = 1024
 WGMMA_MAX_E = 64
+# What stage1_select.cu takes (the same D and E): winners per block, up to
+# the kept lists and queues that fit beside the widest operands (rev,
+# D = 1024, E = 64) in shared memory.
+SELECT_MAX_M = 64
 _lock = threading.Lock()
 
 
@@ -87,9 +98,15 @@ def _nvcc() -> str:
 
 
 def library_path(kernel: Kernel, defines: tuple[str, ...] = ()) -> str:
-    src = os.path.join(_CSRC, kernel.source)
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + repr(defines).encode()).hexdigest()[:16]
+    """The library of `kernel`, named by a hash of its source, the shared
+    headers of csrc/ and `defines`."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+    for name in [kernel.source, *headers]:
+        with open(os.path.join(_CSRC, name), "rb") as f:
+            h.update(f.read())
+    h.update(repr(defines).encode())
+    digest = h.hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"lib{kernel.name}-{digest}.so")
 
 
@@ -154,11 +171,13 @@ def _bind(kernel: Kernel, lib: ctypes.CDLL) -> None:
             + [ctypes.c_int] * 2
             + [ctypes.c_void_p]
         )
-    elif kernel is STAGE1_WGMMA:
-        f = lib.stage1_wgmma_launch
+    elif kernel is STAGE1_WGMMA or kernel is STAGE1_SELECT:
+        f = getattr(lib, f"{kernel.name}_launch")
         f.restype = ctypes.c_int
         f.argtypes = (
-            [ctypes.c_void_p] * 11
+            # stage1_select_launch takes the int8 scratch of the four 0/1
+            # operands beside them.
+            [ctypes.c_void_p] * (15 if kernel is STAGE1_SELECT else 11)
             + [ctypes.c_int] * 8
             + [ctypes.c_float]
             + [ctypes.c_int] * 2
@@ -199,7 +218,7 @@ def _round16(d: int) -> int:
 
 
 def _check_stage1(uq, vv, col_mix, col_gidx, row_mix, row_slot, ue, ve, uv, vq):
-    """Checks the stage-1 arguments shared by both kernels; returns
+    """Checks the stage-1 arguments shared by the three kernels; returns
     (a_pad, n, d, rev, with_emb)."""
     dev = uq.device
     if dev.type != "cuda":
@@ -291,6 +310,68 @@ def int8_operand(x: torch.Tensor, width: int) -> torch.Tensor:
     return out
 
 
+def _stage1_hopper(
+    kernel: Kernel, max_m: int, uq, vv, col_mix, col_gidx, row_mix, row_slot,
+    *, f_tot: float, m: int, bn: int, emb_scale: float, ue, ve, uv, vq,
+) -> torch.Tensor:
+    """Launch one of the Hopper stage-1 kernels. stage1_wgmma.cu takes the
+    0/1 operands as int8, converted here; stage1_select.cu takes them as
+    they are, with int8 scratch that its C call converts them into."""
+    a_pad, n, d, rev, with_emb = _check_stage1(
+        uq, vv, col_mix, col_gidx, row_mix, row_slot, ue, ve, uv, vq
+    )
+    e = ue.shape[1] if with_emb else 0
+    if (
+        not 1 <= m <= max_m or d > WGMMA_MAX_D or e > WGMMA_MAX_E
+        or bn % 128 or n % bn or d < 1
+    ):
+        raise ValueError(
+            f"{kernel.name} kernel needs 1 <= m <= {max_m}, "
+            f"1 <= D <= {WGMMA_MAX_D}, E <= {WGMMA_MAX_E}, bn % 128 == 0, "
+            f"n % bn == 0 (m={m}, D={d}, E={e}, bn={bn}, n={n})"
+        )
+    dev = uq.device
+    out = torch.empty((a_pad, (n // bn) * m), dtype=torch.int32, device=dev)
+    if a_pad == 0 or n == 0:
+        return out
+    dp = _round16(d)
+    ops = {}  # every operand the launch reads, held until it is enqueued
+    if kernel is STAGE1_SELECT:
+        ops.update(uq=uq, vv=vv, uv=uv, vq=vq)
+        rows = (a_pad, n, a_pad, n) if rev else (a_pad, n)
+        scratch = torch.empty((sum(rows), dp), dtype=torch.int8, device=dev)
+        for name, part in zip(("uq8", "vv8", "uv8", "vq8"), scratch.split(rows)):
+            ops[name] = part
+        names = ("uq", "vv", "uv", "vq", "uq8", "vv8", "uv8", "vq8")
+    else:
+        ops.update(uq=int8_operand(uq, dp), vv=int8_operand(vv, dp))
+        if rev:
+            ops["uv"], ops["vq"] = int8_operand(uv, dp), int8_operand(vq, dp)
+        names = ("uq", "vv", "uv", "vq")
+    ep = _round16(e)
+    if with_emb:
+        ops["ue"], ops["ve"] = _padded(ue, ep), _padded(ve, ep)
+
+    def ptr(name):
+        t = ops.get(name)
+        return None if t is None else t.data_ptr()
+
+    launch = getattr(_load(kernel), f"{kernel.name}_launch")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = launch(
+            *(ptr(name) for name in names), ptr("ue"), ptr("ve"),
+            col_mix.data_ptr(), col_gidx.data_ptr(), row_mix.data_ptr(),
+            row_slot.data_ptr(), out.data_ptr(),
+            a_pad, n, dp, d, ep, bn, m, math.ceil(f_tot - 0.5), emb_scale,
+            int(rev), int(with_emb), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{kernel.name} kernel launch failed: error {rc}")
+    kernel.launches += 1
+    return out
+
+
 def stage1_wgmma(
     uq, vv, col_mix, col_gidx, row_mix, row_slot, *,
     f_tot: float, m: int, bn: int, emb_scale: float,
@@ -302,49 +383,30 @@ def stage1_wgmma(
     zero-padded to a multiple of 16 columns. Takes 1 <= m <= 8,
     D <= 1024, E <= 64, bn % 128 == 0, n % bn == 0, any row count, and
     col_gidx in [0, 2^18)."""
-    a_pad, n, d, rev, with_emb = _check_stage1(
-        uq, vv, col_mix, col_gidx, row_mix, row_slot, ue, ve, uv, vq
+    return _stage1_hopper(
+        STAGE1_WGMMA, WGMMA_MAX_M, uq, vv, col_mix, col_gidx, row_mix,
+        row_slot, f_tot=f_tot, m=m, bn=bn, emb_scale=emb_scale, ue=ue, ve=ve,
+        uv=uv, vq=vq,
     )
-    e = ue.shape[1] if with_emb else 0
-    if (
-        not 1 <= m <= WGMMA_MAX_M or d > WGMMA_MAX_D or e > WGMMA_MAX_E
-        or bn % 128 or n % bn or d < 1
-    ):
-        raise ValueError(
-            f"stage1_wgmma kernel needs 1 <= m <= {WGMMA_MAX_M}, "
-            f"1 <= D <= {WGMMA_MAX_D}, E <= {WGMMA_MAX_E}, bn % 128 == 0, "
-            f"n % bn == 0 (m={m}, D={d}, E={e}, bn={bn}, n={n})"
-        )
-    dev = uq.device
-    out = torch.empty((a_pad, (n // bn) * m), dtype=torch.int32, device=dev)
-    if a_pad == 0 or n == 0:
-        return out
-    dp = _round16(d)
-    ops = {"uq": int8_operand(uq, dp), "vv": int8_operand(vv, dp)}
-    if rev:
-        ops["uv"], ops["vq"] = int8_operand(uv, dp), int8_operand(vq, dp)
-    ep = _round16(e)
-    if with_emb:
-        ops["ue"], ops["ve"] = _padded(ue, ep), _padded(ve, ep)
 
-    def ptr(name):
-        t = ops.get(name)
-        return None if t is None else t.data_ptr()
 
-    lib = _load(STAGE1_WGMMA)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.stage1_wgmma_launch(
-            ptr("uq"), ptr("vv"), ptr("uv"), ptr("vq"), ptr("ue"), ptr("ve"),
-            col_mix.data_ptr(), col_gidx.data_ptr(), row_mix.data_ptr(),
-            row_slot.data_ptr(), out.data_ptr(),
-            a_pad, n, dp, d, ep, bn, m, math.ceil(f_tot - 0.5), emb_scale,
-            int(rev), int(with_emb), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"stage1_wgmma kernel launch failed: error {rc}")
-    STAGE1_WGMMA.launches += 1
-    return out
+def stage1_select(
+    uq, vv, col_mix, col_gidx, row_mix, row_slot, *,
+    f_tot: float, m: int, bn: int, emb_scale: float,
+    ue=None, ve=None, uv=None, vq=None,
+) -> torch.Tensor:
+    """Launch the Hopper stage-1 kernel for many winners a block
+    (csrc/stage1_select.cu) on CUDA tensors. Same arguments and result as
+    `stage1`; the 0/1 operands are converted to int8 inside the call (one
+    host round trip), the embeddings zero-padded to a multiple of 16
+    columns. Takes 1 <= m <= 64 (the route sends it 8 < m <= 64),
+    D <= 1024, E <= 64, bn % 128 == 0, n % bn == 0, any row count, and
+    col_gidx in [0, 2^18)."""
+    return _stage1_hopper(
+        STAGE1_SELECT, SELECT_MAX_M, uq, vv, col_mix, col_gidx, row_mix,
+        row_slot, f_tot=f_tot, m=m, bn=bn, emb_scale=emb_scale, ue=ue, ve=ve,
+        uv=uv, vq=vq,
+    )
 
 
 def lex_ranks(

@@ -208,18 +208,20 @@ def stage1_plain(
 
 def stage1_route(m: int, d: int, e: int = 0) -> kernels.Kernel:
     """The CUDA kernel that takes a stage-1 call with m winners per block,
-    operand width d and embedding width e (0 without embeddings):
-    csrc/stage1_wgmma.cu when m <= 8, d <= 1024 and e <= 64 — every call
+    operand width d and embedding width e (0 without embeddings), where
+    d <= 1024 and e <= 64: csrc/stage1_wgmma.cu when m <= 8 — every call
     of the main path at the default widths (D = 520, E = 16, and >= 32
     selection blocks give m <= 4) and the wide configurations (k = 128
     at >= 32 blocks, 48 numeric and up to 31 string fields, embeddings
-    up to 64 wide); csrc/stage1.cu otherwise (pools of few blocks below
-    a lowered big_pool_threshold, where m = ceil(2k / n_blocks) > 8)."""
-    if (
-        m <= kernels.WGMMA_MAX_M and d <= kernels.WGMMA_MAX_D
-        and e <= kernels.WGMMA_MAX_E
-    ):
-        return kernels.STAGE1_WGMMA
+    up to 64 wide); csrc/stage1_select.cu when 8 < m <= 64 (k = 256 at
+    32 to 63 blocks, pools of few blocks below a lowered
+    big_pool_threshold, the self-check's m = 32). csrc/stage1.cu takes
+    the rest: d > 1024, e > 64 or m > 64."""
+    if d <= kernels.WGMMA_MAX_D and e <= kernels.WGMMA_MAX_E:
+        if m <= kernels.WGMMA_MAX_M:
+            return kernels.STAGE1_WGMMA
+        if m <= kernels.SELECT_MAX_M:
+            return kernels.STAGE1_SELECT
     return kernels.STAGE1
 
 
@@ -229,17 +231,18 @@ def stage1(
     ue=None, ve=None, uv=None, vq=None,
 ):
     """Stage-1 prefilter: runs `stage1_plain` for CPU tensors; for CUDA
-    tensors launches the kernel `stage1_route` names (by shape: m <= 8,
-    D <= 1024, E <= 64 → the Hopper wgmma kernel, else the first kernel),
-    with no fallback. Same contract as `stage1_plain`."""
+    tensors launches the kernel `stage1_route` names (by shape: D <= 1024
+    and E <= 64 → the Hopper wgmma kernel at m <= 8, its selection
+    variant at 8 < m <= 64; else the first kernel), with no fallback.
+    Same contract as `stage1_plain`."""
     if uq.device.type == "cpu":
         return stage1_plain(
             uq, vv, col_mix, col_gidx, row_mix, row_slot, fn=fn, fs=fs,
             m=m, bn=bn, emb_scale=emb_scale, ue=ue, ve=ve, uv=uv, vq=vq,
         )
     route = stage1_route(m, uq.shape[1], 0 if ue is None else ue.shape[1])
-    launch = kernels.stage1_wgmma if route is kernels.STAGE1_WGMMA else kernels.stage1
-    return launch(
+    # Each kernel's wrapper in `kernels` carries the kernel's name.
+    return getattr(kernels, route.name)(
         uq, vv, col_mix, col_gidx, row_mix, row_slot,
         f_tot=float(fn + fs + 1), m=m, bn=bn, emb_scale=emb_scale,
         ue=ue, ve=ve, uv=uv, vq=vq,

@@ -1,16 +1,24 @@
-"""Where the time of the Hopper stage-1 kernel goes, on one NVIDIA GPU.
+"""Where the time of a Hopper stage-1 kernel goes, on one NVIDIA GPU.
 
-    python3 profile_stage1.py
+    python3 profile_stage1.py [stage1_wgmma | stage1_select]
 
-Builds nakama_tpu_torch/csrc/stage1_wgmma.cu three times: as shipped;
-with STAGE1_EXP=1, which leaves out the epilogue (the products alone);
-and with STAGE1_EXP=2, which leaves out the products (the epilogue on
-zero counts, with the same loads and barriers). Times each at the first
-north-star interval's shape (131,072 rows x 114,688 columns), without and
-with embeddings, in turns (kernel, products, epilogue, epilogue,
-products, kernel), with CUDA events, while nvidia-smi samples the SM clock
-and the board power. Prints the card's name and power limit, then one
-JSON line per shape. Needs a CUDA device; imports nothing of JAX.
+stage1_wgmma (the default): builds nakama_tpu_torch/csrc/stage1_wgmma.cu
+three times: as shipped; with STAGE1_EXP=1, which leaves out the epilogue
+(the products alone); and with STAGE1_EXP=2, which leaves out the
+products (the epilogue on zero counts, with the same loads and barriers).
+Times each at the first north-star interval's shape (131,072 rows x
+114,688 columns), without and with embeddings.
+
+stage1_select: builds nakama_tpu_torch/csrc/stage1_select.cu as shipped,
+with STAGE1_EXP=1 (the products alone) and with STAGE1_EXP=3 (the queues
+filled, never merged: the kept lists stay empty). Times each at 32,768 x
+32,768 north-star tickets at k = 256 (m = 16, the wide_k256 phase's
+shape) and at k = 1024 (m = 64, the limit).
+
+Every build is timed in turns (kernel, products, other, other, products,
+kernel), with CUDA events, while nvidia-smi samples the SM clock and the
+board power. Prints the card's name and power limit, then one JSON line
+per shape. Needs a CUDA device; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -24,8 +32,22 @@ import torch
 
 import chip_smoke as cs
 
-BUILDS = {"kernel": (), "products_only": ("STAGE1_EXP=1",),
-          "epilogue_only": ("STAGE1_EXP=2",)}
+# The builds of each kernel, and its shapes: (rows = columns of the pool,
+# active rows, columns, k, embeddings).
+PROFILES = {
+    "stage1_wgmma": (
+        {"kernel": (), "products_only": ("STAGE1_EXP=1",),
+         "epilogue_only": ("STAGE1_EXP=2",)},
+        [(131_072, cs.N_TICKETS, 114_688, cs.K, False),
+         (131_072, cs.N_TICKETS, 114_688, cs.K, True)],
+    ),
+    "stage1_select": (
+        {"kernel": (), "products_only": ("STAGE1_EXP=1",),
+         "no_merges": ("STAGE1_EXP=3",)},
+        [(32_768, 32_768, 32_768, 256, False),
+         (32_768, 32_768, 32_768, 1024, False)],
+    ),
+}
 
 
 def sampled(fn, reps: int) -> dict:
@@ -62,31 +84,30 @@ def main() -> int:
     from nakama_tpu_torch import kernels
     from nakama_tpu_torch.matchmaker import device2 as td2
 
+    name = sys.argv[1] if len(sys.argv) > 1 else "stage1_wgmma"
+    builds, shapes = PROFILES[name]
     info = cs.phase_device()
-    k = kernels.STAGE1_WGMMA
-    libs = {name: kernels.load_library(k, d) for name, d in BUILDS.items()}
+    k = next(kernel for kernel in kernels.KERNELS if kernel.name == name)
+    launch = getattr(kernels, name)
+    libs = {build: kernels.load_library(k, d) for build, d in builds.items()}
     dev = torch.device("cuda:0")
-    pool, lo, inv = cs.bench_pool(131_072, 24, 16, 16, 16, 7, dev)
-    active = torch.arange(cs.N_TICKETS, dtype=torch.int32, device=dev)
-    rows, n_cols = 131_072, 114_688
-    m = td2.winners_per_block(cs.K, n_cols // cs.BN)
-    for emb in (False, True):
-        args = cs.stage1_case(pool, (lo, inv), n_cols, rows, active, False, emb)
+    for n, n_active, n_cols, cands, emb in shapes:
+        pool, lo, inv = cs.bench_pool(n, 24, 16, 16, 16, 7, dev)
+        active = torch.arange(n_active, dtype=torch.int32, device=dev)
+        m = td2.winners_per_block(cands, n_cols // cs.BN)
+        args = cs.stage1_case(pool, (lo, inv), n_cols, n, active, False, emb)
         kw = dict(f_tot=41.0, m=m, bn=cs.BN, emb_scale=256.0, **args)
-        runs = {name: [] for name in BUILDS}
-        order = list(BUILDS) + list(reversed(BUILDS))
-        for name in order:
-            k.lib = libs[name]
-            runs[name].append(sampled(lambda: kernels.stage1_wgmma(**kw), 20))
+        runs = {build: [] for build in builds}
+        for build in list(builds) + list(reversed(builds)):
+            k.lib = libs[build]
+            runs[build].append(sampled(lambda: launch(**kw), 20))
         k.lib = libs["kernel"]
-        ms = {name: statistics.median(r["ms"] for r in rs) for name, rs in runs.items()}
+        ms = {build: statistics.median(r["ms"] for r in rs) for build, rs in runs.items()}
         cs.emit({
-            "phase": "profile_stage1", "rows": rows, "cols": n_cols, "m": m,
-            "with_embedding": emb, "median_ms": ms,
-            "products_plus_epilogue_ms": ms["products_only"] + ms["epilogue_only"],
-            "runs": runs,
+            "phase": "profile_stage1", "kernel": name, "rows": n, "cols": n_cols,
+            "k": cands, "m": m, "with_embedding": emb, "median_ms": ms, "runs": runs,
         })
-        del args, kw
+        del pool, args, kw
         torch.cuda.empty_cache()
     print(info["nvidia_smi"])
     return 0

@@ -10,8 +10,10 @@ A for one OTHER; A, B, this, this, B, A for two), each turn a fresh
 process that imports `nakama_tpu_torch` from its tree and builds its
 kernels there, and times in each: `stage1_wgmma` at the first
 north-star interval's shape (131,072 rows x 114,688 columns, D = 520,
-m = 2), without and with embeddings (CUDA-event medians of the call,
-`chip_smoke.cuda_time_ms`); `lex_ranks` over one board at the
+m = 2) without and with embeddings, at `wide`'s (32,768 x 32,768,
+k = 128: m = 8), and at the north-star shape with 32-wide embeddings
+(E = 32) and with 32 numeric and 32 string fields (D = 776)
+(CUDA-event medians of the call, `chip_smoke.cuda_time_ms`); `lex_ranks` over one board at the
 leaderboard phase's size (16,777,216 slots, 10,000,000 live keys, sorted
 on the card) at 1,024 queries and at one (device time with L2 evicted
 and warm, `chip_smoke.device_time_ms`); and one dependent load's latency
@@ -54,21 +56,37 @@ def board(dev):
     return b8.sort_boards(keys[None])[0][0].contiguous()
 
 
+# stage1_wgmma's shapes: (pool's fn, fs and embedding width), rows,
+# columns, k, embeddings scored.
+STAGE1_CASES = {
+    "without": ((24, 16, 16), ROWS, COLS, cs.K, False),
+    "with_embedding": ((24, 16, 16), ROWS, COLS, cs.K, True),
+    "wide_m8": ((24, 16, 16), 32_768, 32_768, 128, False),
+    "e32": ((24, 16, 32), ROWS, COLS, cs.K, True),
+    "d776": ((32, 32, 16), ROWS, COLS, cs.K, False),
+}
+
+
 def stage1_turn(dev) -> dict:
     from nakama_tpu_torch import kernels
     from nakama_tpu_torch.matchmaker import device2 as td2
 
-    pool, lo, inv = cs.bench_pool(ROWS, 24, 16, 16, 16, 7, dev)
-    active = torch.arange(cs.N_TICKETS, dtype=torch.int32, device=dev)
-    m = td2.winners_per_block(cs.K, COLS // cs.BN)
     out = {}
-    for emb in (False, True):
-        args = cs.stage1_case(pool, (lo, inv), COLS, ROWS, active, False, emb)
-        kw = dict(f_tot=41.0, m=m, bn=cs.BN, emb_scale=256.0, **args)
-        want = td2.stage1_plain(fn=24, fs=16, m=m, bn=cs.BN, emb_scale=256.0, **args)
+    pools: dict = {}
+    for name, ((fn, fs, e), rows, cols, k, emb) in STAGE1_CASES.items():
+        if (fn, fs, e) not in pools:
+            pools.clear()
+            torch.cuda.empty_cache()
+            pools[(fn, fs, e)] = cs.bench_pool(ROWS, fn, fs, 16, e, 7, dev)
+        pool, lo, inv = pools[(fn, fs, e)]
+        active = torch.arange(min(cs.N_TICKETS, rows), dtype=torch.int32, device=dev)
+        m = td2.winners_per_block(k, cols // cs.BN)
+        args = cs.stage1_case(pool, (lo, inv), cols, rows, active, False, emb, fn, fs)
+        kw = dict(f_tot=float(fn + fs + 1), m=m, bn=cs.BN, emb_scale=256.0, **args)
+        want = td2.stage1_plain(fn=fn, fs=fs, m=m, bn=cs.BN, emb_scale=256.0, **args)
         check = cs.compare_winners(kernels.stage1_wgmma(**kw), want, emb, "stage1_wgmma")
         del want
-        out["with_embedding" if emb else "without"] = {
+        out[name] = {
             "m": m, "ms": cs.cuda_time_ms(lambda: kernels.stage1_wgmma(**kw), 20),
             **check}
         del args, kw
@@ -144,8 +162,8 @@ def main() -> int:
         return statistics.median(vals)
 
     medians = {name: {
-        "stage1_wgmma_ms": med(name, "stage1_wgmma", "without", "ms"),
-        "stage1_wgmma_emb_ms": med(name, "stage1_wgmma", "with_embedding", "ms"),
+        **{f"stage1_wgmma_{case}_ms": med(name, "stage1_wgmma", case, "ms")
+           for case in STAGE1_CASES},
         "lex_q1024_cold_ms": med(name, "lex_ranks", "q1024", "cold_ms"),
         "lex_q1_cold_ms": med(name, "lex_ranks", "q1", "cold_ms"),
         "load_latency_ms": med(name, "load_latency", "ms"),

@@ -132,6 +132,35 @@ def test_topk_candidates_big_matches_jax(rev, emb):
         np.testing.assert_array_equal(got, want)
 
 
+def test_topk_candidates_big_matches_jax_at_16_winners_a_block():
+    """k = 32 on the four 64-column blocks of 150 tickets: stage 1 keeps
+    m = 16 winners a block, the selection kernel's route on the card."""
+    rng = np.random.default_rng(17)
+    n_live, k = 150, 32
+    jb = jax_pool(ticket_specs(rng, n_live, emb=True), k=k)
+    tpool = td.pool_from_reference(jb.pool.snapshot(), "cpu", capacity=2048)
+    n_cols = big_cols(jb.pool.high_water, BN, 2048)
+    assert td2.winners_per_block(k, n_cols // BN) == 16
+    slots = padded_slots(n_live, 256)
+    grid_lo, grid_inv = jb._grid_params()
+    kw = dict(
+        fn=FN, fs=FS, n_cols=n_cols, k=k, rev=False, with_should=True,
+        with_embedding=True, bn=BN, emb_scale=256.0,
+    )
+    want = np.asarray(
+        jd2.topk_candidates_big(
+            jb.pool.device, jnp.asarray(slots), grid_lo, grid_inv,
+            bm=BM, interpret=True, **kw,
+        )
+    )
+    got = td2.topk_candidates_big(
+        tpool.tensors, torch.from_numpy(slots),
+        torch.from_numpy(grid_lo), torch.from_numpy(grid_inv), **kw,
+    ).numpy()
+    assert (want[:n_live] >= 0).sum(axis=1).max() > 16  # beyond one block's m
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("ties", [False, True])
 def test_topk_candidates_small_matches_jax(ties):
     rng = np.random.default_rng(21)

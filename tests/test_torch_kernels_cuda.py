@@ -1,5 +1,6 @@
-"""The stage-1 CUDA kernels of the PyTorch/CUDA port against their plain
-version, on the card; the leaderboard device programs (B8,
+"""The stage-1 CUDA kernels of the PyTorch/CUDA port (stage1.cu,
+stage1_wgmma.cu, stage1_select.cu) against their plain version, on the
+card; the leaderboard device programs (B8,
 `leaderboard/cuda.py`) on cuda:0 against the same programs on the CPU,
 and the `DeviceRankEngine` on the card against the host oracle.
 
@@ -167,6 +168,47 @@ def test_stage1_wgmma_kernel_matches_plain_on_card():
     after = {k.name: k.launches for k in kernels.KERNELS}
     assert after["stage1_wgmma"] - before["stage1_wgmma"] == runs == 36
     assert after["stage1"] - before["stage1"] == runs_first == 4
+
+
+@pytest.mark.cuda
+def test_stage1_select_kernel_matches_plain_on_card():
+    """The selection kernel (csrc/stage1_select.cu) against the plain
+    version on the card, through the routing of device2.stage1, word for
+    word: m = 9, 11, 16, 32 and the limit (64) at k = 64, at bn = 256 and
+    1024, on row counts that are not a multiple of either row tile; m = 16
+    at D = 776 (fn = fs = 32), and the limit with every operand at its
+    widest (D = 1008, 64-wide embeddings: one 64-row warpgroup, two ring
+    stages under rev). Every flag pair; no launch of another kernel. The
+    wrapper raises above the limit and on CPU tensors."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from nakama_tpu_torch import kernels
+
+    def routed(f_tot, **kw):
+        fn = 24
+        return td2.stage1(fn=fn, fs=int(f_tot) - fn - 1, **kw)
+
+    before = {k.name: k.launches for k in kernels.KERNELS}
+    runs = _hold_on_card(routed, [
+        (15, 1024, 200), (12, 256, 200), (8, 1024, 256), (8, 256, 200),
+        (4, 256, 200), (4, 1024, 130), (2, 1024, 200), (2, 256, 70),
+    ])
+    runs += _hold_on_card(routed, [(8, 1024, 200)], fn=32, fs=32, tight=0.1)
+    runs += _hold_on_card(
+        routed, [(2, 1024, 200)], fn=48, fs=29, e=64, tight=0.05
+    )
+    after = {k.name: k.launches for k in kernels.KERNELS}
+    assert after["stage1_select"] - before["stage1_select"] == runs == 40
+    assert after["stage1"] == before["stage1"]
+    assert after["stage1_wgmma"] == before["stage1_wgmma"]
+    args = torch_args(stage1_inputs(1, 2 * 1024, False, False), "cuda")
+    kw = dict(f_tot=41.0, bn=1024, emb_scale=256.0)
+    with pytest.raises(ValueError, match="m <= 64"):
+        kernels.stage1_select(m=kernels.SELECT_MAX_M + 1, **kw, **args)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.stage1_select(
+            m=16, **kw, **{k: v.cpu() for k, v in args.items()}
+        )
 
 
 @pytest.mark.cuda

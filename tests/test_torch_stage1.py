@@ -2,9 +2,9 @@
 
 The same numpy-seeded inputs go through the JAX Pallas kernel (interpret
 mode on the CPU, as the JAX package's own tests run it) and through the
-port's plain version `stage1_plain` — the function both CUDA kernels
-(`nakama_tpu_torch/csrc/stage1_wgmma.cu`, `csrc/stage1.cu`) are held
-against on the card. Without embeddings the packed winners must be
+port's plain version `stage1_plain` — the function the CUDA kernels
+(`nakama_tpu_torch/csrc/stage1_wgmma.cu`, `csrc/stage1_select.cu`,
+`csrc/stage1.cu`) are held against on the card. Without embeddings the packed winners must be
 identical; with embeddings a word may differ only where the float
 embedding bump rounds across an integer (priority within 1), since the
 two frameworks sum the E-term dot product in different orders.
@@ -62,7 +62,9 @@ def jax_stage1(inp, m, with_emb, rev, fn=FN, fs=FS):
 
 # m = ceil(2k / n_blocks): 1 at 16 blocks, 2 at 8 blocks, 2k at one block;
 # the Hopper kernel's wide route: m = 5 (k = 10 at 4 blocks), m = 8 (k = 8
-# at 2 blocks), 32-wide embeddings, D = 776 > 640 (fn = fs = 32).
+# at 2 blocks), 32-wide embeddings, D = 776 > 640 (fn = fs = 32); the
+# selection kernel's route (8 < m <= 64): m = 9 (k = 9 at 2 blocks), 16
+# (k = 32 at 4 blocks), 32 (k = 32 at 2 blocks), and 16 at D = 776.
 @pytest.mark.parametrize("n_blocks,m,k,e,fn,fs,tight", [
     pytest.param(16, 1, K, 16, FN, FS, 0.5, id="16-1"),
     pytest.param(8, 2, K, 16, FN, FS, 0.5, id="8-2"),
@@ -71,6 +73,10 @@ def jax_stage1(inp, m, with_emb, rev, fn=FN, fs=FS):
     pytest.param(2, 8, K, 16, FN, FS, 0.5, id="2-8"),
     pytest.param(8, 2, K, 32, FN, FS, 0.5, id="8-2-e32"),
     pytest.param(2, 8, K, 16, 32, 32, 0.1, id="2-8-d776"),
+    pytest.param(2, 9, 9, 16, FN, FS, 0.5, id="2-9-k9"),
+    pytest.param(4, 16, 32, 16, FN, FS, 0.5, id="4-16-k32"),
+    pytest.param(2, 32, 32, 16, FN, FS, 0.5, id="2-32-k32"),
+    pytest.param(2, 16, 16, 16, 32, 32, 0.1, id="2-16-k16-d776"),
 ])
 @pytest.mark.parametrize("with_emb", [False, True])
 @pytest.mark.parametrize("rev", [False, True])
@@ -97,7 +103,7 @@ def test_stage1_wrapper_takes_plain_version_for_cpu_tensors():
     got = td2.stage1(**kw)
     torch.testing.assert_close(got, td2.stage1_plain(**kw), rtol=0, atol=0)
     assert [k.launches for k in kernels.KERNELS] == before  # none launched
-    for launch in (kernels.stage1, kernels.stage1_wgmma):
+    for launch in (kernels.stage1, kernels.stage1_wgmma, kernels.stage1_select):
         with pytest.raises(ValueError):
             launch(
                 **{k: v for k, v in kw.items() if k not in ("fn", "fs")},
@@ -144,14 +150,21 @@ def test_stage1_plain_on_int8_operands_gives_identical_words(with_emb, rev):
 
 
 def test_stage1_routes_m_up_to_4_to_the_hopper_kernel(monkeypatch):
-    """The rule (m <= 8, D <= 1024, E <= 64 → stage1_wgmma.cu, else
-    stage1.cu), and that device2.stage1 launches what it names for a
-    tensor off the CPU (meta tensors: nothing runs)."""
+    """The rule (D <= 1024 and E <= 64: m <= 8 → stage1_wgmma.cu,
+    8 < m <= 64 → stage1_select.cu; else stage1.cu), and that
+    device2.stage1 launches what it names for a tensor off the CPU (meta
+    tensors: nothing runs)."""
+    limit = kernels.SELECT_MAX_M
+    assert limit >= 64
     for m in range(1, 9):
         assert td2.stage1_route(m, 520, 16) is kernels.STAGE1_WGMMA
         assert td2.stage1_route(m, 520) is kernels.STAGE1_WGMMA
         assert td2.stage1_route(m, 1024, 64) is kernels.STAGE1_WGMMA
-    for m in (9, 16, 128):
+    for m in (9, 11, 16, 32, limit):
+        assert td2.stage1_route(m, 520, 16) is kernels.STAGE1_SELECT
+        assert td2.stage1_route(m, 520) is kernels.STAGE1_SELECT
+        assert td2.stage1_route(m, 1024, 64) is kernels.STAGE1_SELECT
+    for m in (limit + 1, 128):
         assert td2.stage1_route(m, 520, 16) is kernels.STAGE1
     assert td2.stage1_route(2, td2.encoding_dims(32, 32), 32) is (
         kernels.STAGE1_WGMMA
@@ -159,36 +172,50 @@ def test_stage1_routes_m_up_to_4_to_the_hopper_kernel(monkeypatch):
     assert td2.stage1_route(8, td2.encoding_dims(48, 29), 64) is (
         kernels.STAGE1_WGMMA
     )
-    assert td2.stage1_route(2, 1025) is kernels.STAGE1
-    assert td2.stage1_route(2, td2.encoding_dims(48, 32)) is kernels.STAGE1
-    assert td2.stage1_route(2, 520, 80) is kernels.STAGE1
+    assert td2.stage1_route(16, td2.encoding_dims(48, 29), 64) is (
+        kernels.STAGE1_SELECT
+    )
+    for m in (2, 16):
+        assert td2.stage1_route(m, 1025) is kernels.STAGE1
+        assert td2.stage1_route(m, td2.encoding_dims(48, 32)) is kernels.STAGE1
+        assert td2.stage1_route(m, 520, 80) is kernels.STAGE1
     # Main path at the default widths: >= 32 selection blocks of 1024;
-    # k = 128 there gives m = 8, still the Hopper kernel.
+    # k = 128 there gives m = 8, still the wgmma kernel; k = 256 gives
+    # m = 16 at 32 blocks and m = 9 at 63, the selection kernel.
     cfg = MatchmakerConfig()
     blocks = cfg.big_pool_threshold // 1024
     assert td2.winners_per_block(64, blocks) == 4
     assert td2.winners_per_block(128, blocks) == 8
-    for k in (64, 128):
+    assert td2.winners_per_block(256, blocks) == 16
+    assert td2.winners_per_block(256, 63) == 9
+    for k, route in ((64, kernels.STAGE1_WGMMA), (128, kernels.STAGE1_WGMMA),
+                     (256, kernels.STAGE1_SELECT)):
         assert td2.stage1_route(
             td2.winners_per_block(k, blocks), td2.encoding_dims(24, 16), 16
-        ) is kernels.STAGE1_WGMMA
+        ) is route
     # The self-check's two-stage pools (4 blocks of 256 at k = 64).
-    assert td2.stage1_route(td2.winners_per_block(64, 4), 200) is kernels.STAGE1
+    assert td2.winners_per_block(64, 4) == 32
+    assert td2.stage1_route(td2.winners_per_block(64, 4), 200) is (
+        kernels.STAGE1_SELECT
+    )
 
     called = []
-    monkeypatch.setattr(kernels, "stage1", lambda *a, **k: called.append("stage1"))
-    monkeypatch.setattr(
-        kernels, "stage1_wgmma", lambda *a, **k: called.append("stage1_wgmma")
-    )
+    for name in ("stage1", "stage1_wgmma", "stage1_select"):
+        monkeypatch.setattr(
+            kernels, name, lambda *a, name=name, **k: called.append(name)
+        )
     inp = torch_args(stage1_inputs(2, 4 * BN, False, False))
     meta = {k: torch.empty_like(v, device="meta") for k, v in inp.items()}
-    for m in (2, 4, 5, 8, 9, 32):
+    for m in (2, 4, 5, 8, 9, 32, limit, limit + 1):
         td2.stage1(fn=FN, fs=FS, m=m, bn=BN, emb_scale=256.0, **meta)
-    assert called == ["stage1_wgmma"] * 4 + ["stage1"] * 2
+    assert called == (
+        ["stage1_wgmma"] * 4 + ["stage1_select"] * 3 + ["stage1"]
+    )
     inp = torch_args(stage1_inputs(3, 4 * BN, True, False, e=64))
     meta = {k: torch.empty_like(v, device="meta") for k, v in inp.items()}
     td2.stage1(fn=FN, fs=FS, m=8, bn=BN, emb_scale=256.0, **meta)
-    assert called[-1] == "stage1_wgmma"
+    td2.stage1(fn=FN, fs=FS, m=16, bn=BN, emb_scale=256.0, **meta)
+    assert called[-2:] == ["stage1_wgmma", "stage1_select"]
 
 
 def test_mix_matches_jax_int32_wraparound():

@@ -337,6 +337,44 @@ async def test_acceptor_close_codes_4000_4001_and_shutdown_1012(tmp_path):
         assert (e.rcvd.code, e.rcvd.reason) == (1012, "server shutting down")
 
 
+async def test_a_protobuf_client_gets_the_restart_notification_then_1012(
+        tmp_path):
+    """The stop's `server_restart` notification reaches a `format=protobuf`
+    socket (its content an object: rtapi's Notification.content is a
+    Struct), then the 1012 close; a JSON socket's content stays the JSON
+    string of the same object."""
+    server = await port_server(tmp_path)
+    port = server.port
+    sockets = {}
+    try:
+        for fmt in ("protobuf", "json"):
+            token = await token_for(port, f"device-restart-{fmt}")
+            ws = await wsproto.connect(HOST, port, f"/ws?token={token}&format={fmt}")
+            await ws.send(protocol.encode({"cid": "p", "ping": {}}, fmt))
+            while "pong" not in protocol.decode(await ws.recv(), fmt):
+                pass
+            sockets[fmt] = ws
+    finally:
+        await server.stop()
+    notes = {}
+    for fmt, ws in sockets.items():
+        while fmt not in notes:
+            raw = await asyncio.wait_for(ws.recv(), 5)
+            assert isinstance(raw, bytes if fmt == "protobuf" else str)
+            env = protocol.decode(raw, fmt)
+            if "notifications" in env:
+                notes[fmt] = env["notifications"]["notifications"][0]
+        with pytest.raises(wsproto.ConnectionClosed) as e:
+            await asyncio.wait_for(ws.recv(), 5)
+        assert e.value.code == 1012
+    pb, js = notes["protobuf"], notes["json"]
+    assert pb["subject"] == js["subject"] == "server_restart"
+    assert pb["code"] == js["code"] == -2
+    assert isinstance(js["content"], str)
+    assert pb["content"] == json.loads(js["content"])
+    assert pb["content"]["reason"] == "server shutting down"
+
+
 # ---------------------------------------- the port's client, JAX server
 
 
