@@ -225,19 +225,20 @@ def ptxas_report(log: str) -> dict:
     """Registers and spills of every compiled kernel instantiation in an
     `nvcc -Xptxas -v` log, keyed by entry name (template arguments of
     stage1_wgmma_kernel shown as m=, rev=, emb=, wide=; of
-    stage1_select_kernel as rev=, emb=, ncw=)."""
+    stage1_select_kernel as rev=, emb=, ncw=, stream=)."""
     report: dict[str, list[str]] = {}
     name = "?"
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1] if "'" in line else line
             t = re.search(r"ILi(\d+)ELb([01])ELb([01])ELb([01])E", name)
-            u = re.search(r"select_kernelILb([01])ELb([01])ELi(\d+)E", name)
+            u = re.search(r"select_kernelILb([01])ELb([01])ELi(\d+)ELb([01])E", name)
             if t:
                 name = (f"stage1_wgmma_kernel<m={t[1]},rev={t[2]},emb={t[3]},"
                         f"wide={t[4]}>")
             elif u:
-                name = f"stage1_select_kernel<rev={u[1]},emb={u[2]},ncw={u[3]}>"
+                name = (f"stage1_select_kernel<rev={u[1]},emb={u[2]},ncw={u[3]},"
+                        f"stream={u[4]}>")
             report[name] = []
         elif "arning" in line or re.search(r"\(C\d+\)", line):
             code = re.search(r"\((C\d+)\)", line)
@@ -359,32 +360,58 @@ def stage1_bound_ms(args: dict, out_words: int, peak_01: float) -> tuple[float, 
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def select_plan_of(m: int, d: int, e: int, rev: bool) -> dict | None:
+    """The selection kernel's plan for a shape, as a dict (None: none
+    fits, and the shape stays on the first kernel)."""
+    import dataclasses
+
+    from nakama_tpu_torch import kernels
+
+    plan = kernels.select_plan(m, d, e, rev)
+    return None if plan is None else dataclasses.asdict(plan)
+
+
+def largest_planned_m(d: int, e: int, rev: bool) -> int:
+    """The largest m the selection kernel has a plan for at this shape."""
+    from nakama_tpu_torch import kernels
+
+    return max(m for m in range(1, 1025) if kernels.select_plan(m, d, e, rev))
+
+
 def hold_kernels(pool, grid, cases, max_err: dict, fn=24, fs=16) -> None:
     """Every case through the first B1 kernel and the Hopper kernel its
     shape routes to, against the plain version on the same inputs. A case
-    is (rows, active, n_cols, bn); the pool's field counts are `fn`, `fs`,
-    its embedding width its own."""
+    is (rows, active, n_cols, bn[, m]): m is k = 64's winners per block
+    unless given, "fit" for the largest m with a selection-kernel plan
+    under each flag pair; the pool's field counts are `fn`, `fs`, its
+    embedding width its own. Each case's line names the selection
+    kernel's plan where it routes there."""
     from nakama_tpu_torch import kernels
     from nakama_tpu_torch.matchmaker import device2 as td2
 
     dev = pool["num"].device
     failures: list[str] = []
-    for rows, n_active, n_cols, bn in cases:
-        m = td2.winners_per_block(K, n_cols // bn)
+    for rows, n_active, n_cols, bn, *given in cases:
         active = torch.arange(n_active, dtype=torch.int32, device=dev)
         for rev in (False, True):
             for emb in (False, True):
                 args = stage1_case(pool, grid, n_cols, rows, active, rev, emb, fn, fs)
                 d = args["uq"].shape[1]
                 e = args["ue"].shape[1] if emb else 0
+                m = given[0] if given else td2.winners_per_block(K, n_cols // bn)
+                if m == "fit":
+                    m = largest_planned_m(d, e, rev)
                 kw = dict(f_tot=float(fn + fs + 1), m=m, bn=bn, emb_scale=256.0, **args)
                 want = td2.stage1_plain(fn=fn, fs=fs, m=m, bn=bn, emb_scale=256.0, **args)
                 launches = [kernels.stage1]
-                route = td2.stage1_route(m, d, e)
+                route = td2.stage1_route(m, d, e, rev)
                 if route is not kernels.STAGE1:
                     launches.append(getattr(kernels, route.name))
                 case = {"phase": "kernels", "rows": rows, "cols": n_cols, "bn": bn,
-                        "m": m, "d": d, "e": e, "rev": rev, "with_embedding": emb}
+                        "m": m, "d": d, "e": e, "rev": rev, "with_embedding": emb,
+                        "route": route.name}
+                if route is kernels.STAGE1_SELECT:
+                    case["plan"] = select_plan_of(m, d, e, rev)
                 for launch in launches:
                     name = launch.__name__
                     got = launch(**kw)
@@ -404,21 +431,22 @@ def hold_kernels(pool, grid, cases, max_err: dict, fn=24, fs=16) -> None:
 
 
 def time_stage1(pool, grid, rows, n_cols, emb, max_err: dict, *, fn=24, fs=16,
-                k=K, bn=BN, n_active=N_TICKETS) -> dict:
+                k=K, bn=BN, n_active=N_TICKETS, rev=False) -> dict:
     """The B1 kernels at one shape, held against the plain version and
     timed: where a Hopper kernel takes the shape, it and the first kernel
     in turns (first, Hopper, Hopper, first), else the first kernel alone;
-    beside the bounds and the library products."""
+    beside the bounds and the library products (under rev, the forward
+    product's alone), and the selection kernel's plan where it runs."""
     from nakama_tpu_torch import kernels
     from nakama_tpu_torch.matchmaker import device2 as td2
 
     dev = pool["num"].device
     m = td2.winners_per_block(k, n_cols // bn)
     active = torch.arange(n_active, dtype=torch.int32, device=dev)
-    args = stage1_case(pool, grid, n_cols, rows, active, False, emb, fn, fs)
+    args = stage1_case(pool, grid, n_cols, rows, active, rev, emb, fn, fs)
     d = args["uq"].shape[1]
     e = args["ue"].shape[1] if emb else 0
-    route = td2.stage1_route(m, d, e)
+    route = td2.stage1_route(m, d, e, rev)
     hopper = None if route is kernels.STAGE1 else getattr(kernels, route.name)
     kw = dict(f_tot=float(fn + fs + 1), m=m, bn=bn, emb_scale=256.0, **args)
 
@@ -460,7 +488,8 @@ def time_stage1(pool, grid, rows, n_cols, emb, max_err: dict, *, fn=24, fs=16,
     torch.cuda.empty_cache()
     timing = {
         "rows": rows, "cols": n_cols, "bn": bn, "k": k, "m": m, "d": d, "e": e,
-        "with_embedding": emb, "route": route.name,
+        "with_embedding": emb, "rev": rev, "route": route.name,
+        "plan": select_plan_of(m, d, e, rev) if route is kernels.STAGE1_SELECT else None,
         "ops_01": ops01, "ops_emb": ops_emb, "bytes": nbytes,
         "stage1_ms": first, "first_ms": statistics.median(first),
         "plain_ms": plain_ms,
@@ -486,17 +515,21 @@ def time_stage1(pool, grid, rows, n_cols, emb, max_err: dict, *, fn=24, fs=16,
 
 
 def phase_kernels(dev) -> dict:
+    from nakama_tpu_torch.matchmaker import device2 as td2
+
     pool, grid_lo, grid_inv = bench_pool(131_072, 24, 16, 16, 16, 7, dev)
     grid = (grid_lo, grid_inv)
     max_err = {"stage1": 0, "stage1_wgmma": 0, "stage1_select": 0}
     # At k = 64, bn = 1024: m = 2 at the north-star extent (112 blocks),
-    # m = 1 at 128 blocks, m = 5 at 26, m = 8 at 16, m = 2k on a one-block
-    # pool (first kernel only); at bn = 256: m = 4 at 32 blocks and m = 3
-    # at 43, on 4,000 rows (not a multiple of any row tile; a case's
-    # active rows are at most its columns, the rest padding). The selection
-    # kernel's route: m = 9 at 15 blocks of 1024, 11 at 12 of 256, 16 at
-    # 8 of 1024, 32 at 4 of 256 (the self-check's), 64 (its limit) at 2
-    # of 1024. Every flag pair.
+    # m = 1 at 128 blocks, m = 5 at 26, m = 8 at 16; at bn = 256: m = 4 at
+    # 32 blocks and m = 3 at 43, on 4,000 rows (not a multiple of any row
+    # tile; a case's active rows are at most its columns, the rest
+    # padding). The selection kernel's route: m = 9 at 15 blocks of 1024,
+    # 11 at 12 of 256, 16 at 8 of 1024, 32 at 4 of 256 (the self-check's),
+    # 64 at 2 of 1024, m = 2k = 128 on a one-block pool; and m = 65
+    # (k = 65 at 2 blocks), 128 at 1,056 rows, the largest m with a plan
+    # (streamed), and m = 512 (k = 256 on one block: no plan, the first
+    # kernel alone). Every flag pair.
     hold_kernels(pool, grid, [
         (4096, 4000, 114_688, BN), (4096, 4000, 131_072, BN),
         (4096, 1024, 1024, BN), (4000, 4000, 32 * 256, 256),
@@ -505,7 +538,18 @@ def phase_kernels(dev) -> dict:
         (4000, 4000, 15 * BN, BN), (4000, 3000, 12 * 256, 256),
         (4096, 4000, 8 * BN, BN), (4000, 1000, 4 * 256, 256),
         (4000, 2000, 2 * BN, BN),
+        (1056, 1056, 2 * BN, BN, 65), (1056, 1000, BN, BN, 128),
+        (1056, 1000, BN, BN, "fit"), (1056, 1000, 4 * 256, 256, "fit"),
+        (1056, 1000, BN, BN, td2.winners_per_block(256, 1)),
     ], max_err)
+    # Embeddings 80 and 128 wide (5 and 8 k16 steps), which stage1_wgmma
+    # does not take: m = 8 at 16 blocks, 32 at 4 of 256.
+    for e in (80, 128):
+        pool_e, lo_e, inv_e = bench_pool(16_384, 24, 16, 16, e, 7, dev)
+        hold_kernels(pool_e, (lo_e, inv_e), [
+            (4000, 4000, 16 * BN, BN), (1056, 1000, 4 * 256, 256),
+        ], max_err)
+        del pool_e
 
     # The main path's shapes: the first interval dispatches 100,000
     # actives padded to 131,072 rows against 114,688 columns; the
@@ -539,11 +583,32 @@ def phase_kernels(dev) -> dict:
                  max_err, fn=32, fs=32)
     d776 = time_stage1(pool, grid, rows, n_cols, False, max_err, fn=32, fs=32)
     del pool
-    # What stays on the first kernel: 48 numeric and 32 string fields
-    # (D = 1032 > 1024), the wide_fields phase's 32,768 tickets at k = 64.
-    pool, grid_lo, grid_inv = bench_pool(32_768, 48, 32, 16, 16, 7, dev)
-    d1032 = time_stage1(pool, (grid_lo, grid_inv), 32_768, 32_768, False, max_err,
-                        fn=48, fs=32, n_active=32_768)
+    # Operand widths past stage1_wgmma's 1024 on the selection kernel:
+    # 48 numeric and 32 string fields (D = 1032, the wide_fields phase's
+    # 32,768 tickets at k = 64: m = 4; resident), 64 and 64 (D = 1544),
+    # 112 and 32 (D = 2056); under rev the last two stream the row
+    # operand. m = 4 at 32 blocks of 256, 16 at 8 of 1024; every flag
+    # pair. Timed in turns with the first kernel at wide_fields' shape and
+    # at rev, D = 1544 (streamed).
+    wide_d = {}
+    for fn_w, fs_w in ((48, 32), (64, 64), (112, 32)):
+        pool, grid_lo, grid_inv = bench_pool(32_768, fn_w, fs_w, 16, 16, 7, dev)
+        grid = (grid_lo, grid_inv)
+        hold_kernels(pool, grid, [(4000, 4000, 32 * 256, 256), (4000, 4000, 8 * BN, BN)],
+                     max_err, fn=fn_w, fs=fs_w)
+        if fn_w == 48:
+            wide_d["d1032"] = time_stage1(pool, grid, 32_768, 32_768, False, max_err,
+                                          fn=48, fs=32, n_active=32_768)
+        elif fn_w == 64:
+            wide_d["d1544_rev"] = time_stage1(pool, grid, 32_768, 32_768, False, max_err,
+                                              fn=64, fs=64, n_active=32_768, rev=True)
+        del pool
+        torch.cuda.empty_cache()
+    # What stays on the first kernel: m = 512 (k = 256 on one block of
+    # 1,024 columns), the one_block_k256 phase's shape.
+    pool, grid_lo, grid_inv = bench_pool(1024, 24, 16, 16, 16, 7, dev)
+    m512 = time_stage1(pool, (grid_lo, grid_inv), 1024, 1024, False, max_err,
+                       k=256, n_active=1000)
     del pool
     # The self-check's two-stage shape (pool 1,024, threshold 256,
     # 256-column blocks, k = 64: m = 32; fn = fs = 8): the selection
@@ -555,7 +620,7 @@ def phase_kernels(dev) -> dict:
     torch.cuda.empty_cache()
     return {"max_err": max_err, "north_star": north, "assembler": asm,
             "wide_m8": wide_m8, "wide_m16": wide_m16, "e32": e32, "d776": d776,
-            "d1032": d1032, "selfcheck_m32": selfcheck}
+            **wide_d, "m512": m512, "selfcheck_m32": selfcheck}
 
 
 def phase_layers(pool, grid, rows, n_cols, active, stage1_ms) -> None:
@@ -2048,8 +2113,8 @@ B1_KERNELS = ("stage1", "stage1_wgmma", "stage1_select")
 def check_routing(launches: dict, path: str, route: str = "stage1_wgmma") -> None:
     """A path's stage 1 goes through the one B1 kernel its shapes route
     to, and no other: `stage1_wgmma` on the main path (its calls all have
-    m <= 8), `stage1_select` at k = 256 (m = 16) and in the self-check
-    (m = 32), `stage1` at D > 1024."""
+    m <= 8), `stage1_select` at k = 256 (m = 16), in the self-check
+    (m = 32) and at D = 1032, `stage1` at m = 512 (no plan fits)."""
     if launches[route] <= 0:
         raise AssertionError(f"the {path} path never launched {route}")
     others = {k: launches[k] for k in B1_KERNELS if k != route and launches[k]}
@@ -2092,16 +2157,17 @@ WIDE_K = 128
 WIDE_K256 = 256
 
 
-def drive_wide(name: str, route: str, m: int, intervals: int = 3, **cfg_kw) -> dict:
-    """A B1 route on a path a user reaches: 32,768 north-star tickets
-    (bench.py:44-58, the same ones in every such phase) in a
-    `LocalMatchmaker` whose `MatchmakerConfig` takes `cfg_kw` over its
-    defaults (capacity 131,072, threshold 32,768, 24 numeric and 16
-    string fields, k = 64). The pool spans 32 selection blocks, so stage
-    1 keeps m = ceil(2k / 32) winners a block. `intervals` synchronous
-    intervals; every match valid, >= 80% of the pool matched in the
-    first, every stage-1 launch on `route` at `m`, no other B1 kernel
-    launched."""
+def drive_wide(name: str, route: str, m: int, intervals: int = 3,
+               tickets: int = WIDE_TICKETS, **cfg_kw) -> dict:
+    """A B1 route on a path a user reaches: `tickets` north-star tickets
+    (bench.py:44-58, the same ones in every such phase; 32,768 unless
+    given) in a `LocalMatchmaker` whose `MatchmakerConfig` takes `cfg_kw`
+    over its defaults (capacity 131,072, threshold 32,768, 24 numeric and
+    16 string fields, k = 64). 32,768 tickets span 32 selection blocks, so
+    stage 1 keeps m = ceil(2k / 32) winners a block. `intervals`
+    synchronous intervals; every match valid, >= 80% of the pool matched
+    in the first, every stage-1 launch on `route` at `m`, no other B1
+    kernel launched."""
     from nakama_tpu_torch import kernels
     from nakama_tpu_torch.config import MatchmakerConfig
     from nakama_tpu_torch.matchmaker import LocalMatchmaker
@@ -2121,7 +2187,7 @@ def drive_wide(name: str, route: str, m: int, intervals: int = 3, **cfg_kw) -> d
     setattr(kernels, route, recorded)
     try:
         records, batches, valid = run_intervals(
-            mm, rng, "1v1", 2, intervals, 0, target=WIDE_TICKETS)
+            mm, rng, "1v1", 2, intervals, 0, target=tickets)
     finally:
         setattr(kernels, route, launch)
     launches = {k.name: k.launches for k in kernels.KERNELS}
@@ -2134,14 +2200,14 @@ def drive_wide(name: str, route: str, m: int, intervals: int = 3, **cfg_kw) -> d
     stage1_clock = [
         r["split"]["kernel_clocks"].get("matchmaker.stage1") for r in records]
     emit({
-        "phase": name, "tickets": WIDE_TICKETS, "config": cfg_kw,
+        "phase": name, "tickets": tickets, "config": cfg_kw,
         "route": route, "stage1_m": seen_m, "intervals": records,
         "sync_interval": ms_stats([r["process_ms"] for r in records]),
         "stage1_clock": stage1_clock,
-        "first_interval_matched_share": first / WIDE_TICKETS,
+        "first_interval_matched_share": first / tickets,
         "matched_entries_validated": valid, "launches": launches,
     })
-    if first < 0.8 * WIDE_TICKETS:
+    if first < 0.8 * tickets:
         raise AssertionError(f"first {name} interval matched {first} < 80% of pool")
     return launches
 
@@ -2158,11 +2224,20 @@ def phase_wide_k256() -> dict:
 
 
 def phase_wide_fields() -> dict:
-    """What stays on the first kernel: 48 numeric and 32 string fields
-    give D = 1032 > 1024 (at k = 64, m = 4). One interval: the route is
-    held, not timed, here."""
-    return drive_wide("wide_fields", "stage1", 4, intervals=1, numeric_fields=48,
+    """Past stage1_wgmma's operand width: 48 numeric and 32 string fields
+    give D = 1032 > 1024 (at k = 64, m = 4), the selection kernel with its
+    row operand resident."""
+    return drive_wide("wide_fields", "stage1_select", 4, numeric_fields=48,
                       string_fields=32)
+
+
+def phase_one_block_k256() -> dict:
+    """What stays on the first kernel: k = 256 on a pool of one selection
+    block (1,000 tickets, capacity 1,024, big_pool_threshold 256) keeps
+    m = 512 winners, past every plan of the selection kernel."""
+    return drive_wide("one_block_k256", "stage1", 512, tickets=1000,
+                      pool_capacity=1024, big_pool_threshold=256,
+                      candidates_per_ticket=WIDE_K256)
 
 
 # ------------------------------------------------------------ server phase
@@ -4930,8 +5005,8 @@ def phase_match() -> dict:
 def extract(timing: dict) -> dict:
     """A Hopper kernel's numbers at a second shape, for its kernel line."""
     return {key: timing[key] for key in (
-        "rows", "cols", "bn", "m", "d", "hopper_ms", "first_ms", "plain_ms",
-        "bound_int8_ms", "bound_int8_by", "matmul_bf16_ms")}
+        "rows", "cols", "bn", "m", "d", "rev", "plan", "hopper_ms", "first_ms",
+        "plain_ms", "bound_int8_ms", "bound_int8_by", "matmul_bf16_ms")}
 
 
 def kernel_line(kernel, launches: int, err: int, timing: dict, ms_key: str,
@@ -4968,7 +5043,8 @@ def main() -> int:
     paths = [phase_selfcheck()]
     launches, snap, first_groups = phase_north_star(north["hopper_ms"])
     paths += [launches, phase_wide(), phase_wide_k256(), phase_wide_fields(),
-              phase_assembler(), phase_snapshot(snap, first_groups)]
+              phase_one_block_k256(), phase_assembler(),
+              phase_snapshot(snap, first_groups)]
     recovery_launches, recovery = phase_recovery(snap)
     paths += [recovery_launches, phase_service(snap), phase_faults()]
     pickled = snap.pop("pickled")
@@ -4984,13 +5060,17 @@ def main() -> int:
     total = {k.name: sum(p[k.name] for p in paths) for k in kernels.KERNELS}
     err = timing["max_err"]
     # Each B1 kernel at its own path's shape: the first kernel at
-    # wide_fields' (D = 1032), its north-star and self-check times beside;
-    # the wgmma kernel at the north star's; the selection kernel at
-    # wide_k256's (m = 16), the self-check's (m = 32) beside.
-    fields, sel = timing["d1032"], timing["wide_m16"]
+    # one_block_k256's (m = 512), its times at wide_fields' (D = 1032),
+    # the north star's and the self-check's beside; the wgmma kernel at
+    # the north star's; the selection kernel at wide_k256's (m = 16), the
+    # self-check's (m = 32), wide_fields' and the streamed rev D = 1544
+    # beside.
+    sel = timing["wide_m16"]
     emit({"kernels": [
-        kernel_line(kernels.STAGE1, total["stage1"], err["stage1"], fields,
+        kernel_line(kernels.STAGE1, total["stage1"], err["stage1"], timing["m512"],
                     "first_ms", "bound_bf16", north_star_ms=north["first_ms"],
+                    d1032_ms=timing["d1032"]["first_ms"],
+                    d1544_rev_ms=timing["d1544_rev"]["first_ms"],
                     wide_m16_ms=sel["first_ms"],
                     selfcheck_m32_ms=timing["selfcheck_m32"]["first_ms"]),
         kernel_line(kernels.STAGE1_WGMMA, total["stage1_wgmma"],
@@ -5000,7 +5080,9 @@ def main() -> int:
                     d776_ms=timing["d776"]["hopper_ms"]),
         kernel_line(kernels.STAGE1_SELECT, total["stage1_select"],
                     err["stage1_select"], sel, "hopper_ms", "bound_int8",
-                    selfcheck_m32=extract(timing["selfcheck_m32"])),
+                    selfcheck_m32=extract(timing["selfcheck_m32"]),
+                    d1032=extract(timing["d1032"]),
+                    d1544_rev=extract(timing["d1544_rev"])),
         {
             "name": kernels.LEX_RANKS.name, "route": "cuda",
             "source": "nakama_tpu_torch/csrc/" + kernels.LEX_RANKS.source,

@@ -1,7 +1,12 @@
 // Stage-1 prefilter of the two-stage matchmaker scan, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel nakama_tpu/matchmaker/device2.py:302
-// (`_stage1_call`, body `_stage1_kernel` at :175).
+// (`_stage1_call`, body `_stage1_kernel` at :175). The Hopper kernels
+// (csrc/stage1_wgmma.cu, csrc/stage1_select.cu) take every shape that fits
+// their shared memory; this one keeps the rest (device2.stage1_route):
+// embeddings wider than 128, and m above what stage1_select.cu's kept lists
+// fit (209 under rev with E = 128 to 369 without flags; k = 256 on a
+// one-block pool gives m = 512).
 //
 // What it computes, for every active row i and pool column j:
 //   eligible  = uq_i . vv_j > F - 0.5   (and uv_i . vq_j > F - 0.5 under rev)

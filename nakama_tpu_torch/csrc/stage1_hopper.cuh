@@ -1,10 +1,11 @@
 // The parts that the Hopper stage-1 kernels share (csrc/stage1_wgmma.cu,
-// m <= 8 winners per block; csrc/stage1_select.cu, 8 < m <= 64): the
-// constants of the operand layout, the kernels' parameters, the mbarrier,
-// TMA and wgmma primitives, one chunk's products as one commit group, and
-// the host's tensor maps. Both kernels stream the column operand through
-// the same TMA ring into the same int8 wgmmas; they differ in their tiles
-// and their epilogues.
+// m <= 8 winners per block at D <= 1024 and E <= 64; csrc/stage1_select.cu,
+// every other shape for which a shared-memory plan exists): the constants
+// of the operand layout, the kernels' parameters, the mbarrier, TMA and
+// wgmma primitives, one chunk's products as one commit group, and the
+// host's tensor maps. Both kernels stream the column operand through the
+// same TMA ring into the same int8 wgmmas; they differ in their tiles and
+// their epilogues.
 
 #pragma once
 
@@ -25,9 +26,9 @@ namespace {
 
 
 constexpr int KC = 128;                // K chunk: 128 int8 = one 128-byte swizzle span
-constexpr int KCH_MAX = 8;             // D <= 1024
+constexpr int KCH_MAX = 8;             // stage1_wgmma.cu: D <= 1024
 constexpr int EC = 16;                 // embedding chunk: one bf16 k16 step, 32 bytes a row
-constexpr int EK_MAX = 4;              // E <= 64
+constexpr int EK_MAX = 4;              // stage1_wgmma.cu: E <= 64
 constexpr int COL_BITS = 18;
 constexpr int PRIO_MAX = 8191;
 constexpr int SMEM_MAX = 232448;       // dynamic shared memory a block may use
@@ -259,14 +260,21 @@ __device__ __forceinline__ void issue_emb(uint32_t ue, uint32_t ue_step, uint32_
     wg_commit();
 }
 
-template <int S, int N>
+// The embedding product at `ek` k16 steps, 1 <= ek <= EKN: one
+// instantiation a step count, since a commit group is straight-line code.
+// Any other `ek` traps (the launch fails): the host checks it, so only a
+// fault reaches it, and it must not score part of the embedding.
+template <int EKN = EK_MAX, int S, int N>
 __device__ __forceinline__ void issue_emb_n(int ek, uint32_t ue, uint32_t ue_step, uint32_t ve,
                                             uint32_t ve_step, float (&acce)[S][N]) {
-    switch (ek) {
-        case 4: issue_emb<4>(ue, ue_step, ve, ve_step, acce); break;
-        case 3: issue_emb<3>(ue, ue_step, ve, ve_step, acce); break;
-        case 2: issue_emb<2>(ue, ue_step, ve, ve_step, acce); break;
-        default: issue_emb<1>(ue, ue_step, ve, ve_step, acce); break;
+    if constexpr (EKN >= 1) {
+        if (ek == EKN) {
+            issue_emb<EKN>(ue, ue_step, ve, ve_step, acce);
+            return;
+        }
+        issue_emb_n<EKN - 1>(ek, ue, ue_step, ve, ve_step, acce);
+    } else {
+        __trap();
     }
 }
 

@@ -1,32 +1,46 @@
-// Stage-1 prefilter for 8 < m <= 64 winners per selection block, on Hopper
-// (sm_90a): the mainloop of csrc/stage1_wgmma.cu with a threshold-and-queue
-// selection as its epilogue.
+// Stage-1 prefilter on Hopper (sm_90a) for every shape that csrc/
+// stage1_wgmma.cu does not take (m > 8, D > 1024 or E > 64) and for which a
+// shared-memory plan exists: the mainloop of csrc/stage1_wgmma.cu with a
+// threshold-and-queue selection as its epilogue.
 //
 // Replaces the Pallas TPU kernel nakama_tpu/matchmaker/device2.py:302
 // (`_stage1_call`, body `_stage1_kernel` at :175), as csrc/stage1_wgmma.cu
-// does for m <= 8. It takes the calls with 8 < m <= 64, D <= 1024 and
-// E <= 64: k = 256 on a pool of 32 to 63 selection blocks (m = 16 to 9), a
-// lowered big_pool_threshold, the device self-check's four 256-column
-// blocks at k = 64 (m = 32). csrc/stage1.cu takes the rest (D > 1024,
-// E > 64, m > 64). What it computes is csrc/stage1_wgmma.cu's function
-// (its note; device2.stage1_plain): per row and per `bn`-column selection
-// block, the block's top m packed words, descending, INT32_MIN-filled.
+// does for m <= 8, D <= 1024 and E <= 64. It takes k = 256 on a pool of 32
+// to 63 selection blocks (m = 16 to 9), a lowered big_pool_threshold, the
+// device self-check's four 256-column blocks at k = 64 (m = 32), and wide
+// layouts (48 numeric and 32 string fields: D = 1032; embeddings up to 128
+// wide). csrc/stage1.cu keeps the shapes with no plan: E > 128, or m above
+// what fits beside the operands (kernels.select_plan). What it computes is
+// csrc/stage1_wgmma.cu's function (its note; device2.stage1_plain): per
+// row and per `bn`-column selection block, the block's top m packed words,
+// descending, INT32_MIN-filled.
 //
 // Bound: as for csrc/stage1_wgmma.cu, the 0/1 product's 2*A*N*D int8
-// operations (0.56 ms at 32,768 x 32,768, D = 520); the output grows with
-// m (67 MB at that shape and m = 16, 0.02 ms of bytes).
+// operations (0.56 ms at 32,768 x 32,768, D = 520; 1.12 ms at D = 1032);
+// the output grows with m (67 MB at that shape and m = 16, 0.02 ms of
+// bytes).
 //
 // Design:
 // - The mainloop is stage1_wgmma.cu's, from stage1_hopper.cuh: a persistent
 //   grid, a producer warpgroup whose one thread issues every TMA load, the
-//   row operands resident in shared memory for a whole work item, the
 //   column operand through a ring of full/empty mbarriers, int8 m64n64k32
-//   wgmmas and bf16 m64n64k16 ones for the embedding product. Each consumer
-//   warpgroup owns one 64-row slab. Without rev the host takes two consumer
-//   warpgroups (a 128-row tile) where they fit beside the queues with at
-//   least 3 ring stages; else, and under rev, one (64 rows), with at least
-//   2; and as many stages as fit, up to 8: with one 64-row slab a chunk's
-//   wgmmas are short, and a ring of 4 left the consumers waiting on TMA.
+//   wgmmas and bf16 m64n64k16 ones for the embedding product (up to 8 k16
+//   steps: E <= 128). Each consumer warpgroup owns one 64-row slab.
+// - The host (kernels.select_plan) picks a plan per (m, D, E, rev) and
+//   passes it in; the launch checks that it fits and returns ERR_SHAPE
+//   otherwise, so a shape is never sent here to fail. A plan is the number
+//   of consumer warpgroups (two, a 128-row tile, only without rev; else
+//   one), the ring's depth (up to 8: with one 64-row slab a chunk's wgmmas
+//   are short, and a ring of 4 left the consumers waiting on TMA; 2 only
+//   where 3 do not fit, as 2 left them waiting longer still), the queues'
+//   length, and where the row operand lives. The first choice keeps it
+//   resident in shared memory for a whole work item, loaded once, as
+//   stage1_wgmma.cu does. Where that does not fit beside 3 ring stages
+//   (past D = 2944 without flags, 1920 at E = 128; under rev past
+//   D = 1280, 768 at E = 128), the row operand streams: each ring stage carries the row tile's K chunk (and uv's under
+//   rev) beside the column chunk, so that the layout no longer depends on
+//   D. Only the embedding rows stay resident. A row chunk is then read
+//   from L2 once per 64-column tile instead of once per item.
 // - The epilogue. The m <= 8 kernel keeps a running top-M in registers:
 //   M registers a row and 2M min/max a word, which cannot scale to m = 64.
 //   Here it is WarpSelect's shape (Johnson, Douze and Jegou, "Billion-scale
@@ -61,10 +75,9 @@
 //   each one word longer than its length (32, 16 or 8 words: the longest
 //   that fits), so that a row's four lie in distinct banks; the row stride
 //   is odd, so that the eight rows a warp merges at once do too: 83 KB for
-//   128 rows at m = 16 with 32-word queues. With every operand at its
-//   widest (rev, D = 1024, E = 64) a 64-row tile, two ring stages and
-//   8-word queues fit at m = 64, which sets the limit
-//   (kernels.SELECT_MAX_M).
+//   128 rows at m = 16 with 32-word queues. The kept lists bound m: with
+//   the row operand streamed, any D fits m up to 209 (rev with E = 128)
+//   to 369 (no flags).
 // - The wrapper's int8 conversion of the 0/1 operands runs here, one small
 //   kernel an operand in the same C call, so the call costs one host round
 //   trip. The converted rows are 16-byte aligned (dp = D rounded up to 16
@@ -77,8 +90,12 @@
 
 namespace {
 
-constexpr int MAX_M = 64;
 constexpr int MAX_STAGES = 8;       // ring stages, where shared memory allows
+constexpr int SEL_EK_MAX = 8;       // E <= 128
+// Bounds that keep the layout's arithmetic inside int; shared memory ends
+// both far sooner (kernels.select_plan holds the same).
+constexpr int SEL_M_MAX = 1024;
+constexpr int SEL_KCH_MAX = 4096;
 constexpr int TN = 64;              // columns per product tile
 constexpr int NACC = TN / 2;        // accumulators per slab
 constexpr int QSTEP = TN / 8;       // words a thread forms per row between
@@ -91,7 +108,7 @@ struct Sel {
 };
 
 struct SelLayout {
-    int uv, ue, stages, stage_bytes, ve, queues, bars, total;
+    int uv, ue, stages, stage_bytes, sa, ve, queues, bars, total;
 };
 
 // Words a row takes: two kept buffers of m, then a queue of qcap words
@@ -102,17 +119,23 @@ __host__ __device__ constexpr int queue_stride(int m, int qcap) {
 }
 
 // Shared memory, from a 1024-byte aligned base: the resident row operands
-// and the ring's stages as in stage1_wgmma.cu, then the rows' kept lists
+// (uq, then uv under rev: kch chunks of [BM][128] each, unless STREAM;
+// then ue, ek chunks of [BM][16] bf16), the ring's stages (the vv chunk
+// [TN][128], the vq chunk, under STREAM the uq and uv chunks [BM][128] at
+// `sa`, then ve as ek chunks of [TN][16] bf16), then the rows' kept lists
 // and queues ([BM][queue_stride] int32), then the mbarriers.
-template <bool REV, bool EMB, int NCW>
+// kernels.select_layout_bytes repeats this arithmetic.
+template <bool REV, bool EMB, int NCW, bool STREAM>
 __host__ __device__ SelLayout sel_layout(int kch, int ek, int n_stages, int m, int qcap) {
     using S = Sel<REV, EMB, NCW>;
     SelLayout L{};
-    const int a_op = kch * S::BM * KC;
-    L.uv = a_op;
-    L.ue = a_op * (REV ? 2 : 1);
+    const int a_chunk = S::BM * KC;
+    const int a_ops = REV ? 2 : 1;
+    L.uv = kch * a_chunk;
+    L.ue = STREAM ? 0 : kch * a_chunk * a_ops;
     L.stages = round_up(L.ue + (EMB ? ek * S::BM * EC * 2 : 0), 1024);
-    L.ve = TN * KC * (REV ? 2 : 1);
+    L.sa = TN * KC * a_ops;
+    L.ve = L.sa + (STREAM ? a_chunk * a_ops : 0);
     L.stage_bytes = round_up(L.ve + (EMB ? ek * TN * EC * 2 : 0), 1024);
     L.queues = L.stages + n_stages * L.stage_bytes;
     L.bars = round_up(L.queues + S::BM * queue_stride(m, qcap) * 4, 8);
@@ -241,12 +264,16 @@ __device__ __noinline__ int merge_row(int32_t* row, int& par, int qs, int kc,
 
 // ----------------------------------------------------------------- kernel
 
-template <bool REV, bool EMB, int NCW>
+// STREAM: the row operand comes through the ring (the design note); the
+// a_full/a_empty pair then guards the resident embedding rows alone, and
+// is not used without embeddings.
+template <bool REV, bool EMB, int NCW, bool STREAM>
 __global__ void __launch_bounds__((Sel<REV, EMB, NCW>::NT), 1)
 stage1_select_kernel(const __grid_constant__ Params p, const int n_stages, const int qcap) {
     constexpr int BM = Sel<REV, EMB, NCW>::BM;
+    constexpr bool HOLD = !STREAM || EMB;  // anything resident an item
     extern __shared__ uint8_t smem_raw[];
-    const SelLayout L = sel_layout<REV, EMB, NCW>(p.kch, p.ek, n_stages, p.m, qcap);
+    const SelLayout L = sel_layout<REV, EMB, NCW, STREAM>(p.kch, p.ek, n_stages, p.m, qcap);
     const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
     const uint32_t full0 = base + L.bars;             // full[s]  at full0 + 8 s
     const uint32_t empty0 = full0 + 8 * n_stages;     // empty[s] at empty0 + 8 s
@@ -273,8 +300,9 @@ stage1_select_kernel(const __grid_constant__ Params p, const int n_stages, const
         // ------------------------------------------- producer warpgroup
         if constexpr (NCW == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
         if (warp != NCW * 4 || lane != 0) return;
-        const uint32_t a_tx = (REV ? 2 : 1) * p.kch * a_chunk + (EMB ? p.ek * BM * EC * 2 : 0);
-        const uint32_t b_tx = TN * KC * (REV ? 2 : 1);
+        const uint32_t a_tx = (STREAM ? 0 : (REV ? 2 : 1) * p.kch * a_chunk) +
+                              (EMB ? p.ek * BM * EC * 2 : 0);
+        const uint32_t b_tx = (TN * KC + (STREAM ? a_chunk : 0)) * (REV ? 2 : 1);
         const uint32_t b_tx0 = b_tx + (EMB ? p.ek * TN * EC * 2 : 0);
         int stage = 0, phase = 0, n_a = 0;
         for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
@@ -282,13 +310,16 @@ stage1_select_kernel(const __grid_constant__ Params p, const int n_stages, const
             const int sp = item / p.rt_count;
             const int j0 = sp * p.n_blocks / p.splits;
             const int j1 = (sp + 1) * p.n_blocks / p.splits;
-            if (n_a > 0) mbar_wait(a_empty, (n_a - 1) & 1);
-            ++n_a;
-            mbar_expect_tx(a_full, a_tx);
-            for (int kc = 0; kc < p.kch; ++kc) {
-                tma_load_2d(base + kc * a_chunk, &p.tm_uq, a_full, kc * KC, rt * BM);
-                if (REV) tma_load_2d(base + L.uv + kc * a_chunk, &p.tm_uv, a_full, kc * KC, rt * BM);
+            if (HOLD) {
+                if (n_a > 0) mbar_wait(a_empty, (n_a - 1) & 1);
+                ++n_a;
+                mbar_expect_tx(a_full, a_tx);
             }
+            if (!STREAM)
+                for (int kc = 0; kc < p.kch; ++kc) {
+                    tma_load_2d(base + kc * a_chunk, &p.tm_uq, a_full, kc * KC, rt * BM);
+                    if (REV) tma_load_2d(base + L.uv + kc * a_chunk, &p.tm_uv, a_full, kc * KC, rt * BM);
+                }
             if (EMB)
                 for (int c = 0; c < p.ek; ++c)
                     tma_load_2d(base + L.ue + c * BM * EC * 2, &p.tm_ue, a_full, c * EC, rt * BM);
@@ -302,6 +333,10 @@ stage1_select_kernel(const __grid_constant__ Params p, const int n_stages, const
                         mbar_expect_tx(full, kc == 0 ? b_tx0 : b_tx);
                         tma_load_2d(st, &p.tm_vv, full, kc * KC, col0);
                         if (REV) tma_load_2d(st + TN * KC, &p.tm_vq, full, kc * KC, col0);
+                        if (STREAM) {
+                            tma_load_2d(st + L.sa, &p.tm_uq, full, kc * KC, rt * BM);
+                            if (REV) tma_load_2d(st + L.sa + a_chunk, &p.tm_uv, full, kc * KC, rt * BM);
+                        }
                         if (EMB && kc == 0)
                             for (int c = 0; c < p.ek; ++c)
                                 tma_load_2d(st + L.ve + c * TN * EC * 2, &p.tm_ve, full, c * EC, col0);
@@ -369,8 +404,10 @@ stage1_select_kernel(const __grid_constant__ Params p, const int n_stages, const
             rslot[h] = EMB ? sl : (int)((uint32_t)sl + (1u << 30));
         }
 
-        mbar_wait(a_full, a_phase);
-        a_phase ^= 1;
+        if (HOLD) {
+            mbar_wait(a_full, a_phase);
+            a_phase ^= 1;
+        }
 
         for (int j = j0; j < j1; ++j) {
             int kc[2] = {0, 0};                 // each row's kept list length,
@@ -383,12 +420,15 @@ stage1_select_kernel(const __grid_constant__ Params p, const int n_stages, const
                     const uint32_t st = base + L.stages + stage * L.stage_bytes;
                     mbar_wait(full0 + 8 * stage, phase);
                     const int nks = kk + 1 < p.kch ? KC / 32 : p.last_ks;
-                    const ChunkAddr ad{base + kk * a_chunk + wg * 64 * KC, (uint32_t)L.uv,
-                                       st, (uint32_t)(TN * KC), kk};
+                    // The row chunk: resident, or in the stage beside the
+                    // column chunk; uv's lies uv_off past uq's.
+                    const ChunkAddr ad{
+                        (STREAM ? st + L.sa : base + kk * a_chunk) + wg * 64 * KC,
+                        (uint32_t)(STREAM ? a_chunk : L.uv), st, (uint32_t)(TN * KC), kk};
                     if constexpr (EMB)
                         if (kk == 0)
-                            issue_emb_n(p.ek, base + L.ue + wg * 64 * EC * 2, BM * EC * 2,
-                                        st + L.ve, TN * EC * 2, acce);
+                            issue_emb_n<SEL_EK_MAX>(p.ek, base + L.ue + wg * 64 * EC * 2,
+                                                    BM * EC * 2, st + L.ve, TN * EC * 2, acce);
                     issue_n<REV>(nks, ad, acc, accr);
                     if (kk > 0) {
                         // The previous chunk's wgmmas (and the embedding
@@ -482,8 +522,8 @@ stage1_select_kernel(const __grid_constant__ Params p, const int n_stages, const
             }
             __syncwarp();  // read before the next block's merges write
         }
-        // This warp is done reading the item's row operands.
-        if (lane == 0) mbar_arrive(a_empty);
+        // This warp is done reading the item's resident rows.
+        if (HOLD && lane == 0) mbar_arrive(a_empty);
     }
 }
 
@@ -510,10 +550,11 @@ int sm_count(int dev) {
 }
 
 // The 0/1 operands' maps end at column d (TMA zero-fills past it); their
-// rows are dp apart.
-template <bool REV, bool EMB, int NCW>
+// rows are dp apart. The plan has been checked (plan_fits).
+template <bool REV, bool EMB, int NCW, bool STREAM>
 int launch(Params& p, const Operands& o, int d, int n_stages, int qcap, cudaStream_t stream) {
     constexpr int BM = Sel<REV, EMB, NCW>::BM;
+    const SelLayout L = sel_layout<REV, EMB, NCW, STREAM>(p.kch, p.ek, n_stages, p.m, qcap);
     const CUtensorMapDataType u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
     const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
     const CUtensorMapSwizzle sw128 = CU_TENSOR_MAP_SWIZZLE_128B;
@@ -527,9 +568,6 @@ int launch(Params& p, const Operands& o, int d, int n_stages, int qcap, cudaStre
         ok = ok && make_map(&p.tm_ue, o.ue, bf, 2, o.ep, o.a, o.ep, EC, BM, sw32) &&
              make_map(&p.tm_ve, o.ve, bf, 2, o.ep, o.n, o.ep, EC, TN, sw32);
     if (!ok) return ERR_TENSOR_MAP;
-    if (p.bn % TN != 0) return ERR_SHAPE;
-    const SelLayout L = sel_layout<REV, EMB, NCW>(p.kch, p.ek, n_stages, p.m, qcap);
-    if (L.total > SMEM_MAX) return ERR_SHAPE;
 
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
@@ -542,61 +580,86 @@ int launch(Params& p, const Operands& o, int d, int n_stages, int qcap, cudaStre
     p.items = p.rt_count * p.splits;
     const int grid = min(sms, p.items);
 
-    auto kernel = stage1_select_kernel<REV, EMB, NCW>;
+    auto kernel = stage1_select_kernel<REV, EMB, NCW, STREAM>;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
     if (err != cudaSuccess) return (int)err;
     kernel<<<grid, Sel<REV, EMB, NCW>::NT, L.total, stream>>>(p, n_stages, qcap);
     return (int)cudaGetLastError();
 }
 
-// Without rev, two consumer warpgroups (the 128-row tile) where they fit
-// beside the queues with 3 or 4 ring stages; else, and always under rev
-// (two resident row operands), one (64 rows) with 2 to 4. Then the longest
-// queues that fit (32, 16 or 8 words: the longer, the fewer merges), then
-// the most stages.
+// The plan's instantiation: two consumer warpgroups only without rev.
 template <bool REV, bool EMB>
-int launch_fit(Params& p, const Operands& o, int d, cudaStream_t stream) {
+int launch_plan(Params& p, const Operands& o, int d, int ncw, int n_stages, int qcap,
+                bool streamed, cudaStream_t stream) {
+    if (ncw == 1)
+        return streamed ? launch<REV, EMB, 1, true>(p, o, d, n_stages, qcap, stream)
+                        : launch<REV, EMB, 1, false>(p, o, d, n_stages, qcap, stream);
     if constexpr (!REV)
-        for (int qcap = 32; qcap >= 8; qcap /= 2)
-            for (int st = MAX_STAGES; st >= 3; --st)
-                if (sel_layout<REV, EMB, 2>(p.kch, p.ek, st, p.m, qcap).total <= SMEM_MAX)
-                    return launch<REV, EMB, 2>(p, o, d, st, qcap, stream);
-    for (int qcap = 32; qcap >= 8; qcap /= 2)
-        for (int st = MAX_STAGES; st >= 2; --st)
-            if (sel_layout<REV, EMB, 1>(p.kch, p.ek, st, p.m, qcap).total <= SMEM_MAX)
-                return launch<REV, EMB, 1>(p, o, d, st, qcap, stream);
+        if (ncw == 2)
+            return streamed ? launch<REV, EMB, 2, true>(p, o, d, n_stages, qcap, stream)
+                            : launch<REV, EMB, 2, false>(p, o, d, n_stages, qcap, stream);
     return ERR_SHAPE;
+}
+
+template <bool REV, bool EMB>
+int layout_total(int ncw, bool streamed, int kch, int ek, int n_stages, int m, int qcap) {
+    if (ncw == 1)
+        return streamed ? sel_layout<REV, EMB, 1, true>(kch, ek, n_stages, m, qcap).total
+                        : sel_layout<REV, EMB, 1, false>(kch, ek, n_stages, m, qcap).total;
+    return streamed ? sel_layout<REV, EMB, 2, true>(kch, ek, n_stages, m, qcap).total
+                    : sel_layout<REV, EMB, 2, false>(kch, ek, n_stages, m, qcap).total;
 }
 
 }  // namespace
 
-// Launch on `stream`; returns 0, a CUDA error code, or ERR_* of
-// stage1_hopper.cuh. uq/uv [a, d], vv/vq [n, d] bf16 holding 0/1, are
-// converted into uq8/uv8 [a, dp], vv8/vq8 [n, dp] int8 (scratch the caller
-// allocates; dp = d rounded up to 16, d <= 1024); the other arguments are
-// stage1_wgmma_launch's. Requires 1 <= m <= 64, n % bn == 0,
-// bn % 128 == 0; base pointers 16-byte aligned.
+// Shared memory, in bytes, that a plan takes (sel_layout's total; -1 for
+// a warpgroup count the kernel has no instantiation of), for holding
+// kernels.select_layout_bytes to it.
+extern "C" int stage1_select_layout_bytes(int rev, int with_emb, int ncw, int streamed,
+                                          int kch, int ek, int n_stages, int m, int qcap) {
+    if (ncw != 1 && (ncw != 2 || rev)) return -1;
+    if (rev && with_emb) return layout_total<true, true>(ncw, streamed, kch, ek, n_stages, m, qcap);
+    if (rev) return layout_total<true, false>(ncw, streamed, kch, ek, n_stages, m, qcap);
+    if (with_emb) return layout_total<false, true>(ncw, streamed, kch, ek, n_stages, m, qcap);
+    return layout_total<false, false>(ncw, streamed, kch, ek, n_stages, m, qcap);
+}
+
+namespace {
+
+// A plan fits: an instantiation exists, the ring has 2 to MAX_STAGES
+// stages (one deadlocks: a stage is freed only after the next chunk's
+// wgmmas issue), the queues are 8, 16 or 32 words, and the layout fits in
+// shared memory.
+bool plan_fits(int rev, int with_emb, int ncw, int streamed, int kch, int ek, int n_stages,
+               int m, int qcap) {
+    if (n_stages < 2 || n_stages > MAX_STAGES || (qcap != 8 && qcap != 16 && qcap != 32))
+        return false;
+    const int total =
+        stage1_select_layout_bytes(rev, with_emb, ncw, streamed, kch, ek, n_stages, m, qcap);
+    return total > 0 && total <= SMEM_MAX;
+}
+
+}  // namespace
+
+// Launch on `stream` with the plan (ncw consumer warpgroups, n_stages ring
+// stages, queues of qcap words, the row operand streamed or resident) that
+// kernels.select_plan chose; returns 0, a CUDA error code, or ERR_* of
+// stage1_hopper.cuh (ERR_SHAPE where the plan does not fit). uq/uv [a, d],
+// vv/vq [n, d] bf16 holding 0/1, are converted into uq8/uv8 [a, dp],
+// vv8/vq8 [n, dp] int8 (scratch the caller allocates; dp = d rounded up to
+// 16); the other arguments are stage1_wgmma_launch's. Requires m >= 1,
+// E <= 128, n % bn == 0, bn % 128 == 0; base pointers 16-byte aligned.
 extern "C" int stage1_select_launch(
     const void* uq, const void* vv, const void* uv, const void* vq,
     void* uq8, void* vv8, void* uv8, void* vq8,
     const void* ue, const void* ve, const void* col_mix, const void* col_gidx,
     const void* row_mix, const void* row_slot, void* out, int a, int n, int dp,
     int d, int ep, int bn, int m, int f_int, float emb_scale, int rev, int with_emb,
-    void* stream) {
-    if (a <= 0 || n <= 0 || d <= 0 || d > KCH_MAX * KC || dp % 16 != 0 || dp < d ||
-        bn <= 0 || bn % 128 != 0 || n % bn != 0 || m < 1 || m > MAX_M ||
-        (with_emb && (ep <= 0 || ep % EC != 0 || ep > EK_MAX * EC)))
+    int ncw, int n_stages, int qcap, int streamed, void* stream) {
+    if (a <= 0 || n <= 0 || d <= 0 || d > SEL_KCH_MAX * KC || dp % 16 != 0 || dp < d ||
+        bn <= 0 || bn % 128 != 0 || n % bn != 0 || m < 1 || m > SEL_M_MAX ||
+        (with_emb && (ep <= 0 || ep % EC != 0 || ep > SEL_EK_MAX * EC)))
         return ERR_SHAPE;
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const void* src[4] = {uq, vv, uv, vq};
-    void* dst[4] = {uq8, vv8, uv8, vq8};
-    const int rows[4] = {a, n, a, n};
-    for (int t = 0; t < (rev ? 4 : 2); ++t) {
-        to_int8_kernel<<<rows[t], 128, 0, s>>>(static_cast<const __nv_bfloat16*>(src[t]),
-                                               static_cast<int8_t*>(dst[t]), d, dp);
-        const cudaError_t err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
-    }
     Params p;
     p.col_mix = static_cast<const int32_t*>(col_mix);
     p.col_gidx = static_cast<const int32_t*>(col_gidx);
@@ -612,9 +675,21 @@ extern "C" int stage1_select_launch(
     p.ek = with_emb ? ep / EC : 0;
     p.f_int = f_int;
     p.emb_scale = emb_scale;
+    if (!plan_fits(rev, with_emb, ncw, streamed, p.kch, p.ek, n_stages, m, qcap))
+        return ERR_SHAPE;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const void* src[4] = {uq, vv, uv, vq};
+    void* dst[4] = {uq8, vv8, uv8, vq8};
+    const int rows[4] = {a, n, a, n};
+    for (int t = 0; t < (rev ? 4 : 2); ++t) {
+        to_int8_kernel<<<rows[t], 128, 0, s>>>(static_cast<const __nv_bfloat16*>(src[t]),
+                                               static_cast<int8_t*>(dst[t]), d, dp);
+        const cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+    }
     const Operands o{uq8, vv8, uv8, vq8, ue, ve, a, n, dp, ep};
-    if (rev && with_emb) return launch_fit<true, true>(p, o, d, s);
-    if (rev) return launch_fit<true, false>(p, o, d, s);
-    if (with_emb) return launch_fit<false, true>(p, o, d, s);
-    return launch_fit<false, false>(p, o, d, s);
+    if (rev && with_emb) return launch_plan<true, true>(p, o, d, ncw, n_stages, qcap, streamed, s);
+    if (rev) return launch_plan<true, false>(p, o, d, ncw, n_stages, qcap, streamed, s);
+    if (with_emb) return launch_plan<false, true>(p, o, d, ncw, n_stages, qcap, streamed, s);
+    return launch_plan<false, false>(p, o, d, ncw, n_stages, qcap, streamed, s);
 }

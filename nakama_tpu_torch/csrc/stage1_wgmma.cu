@@ -6,8 +6,9 @@
 // this kernel takes the calls with m <= 8 winners per selection block,
 // D <= 1024 and E <= 64 (every call of the main path, and the wide
 // configurations: k = 128 at 32 blocks, 48 numeric and 31 string fields,
-// 64-wide skill embeddings); csrc/stage1_select.cu takes 8 < m <= 64 with
-// the same mainloop (stage1_hopper.cuh) and csrc/stage1.cu the rest.
+// 64-wide skill embeddings); csrc/stage1_select.cu takes every other shape
+// it has a shared-memory plan for, with the same mainloop
+// (stage1_hopper.cuh), and csrc/stage1.cu the shapes with none.
 //
 // What it computes, for every row i < a and pool column j (the same
 // function as csrc/stage1.cu and device2.stage1_plain):

@@ -18,6 +18,7 @@ count — there and nowhere else.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import math
 import os
@@ -50,18 +51,23 @@ class Kernel:
     build_log: str = ""
 
 
+# B1's first kernel (WMMA bf16): since the Hopper kernels took every
+# shape with a plan, only the shapes without one (select_plan).
 STAGE1 = Kernel(
     name="stage1",
     source="stage1.cu",
     replaces="nakama_tpu/matchmaker/device2.py:302",
 )
+# B1 at m <= 8, D <= 1024, E <= 64 (the main path): int8 wgmma from a TMA
+# ring, a running top-8 in registers.
 STAGE1_WGMMA = Kernel(
     name="stage1_wgmma",
     source="stage1_wgmma.cu",
     replaces="nakama_tpu/matchmaker/device2.py:302",
 )
-# B1's calls with 8 < m <= 64 winners per block: the Hopper mainloop of
-# stage1_wgmma.cu with a threshold-and-queue selection as its epilogue.
+# B1's other shapes, wherever select_plan finds a shared-memory layout:
+# the Hopper mainloop of stage1_wgmma.cu with a threshold-and-queue
+# selection as its epilogue.
 STAGE1_SELECT = Kernel(
     name="stage1_select",
     source="stage1_select.cu",
@@ -82,11 +88,88 @@ KERNELS = [STAGE1, STAGE1_WGMMA, STAGE1_SELECT, LEX_RANKS]
 WGMMA_MAX_M = 8
 WGMMA_MAX_D = 1024
 WGMMA_MAX_E = 64
-# What stage1_select.cu takes (the same D and E): winners per block, up to
-# the kept lists and queues that fit beside the widest operands (rev,
-# D = 1024, E = 64) in shared memory.
-SELECT_MAX_M = 64
+# What stage1_select.cu takes: embeddings of up to 8 bf16 k16 steps, and
+# any m and D for which select_plan finds a layout.
+SELECT_MAX_E = 128
 _lock = threading.Lock()
+
+# stage1_select.cu's shared-memory arithmetic (sel_layout, plan_fits).
+_SMEM_MAX = 232_448  # dynamic shared memory a block may use
+_KC = 128  # K chunk of the 0/1 operands, int8 columns
+_EC = 16  # embedding chunk, bf16 columns
+_TN = 64  # columns per product tile
+_SELECT_MAX_STAGES = 8
+# Bounds that keep the C side's layout arithmetic inside int.
+_SELECT_M_MAX = 1024
+_SELECT_KCH_MAX = 4096
+
+
+@dataclass(frozen=True)
+class SelectPlan:
+    """How stage1_select.cu lays out one shape in shared memory."""
+
+    ncw: int  # consumer warpgroups: 64 rows each
+    stages: int  # ring stages
+    qcap: int  # queue words a thread holds for a row
+    streamed: bool  # the row operand comes through the ring, not resident
+    smem: int  # bytes of dynamic shared memory
+
+
+def _round_up(x: int, to: int) -> int:
+    return -(-x // to) * to
+
+
+def select_layout_bytes(
+    rev: bool, emb: bool, ncw: int, streamed: bool, kch: int, ek: int,
+    stages: int, m: int, qcap: int,
+) -> int:
+    """Shared memory of one stage1_select.cu layout, as its `sel_layout`
+    counts it: the resident row operands (none when streamed) and
+    embedding rows, the ring's stages (column chunks, the row chunks when
+    streamed, the embedding chunks), each row's kept lists and queues, the
+    mbarriers, and 1,024 bytes to align the base."""
+    bm = 64 * ncw
+    a_chunk = bm * _KC
+    a_ops = 2 if rev else 1
+    resident = 0 if streamed else kch * a_chunk * a_ops
+    stages_at = _round_up(resident + (ek * bm * _EC * 2 if emb else 0), 1024)
+    ve = _TN * _KC * a_ops + (a_chunk * a_ops if streamed else 0)
+    stage_bytes = _round_up(ve + (ek * _TN * _EC * 2 if emb else 0), 1024)
+    queues = stages_at + stages * stage_bytes
+    row_words = (2 * m + 4 * (qcap + 1)) | 1
+    bars = _round_up(queues + bm * row_words * 4, 8)
+    return bars + (2 * stages + 2) * 8 + 1024
+
+
+def select_plans(m: int, d: int, e: int, rev: bool):
+    """Every layout of stage1_select.cu that fits m winners a block,
+    operand width d, embedding width e (0 without) and rev, best first: a
+    ring of at least 3 stages, with the row operand resident, then
+    streamed; a 2-stage ring only after those (it left the consumers
+    waiting: profile_stage1.py plans, PERF.md). Within each, two consumer
+    warpgroups (without rev, 3+ stages) before one, the longest queues
+    (32, 16, 8 words) before more stages."""
+    if not (1 <= m <= _SELECT_M_MAX and 1 <= d <= _SELECT_KCH_MAX * _KC
+            and 0 <= e <= SELECT_MAX_E):
+        return
+    kch, ek = -(-d // _KC), -(-e // _EC)
+    for least, most in ((3, _SELECT_MAX_STAGES), (2, 2)):
+        for streamed in (False, True):
+            for ncw in (1,) if rev or least < 3 else (2, 1):
+                for qcap in (32, 16, 8):
+                    for stages in range(most, least - 1, -1):
+                        smem = select_layout_bytes(
+                            rev, e > 0, ncw, streamed, kch, ek, stages, m, qcap
+                        )
+                        if smem <= _SMEM_MAX:
+                            yield SelectPlan(ncw, stages, qcap, streamed, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def select_plan(m: int, d: int, e: int, rev: bool) -> SelectPlan | None:
+    """The layout stage1_select.cu takes for this shape (the first of
+    `select_plans`), or None where none fits."""
+    return next(select_plans(m, d, e, rev), None)
 
 
 def _nvcc() -> str:
@@ -172,17 +255,22 @@ def _bind(kernel: Kernel, lib: ctypes.CDLL) -> None:
             + [ctypes.c_void_p]
         )
     elif kernel is STAGE1_WGMMA or kernel is STAGE1_SELECT:
+        select = kernel is STAGE1_SELECT
         f = getattr(lib, f"{kernel.name}_launch")
         f.restype = ctypes.c_int
         f.argtypes = (
             # stage1_select_launch takes the int8 scratch of the four 0/1
-            # operands beside them.
-            [ctypes.c_void_p] * (15 if kernel is STAGE1_SELECT else 11)
+            # operands beside them, and its plan.
+            [ctypes.c_void_p] * (15 if select else 11)
             + [ctypes.c_int] * 8
             + [ctypes.c_float]
-            + [ctypes.c_int] * 2
+            + [ctypes.c_int] * (6 if select else 2)
             + [ctypes.c_void_p]
         )
+        if select:
+            g = lib.stage1_select_layout_bytes
+            g.restype = ctypes.c_int
+            g.argtypes = [ctypes.c_int] * 9
     elif kernel is LEX_RANKS:
         f = lib.lex_ranks_launch
         f.restype = ctypes.c_int
@@ -310,25 +398,49 @@ def int8_operand(x: torch.Tensor, width: int) -> torch.Tensor:
     return out
 
 
+def compiled_select_layout_bytes(
+    rev: bool, emb: bool, ncw: int, streamed: bool, kch: int, ek: int,
+    stages: int, m: int, qcap: int,
+) -> int:
+    """`select_layout_bytes` as the built stage1_select.cu counts it (-1
+    for a warpgroup count it has no instantiation of). Builds the kernel
+    on first use."""
+    return _load(STAGE1_SELECT).stage1_select_layout_bytes(
+        int(rev), int(emb), ncw, int(streamed), kch, ek, stages, m, qcap
+    )
+
+
 def _stage1_hopper(
-    kernel: Kernel, max_m: int, uq, vv, col_mix, col_gidx, row_mix, row_slot,
+    kernel: Kernel, uq, vv, col_mix, col_gidx, row_mix, row_slot,
     *, f_tot: float, m: int, bn: int, emb_scale: float, ue, ve, uv, vq,
+    plan: SelectPlan | None = None,
 ) -> torch.Tensor:
     """Launch one of the Hopper stage-1 kernels. stage1_wgmma.cu takes the
     0/1 operands as int8, converted here; stage1_select.cu takes them as
-    they are, with int8 scratch that its C call converts them into."""
+    they are, with int8 scratch that its C call converts them into, and
+    the plan it is to lay them out by (`select_plan`'s unless given)."""
     a_pad, n, d, rev, with_emb = _check_stage1(
         uq, vv, col_mix, col_gidx, row_mix, row_slot, ue, ve, uv, vq
     )
     e = ue.shape[1] if with_emb else 0
-    if (
-        not 1 <= m <= max_m or d > WGMMA_MAX_D or e > WGMMA_MAX_E
-        or bn % 128 or n % bn or d < 1
-    ):
+    if bn % 128 or n % bn or d < 1 or m < 1:
         raise ValueError(
-            f"{kernel.name} kernel needs 1 <= m <= {max_m}, "
-            f"1 <= D <= {WGMMA_MAX_D}, E <= {WGMMA_MAX_E}, bn % 128 == 0, "
-            f"n % bn == 0 (m={m}, D={d}, E={e}, bn={bn}, n={n})"
+            f"{kernel.name} kernel needs m >= 1, D >= 1, bn % 128 == 0, "
+            f"n % bn == 0 (m={m}, D={d}, bn={bn}, n={n})"
+        )
+    select = kernel is STAGE1_SELECT
+    if select:
+        plan = plan or select_plan(m, d, e, rev)
+        if plan is None:
+            raise ValueError(
+                f"stage1_select kernel has no shared-memory plan for m={m}, "
+                f"D={d}, E={e}, rev={rev} (E <= {SELECT_MAX_E}; m as far as "
+                "its kept lists fit)"
+            )
+    elif m > WGMMA_MAX_M or d > WGMMA_MAX_D or e > WGMMA_MAX_E:
+        raise ValueError(
+            f"stage1_wgmma kernel needs m <= {WGMMA_MAX_M}, D <= "
+            f"{WGMMA_MAX_D}, E <= {WGMMA_MAX_E} (m={m}, D={d}, E={e})"
         )
     dev = uq.device
     out = torch.empty((a_pad, (n // bn) * m), dtype=torch.int32, device=dev)
@@ -336,18 +448,20 @@ def _stage1_hopper(
         return out
     dp = _round16(d)
     ops = {}  # every operand the launch reads, held until it is enqueued
-    if kernel is STAGE1_SELECT:
+    if select:
         ops.update(uq=uq, vv=vv, uv=uv, vq=vq)
         rows = (a_pad, n, a_pad, n) if rev else (a_pad, n)
         scratch = torch.empty((sum(rows), dp), dtype=torch.int8, device=dev)
         for name, part in zip(("uq8", "vv8", "uv8", "vq8"), scratch.split(rows)):
             ops[name] = part
         names = ("uq", "vv", "uv", "vq", "uq8", "vv8", "uv8", "vq8")
+        tail = (plan.ncw, plan.stages, plan.qcap, int(plan.streamed))
     else:
         ops.update(uq=int8_operand(uq, dp), vv=int8_operand(vv, dp))
         if rev:
             ops["uv"], ops["vq"] = int8_operand(uv, dp), int8_operand(vq, dp)
         names = ("uq", "vv", "uv", "vq")
+        tail = ()
     ep = _round16(e)
     if with_emb:
         ops["ue"], ops["ve"] = _padded(ue, ep), _padded(ve, ep)
@@ -364,7 +478,7 @@ def _stage1_hopper(
             col_mix.data_ptr(), col_gidx.data_ptr(), row_mix.data_ptr(),
             row_slot.data_ptr(), out.data_ptr(),
             a_pad, n, dp, d, ep, bn, m, math.ceil(f_tot - 0.5), emb_scale,
-            int(rev), int(with_emb), stream,
+            int(rev), int(with_emb), *tail, stream,
         )
     if rc != 0:
         raise RuntimeError(f"{kernel.name} kernel launch failed: error {rc}")
@@ -384,28 +498,29 @@ def stage1_wgmma(
     D <= 1024, E <= 64, bn % 128 == 0, n % bn == 0, any row count, and
     col_gidx in [0, 2^18)."""
     return _stage1_hopper(
-        STAGE1_WGMMA, WGMMA_MAX_M, uq, vv, col_mix, col_gidx, row_mix,
-        row_slot, f_tot=f_tot, m=m, bn=bn, emb_scale=emb_scale, ue=ue, ve=ve,
-        uv=uv, vq=vq,
+        STAGE1_WGMMA, uq, vv, col_mix, col_gidx, row_mix, row_slot,
+        f_tot=f_tot, m=m, bn=bn, emb_scale=emb_scale, ue=ue, ve=ve, uv=uv,
+        vq=vq,
     )
 
 
 def stage1_select(
     uq, vv, col_mix, col_gidx, row_mix, row_slot, *,
     f_tot: float, m: int, bn: int, emb_scale: float,
-    ue=None, ve=None, uv=None, vq=None,
+    ue=None, ve=None, uv=None, vq=None, plan: SelectPlan | None = None,
 ) -> torch.Tensor:
-    """Launch the Hopper stage-1 kernel for many winners a block
-    (csrc/stage1_select.cu) on CUDA tensors. Same arguments and result as
-    `stage1`; the 0/1 operands are converted to int8 inside the call (one
-    host round trip), the embeddings zero-padded to a multiple of 16
-    columns. Takes 1 <= m <= 64 (the route sends it 8 < m <= 64),
-    D <= 1024, E <= 64, bn % 128 == 0, n % bn == 0, any row count, and
-    col_gidx in [0, 2^18)."""
+    """Launch the Hopper stage-1 kernel for the shapes stage1_wgmma.cu
+    does not take (csrc/stage1_select.cu) on CUDA tensors. Same arguments
+    and result as `stage1`; the 0/1 operands are converted to int8 inside
+    the call (one host round trip), the embeddings zero-padded to a
+    multiple of 16 columns. Takes any m, D and E <= 128 for which
+    `select_plan` finds a layout (raises ValueError where it finds none,
+    RuntimeError where a given `plan` does not fit), bn % 128 == 0,
+    n % bn == 0, any row count, and col_gidx in [0, 2^18)."""
     return _stage1_hopper(
-        STAGE1_SELECT, SELECT_MAX_M, uq, vv, col_mix, col_gidx, row_mix,
-        row_slot, f_tot=f_tot, m=m, bn=bn, emb_scale=emb_scale, ue=ue, ve=ve,
-        uv=uv, vq=vq,
+        STAGE1_SELECT, uq, vv, col_mix, col_gidx, row_mix, row_slot,
+        f_tot=f_tot, m=m, bn=bn, emb_scale=emb_scale, ue=ue, ve=ve, uv=uv,
+        vq=vq, plan=plan,
     )
 
 

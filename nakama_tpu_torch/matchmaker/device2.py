@@ -3,8 +3,10 @@
 Port of the JAX package's `matchmaker/device2.py` (reference hot loop
 replaced: server/matchmaker_process.go:27-334).
 
-Stage 1 (`stage1`, hand-written CUDA kernels: csrc/stage1_wgmma.cu for
-m <= 8 winners per block, csrc/stage1.cu for the rest): eligibility
+Stage 1 (`stage1`, hand-written CUDA kernels routed by `stage1_route`:
+csrc/stage1_wgmma.cu for m <= 8 winners per block at D <= 1024 and
+E <= 64, csrc/stage1_select.cu wherever it has a shared-memory plan,
+csrc/stage1.cu for the rest): eligibility
 as a matrix product. Every ticket's properties are encoded into a bucketed
 0/1 vector v (one-hot value buckets per numeric field from a per-field
 grid, hashed buckets per string field, a pool-id plane); every query into
@@ -206,22 +208,26 @@ def stage1_plain(
     return out
 
 
-def stage1_route(m: int, d: int, e: int = 0) -> kernels.Kernel:
+def stage1_route(m: int, d: int, e: int = 0, rev: bool = False) -> kernels.Kernel:
     """The CUDA kernel that takes a stage-1 call with m winners per block,
-    operand width d and embedding width e (0 without embeddings), where
-    d <= 1024 and e <= 64: csrc/stage1_wgmma.cu when m <= 8 — every call
-    of the main path at the default widths (D = 520, E = 16, and >= 32
-    selection blocks give m <= 4) and the wide configurations (k = 128
-    at >= 32 blocks, 48 numeric and up to 31 string fields, embeddings
-    up to 64 wide); csrc/stage1_select.cu when 8 < m <= 64 (k = 256 at
-    32 to 63 blocks, pools of few blocks below a lowered
-    big_pool_threshold, the self-check's m = 32). csrc/stage1.cu takes
-    the rest: d > 1024, e > 64 or m > 64."""
-    if d <= kernels.WGMMA_MAX_D and e <= kernels.WGMMA_MAX_E:
-        if m <= kernels.WGMMA_MAX_M:
-            return kernels.STAGE1_WGMMA
-        if m <= kernels.SELECT_MAX_M:
-            return kernels.STAGE1_SELECT
+    operand width d, embedding width e (0 without embeddings) and mutual
+    matching `rev`:
+    - csrc/stage1_wgmma.cu when m <= 8, d <= 1024 and e <= 64: every call
+      of the main path at the default widths (D = 520, E = 16, and >= 32
+      selection blocks give m <= 4) and k = 128 at >= 32 blocks;
+    - else csrc/stage1_select.cu wherever `kernels.select_plan` finds it a
+      shared-memory layout: e <= 128 and m up to 209 (rev with e = 128) to
+      369 (neither flag), at any d (the row operand resident up to d = 2944
+      without flags, streamed past it) — k = 256 at 32 to 63 blocks, pools
+      of few blocks below a lowered big_pool_threshold, the self-check's
+      m = 32, 48 numeric and 32 string fields (d = 1032);
+    - else csrc/stage1.cu: e > 128, or m above that fit (k = 256 on a
+      one-block pool gives m = 512)."""
+    if (m <= kernels.WGMMA_MAX_M and d <= kernels.WGMMA_MAX_D
+            and e <= kernels.WGMMA_MAX_E):
+        return kernels.STAGE1_WGMMA
+    if kernels.select_plan(m, d, e, rev) is not None:
+        return kernels.STAGE1_SELECT
     return kernels.STAGE1
 
 
@@ -231,16 +237,18 @@ def stage1(
     ue=None, ve=None, uv=None, vq=None,
 ):
     """Stage-1 prefilter: runs `stage1_plain` for CPU tensors; for CUDA
-    tensors launches the kernel `stage1_route` names (by shape: D <= 1024
-    and E <= 64 → the Hopper wgmma kernel at m <= 8, its selection
-    variant at 8 < m <= 64; else the first kernel), with no fallback.
+    tensors launches the kernel `stage1_route` names (the Hopper wgmma
+    kernel at m <= 8, D <= 1024 and E <= 64; its selection variant
+    wherever that has a plan; else the first kernel), with no fallback.
     Same contract as `stage1_plain`."""
     if uq.device.type == "cpu":
         return stage1_plain(
             uq, vv, col_mix, col_gidx, row_mix, row_slot, fn=fn, fs=fs,
             m=m, bn=bn, emb_scale=emb_scale, ue=ue, ve=ve, uv=uv, vq=vq,
         )
-    route = stage1_route(m, uq.shape[1], 0 if ue is None else ue.shape[1])
+    route = stage1_route(
+        m, uq.shape[1], 0 if ue is None else ue.shape[1], uv is not None
+    )
     # Each kernel's wrapper in `kernels` carries the kernel's name.
     return getattr(kernels, route.name)(
         uq, vv, col_mix, col_gidx, row_mix, row_slot,

@@ -93,24 +93,30 @@ def assert_winners_match(got, want, with_emb):
     return int((got != want).sum())
 
 
-def _hold_on_card(launch, cases, fn=24, fs=16, k=64, e=16, tight=0.5):
+def _hold_on_card(launch, cases, fn=24, fs=16, k=64, e=16, tight=0.5, m=None):
     """Each (n_blocks, bn, rows) case, every flag pair, through `launch`
-    against the plain version on the card. Returns the cases run."""
+    against the plain version on the card, at m = `m` or k's winners per
+    block (`m` may name one per flag pair: a dict by (with_emb, rev)).
+    Returns the cases run."""
     runs = 0
     for n_blocks, bn, rows in cases:
-        m = td2.winners_per_block(k, n_blocks)
         for with_emb in (False, True):
             for rev in (False, True):
+                if m is None:
+                    m_case = td2.winners_per_block(k, n_blocks)
+                else:
+                    m_case = m[with_emb, rev] if isinstance(m, dict) else m
                 inp = stage1_inputs(
                     n_blocks + 2 * with_emb + rev, n_blocks * bn, with_emb,
                     rev, rows=rows, fn=fn, fs=fs, e=e, tight=tight,
                 )
                 args = torch_args(inp, "cuda")
                 want = td2.stage1_plain(
-                    fn=fn, fs=fs, m=m, bn=bn, emb_scale=256.0, **args
+                    fn=fn, fs=fs, m=m_case, bn=bn, emb_scale=256.0, **args
                 )
                 got = launch(
-                    f_tot=float(fn + fs + 1), m=m, bn=bn, emb_scale=256.0, **args
+                    f_tot=float(fn + fs + 1), m=m_case, bn=bn, emb_scale=256.0,
+                    **args
                 )
                 torch.cuda.synchronize()
                 assert_winners_match(
@@ -144,8 +150,9 @@ def test_stage1_wgmma_kernel_matches_plain_on_card():
     that is not a multiple of its row tile; the wide route: m = 5 and 8
     at bn = 1024 (26 and 16 blocks), 32-wide embeddings, D = 776
     (fn = fs = 32: the half row tile) and D = 1008 with 64-wide
-    embeddings at m = 8 (fn = 48, fs = 29); m = 2k on one block goes to
-    the first kernel. Every flag pair; launch counts of each kernel."""
+    embeddings at m = 8 (fn = 48, fs = 29); m = 512 (k = 256 on one
+    block: no plan of the selection kernel fits) goes to the first
+    kernel. Every flag pair; launch counts of each kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from nakama_tpu_torch import kernels
@@ -164,7 +171,7 @@ def test_stage1_wgmma_kernel_matches_plain_on_card():
     runs += _hold_on_card(
         routed, [(16, 1024, 200)], fn=48, fs=29, e=64, tight=0.05
     )
-    runs_first = _hold_on_card(routed, [(1, 1024, 256)])
+    runs_first = _hold_on_card(routed, [(1, 1024, 256)], k=256)
     after = {k.name: k.launches for k in kernels.KERNELS}
     assert after["stage1_wgmma"] - before["stage1_wgmma"] == runs == 36
     assert after["stage1"] - before["stage1"] == runs_first == 4
@@ -174,12 +181,12 @@ def test_stage1_wgmma_kernel_matches_plain_on_card():
 def test_stage1_select_kernel_matches_plain_on_card():
     """The selection kernel (csrc/stage1_select.cu) against the plain
     version on the card, through the routing of device2.stage1, word for
-    word: m = 9, 11, 16, 32 and the limit (64) at k = 64, at bn = 256 and
-    1024, on row counts that are not a multiple of either row tile; m = 16
-    at D = 776 (fn = fs = 32), and the limit with every operand at its
-    widest (D = 1008, 64-wide embeddings: one 64-row warpgroup, two ring
-    stages under rev). Every flag pair; no launch of another kernel. The
-    wrapper raises above the limit and on CPU tensors."""
+    word: m = 9, 11, 16, 32 and 64 at k = 64, at bn = 256 and 1024, on row
+    counts that are not a multiple of either row tile; m = 16 at D = 776
+    (fn = fs = 32), and m = 64 at D = 1008 with 64-wide embeddings (one
+    64-row warpgroup; under rev the row operand streams). Every flag pair; no
+    launch of another kernel. The wrapper raises where no plan fits and
+    on CPU tensors."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from nakama_tpu_torch import kernels
@@ -203,12 +210,114 @@ def test_stage1_select_kernel_matches_plain_on_card():
     assert after["stage1_wgmma"] == before["stage1_wgmma"]
     args = torch_args(stage1_inputs(1, 2 * 1024, False, False), "cuda")
     kw = dict(f_tot=41.0, bn=1024, emb_scale=256.0)
-    with pytest.raises(ValueError, match="m <= 64"):
-        kernels.stage1_select(m=kernels.SELECT_MAX_M + 1, **kw, **args)
+    with pytest.raises(ValueError, match="no shared-memory plan"):
+        kernels.stage1_select(m=512, **kw, **args)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.stage1_select(
             m=16, **kw, **{k: v.cpu() for k, v in args.items()}
         )
+
+
+def _largest_m(d, e):
+    """The largest m that stage1_select has a plan for, by flag pair."""
+    from nakama_tpu_torch import kernels
+
+    return {
+        (with_emb, rev): max(
+            m for m in range(1, 1025)
+            if kernels.select_plan(m, d, e if with_emb else 0, rev)
+        )
+        for with_emb in (False, True) for rev in (False, True)
+    }
+
+
+@pytest.mark.cuda
+def test_stage1_select_takes_the_first_kernel_s_shapes_on_card():
+    """The shapes the selection kernel took over from csrc/stage1.cu,
+    through the routing of device2.stage1, word for word against the
+    plain version, every flag pair, on row counts that are not a multiple
+    of either row tile, at bn = 256 and 1024: D = 1032, 1544 and 2056
+    (rev streams the row operand past 1280); 80- and 128-wide embeddings
+    (5 and 8 k16 steps) at m = 16 and 32; m = 65, 128 and the largest m with a plan at
+    D = 520 (streamed). Launch counts of each kernel; the wrapper raises
+    where no plan fits (m = 512, E = 144); the C side counts the plan's
+    bytes as `kernels.select_layout_bytes` does, launches the plan at the
+    edge of the fit and refuses one stage more (ERR_SHAPE)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from nakama_tpu_torch import kernels
+
+    def routed_at(fn):
+        def routed(f_tot, **kw):
+            return td2.stage1(fn=fn, fs=int(f_tot) - fn - 1, **kw)
+        return routed
+
+    before = {k.name: k.launches for k in kernels.KERNELS}
+    runs = 0
+    streamed = 0
+    for fn, fs in ((48, 32), (64, 64), (112, 32)):
+        d = td2.encoding_dims(fn, fs)
+        streamed += kernels.select_plan(4, d, 16, True).streamed
+        runs += _hold_on_card(
+            routed_at(fn), [(32, 1024, 200), (8, 256, 130)], fn=fn, fs=fs,
+            tight=0.05,
+        )
+    assert streamed == 2  # rev at D = 1544 and 2056
+    routed = routed_at(24)
+    for e in (80, 128):  # m = 16 and 32: past stage1_wgmma without them too
+        runs += _hold_on_card(routed, [(8, 1024, 200), (4, 256, 70)], e=e)
+    fit = _largest_m(520, 16)
+    assert all(kernels.select_plan(m, 520, 16 * w, r).streamed
+               for (w, r), m in fit.items())
+    for m in (65, 128, fit):
+        runs += _hold_on_card(
+            routed, [(1, 1024, 200), (4, 256, 130)], m=m, tight=0.1
+        )
+    after = {k.name: k.launches for k in kernels.KERNELS}
+    assert after["stage1_select"] - before["stage1_select"] == runs == 64
+    assert after["stage1"] == before["stage1"]
+    assert after["stage1_wgmma"] == before["stage1_wgmma"]
+
+    args = torch_args(stage1_inputs(1, 1024, True, False, e=16), "cuda")
+    kw = dict(f_tot=41.0, bn=1024, emb_scale=256.0)
+    with pytest.raises(ValueError, match="no shared-memory plan"):
+        kernels.stage1_select(m=512, **kw, **args)
+    wide = dict(args, ue=torch.zeros((64, 144), dtype=torch.bfloat16, device="cuda"),
+                ve=torch.zeros((1024, 144), dtype=torch.bfloat16, device="cuda"))
+    with pytest.raises(ValueError, match="no shared-memory plan"):
+        kernels.stage1_select(m=4, **kw, **wide)
+    for rev in (False, True):
+        for emb in (False, True):
+            for kch, ek, m in ((5, 1, 16), (9, 8, 4), (13, 5, 65), (17, 0, 209)):
+                for ncw in (1,) if rev else (1, 2):
+                    for stream in (False, True):
+                        for st, qcap in ((2, 8), (5, 16), (8, 32)):
+                            layout = (rev, emb, ncw, stream, kch, ek if emb else 0,
+                                      st, m, qcap)
+                            assert kernels.compiled_select_layout_bytes(
+                                *layout) == kernels.select_layout_bytes(*layout)
+    # At the edge of the fit (no flags, D = 520: the largest m), the plan
+    # launches; a plan one ring stage deeper does not fit, and the C side
+    # refuses it before any work.
+    m = fit[False, False]
+    plan = kernels.select_plan(m, 520, 0, False)
+    assert plan.smem <= 232_448
+    deeper = kernels.SelectPlan(plan.ncw, plan.stages + 1, plan.qcap,
+                                plan.streamed, 0)
+    assert kernels.select_layout_bytes(
+        False, False, plan.ncw, plan.streamed, 5, 0, plan.stages + 1, m,
+        plan.qcap) > 232_448
+    args = torch_args(
+        stage1_inputs(2, 1024, False, False, fn=24, fs=16, tight=0.1), "cuda"
+    )
+    got = kernels.stage1_select(m=m, plan=plan, **kw, **args)
+    want = td2.stage1_plain(fn=24, fs=16, m=m, bn=1024, emb_scale=256.0, **args)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    n = kernels.STAGE1_SELECT.launches
+    with pytest.raises(RuntimeError, match="error 100002"):
+        kernels.stage1_select(m=m, plan=deeper, **kw, **args)
+    assert kernels.STAGE1_SELECT.launches == n
 
 
 @pytest.mark.cuda

@@ -63,8 +63,10 @@ def jax_stage1(inp, m, with_emb, rev, fn=FN, fs=FS):
 # m = ceil(2k / n_blocks): 1 at 16 blocks, 2 at 8 blocks, 2k at one block;
 # the Hopper kernel's wide route: m = 5 (k = 10 at 4 blocks), m = 8 (k = 8
 # at 2 blocks), 32-wide embeddings, D = 776 > 640 (fn = fs = 32); the
-# selection kernel's route (8 < m <= 64): m = 9 (k = 9 at 2 blocks), 16
-# (k = 32 at 4 blocks), 32 (k = 32 at 2 blocks), and 16 at D = 776.
+# selection kernel's route: m = 9 (k = 9 at 2 blocks), 16 (k = 32 at 4
+# blocks), 32 (k = 32 at 2 blocks), 16 at D = 776, and the shapes it took
+# over from the first kernel: D = 1032 (fn = 48, fs = 32), 80- and
+# 128-wide embeddings, m = 128 (k = 64 on one block).
 @pytest.mark.parametrize("n_blocks,m,k,e,fn,fs,tight", [
     pytest.param(16, 1, K, 16, FN, FS, 0.5, id="16-1"),
     pytest.param(8, 2, K, 16, FN, FS, 0.5, id="8-2"),
@@ -77,6 +79,10 @@ def jax_stage1(inp, m, with_emb, rev, fn=FN, fs=FS):
     pytest.param(4, 16, 32, 16, FN, FS, 0.5, id="4-16-k32"),
     pytest.param(2, 32, 32, 16, FN, FS, 0.5, id="2-32-k32"),
     pytest.param(2, 16, 16, 16, 32, 32, 0.1, id="2-16-k16-d776"),
+    pytest.param(2, 4, 4, 16, 48, 32, 0.05, id="2-4-k4-d1032"),
+    pytest.param(4, 16, 32, 80, FN, FS, 0.5, id="4-16-k32-e80"),
+    pytest.param(8, 2, K, 128, FN, FS, 0.5, id="8-2-e128"),
+    pytest.param(1, 128, 64, 16, FN, FS, 0.1, id="1-128-k64"),
 ])
 @pytest.mark.parametrize("with_emb", [False, True])
 @pytest.mark.parametrize("rev", [False, True])
@@ -150,35 +156,59 @@ def test_stage1_plain_on_int8_operands_gives_identical_words(with_emb, rev):
 
 
 def test_stage1_routes_m_up_to_4_to_the_hopper_kernel(monkeypatch):
-    """The rule (D <= 1024 and E <= 64: m <= 8 → stage1_wgmma.cu,
-    8 < m <= 64 → stage1_select.cu; else stage1.cu), and that
-    device2.stage1 launches what it names for a tensor off the CPU (meta
-    tensors: nothing runs)."""
-    limit = kernels.SELECT_MAX_M
-    assert limit >= 64
+    """The rule by plans: m <= 8, D <= 1024 and E <= 64 → stage1_wgmma.cu;
+    else wherever `kernels.select_plan` finds a layout → stage1_select.cu;
+    else stage1.cu. And that device2.stage1 launches what it names for a
+    tensor off the CPU (meta tensors: nothing runs)."""
+    flags = [(e, rev) for e in (0, 16) for rev in (False, True)]
     for m in range(1, 9):
-        assert td2.stage1_route(m, 520, 16) is kernels.STAGE1_WGMMA
-        assert td2.stage1_route(m, 520) is kernels.STAGE1_WGMMA
-        assert td2.stage1_route(m, 1024, 64) is kernels.STAGE1_WGMMA
-    for m in (9, 11, 16, 32, limit):
-        assert td2.stage1_route(m, 520, 16) is kernels.STAGE1_SELECT
-        assert td2.stage1_route(m, 520) is kernels.STAGE1_SELECT
-        assert td2.stage1_route(m, 1024, 64) is kernels.STAGE1_SELECT
-    for m in (limit + 1, 128):
-        assert td2.stage1_route(m, 520, 16) is kernels.STAGE1
-    assert td2.stage1_route(2, td2.encoding_dims(32, 32), 32) is (
-        kernels.STAGE1_WGMMA
+        for e, rev in flags + [(64, False), (64, True)]:
+            for d in (200, 520, 1024):
+                assert td2.stage1_route(m, d, e, rev) is kernels.STAGE1_WGMMA
+    # wide_fields' shape (48 numeric, 32 string fields: D = 1032, k = 64 at
+    # 32 blocks: m = 4) goes to the selection kernel, row operand resident,
+    # under every flag pair.
+    d1032 = td2.encoding_dims(48, 32)
+    assert (d1032, td2.winners_per_block(64, 32)) == (1032, 4)
+    for e, rev in flags:
+        assert td2.stage1_route(4, d1032, e, rev) is kernels.STAGE1_SELECT
+        assert not kernels.select_plan(4, d1032, e, rev).streamed
+    assert kernels.select_plan(4, d1032, 0, False) == kernels.SelectPlan(
+        ncw=2, stages=5, qcap=16, streamed=False, smem=228_960
     )
-    assert td2.stage1_route(8, td2.encoding_dims(48, 29), 64) is (
-        kernels.STAGE1_WGMMA
-    )
-    assert td2.stage1_route(16, td2.encoding_dims(48, 29), 64) is (
-        kernels.STAGE1_SELECT
-    )
-    for m in (2, 16):
-        assert td2.stage1_route(m, 1025) is kernels.STAGE1
-        assert td2.stage1_route(m, td2.encoding_dims(48, 32)) is kernels.STAGE1
-        assert td2.stage1_route(m, 520, 80) is kernels.STAGE1
+    # Rev at D = 1544 and 2056 streams the row operand; without rev it
+    # stays resident (beside a ring of 3 stages) to D = 2944.
+    for d in (1544, 2056):
+        assert kernels.select_plan(4, d, 0, True).streamed
+        assert not kernels.select_plan(4, d, 0, False).streamed
+    assert not kernels.select_plan(4, 2944, 0, False).streamed
+    assert kernels.select_plan(4, 2945, 0, False).streamed
+    # E <= 128 for every D and m up to the planned fit; E = 144 and m = 512
+    # (k = 256 on one block) have no plan and stay on stage1.cu.
+    fit = {}
+    for e in (0, 16, 64, 80, 128):
+        for rev in (False, True):
+            fit[e, rev] = max(
+                m for m in range(1, 1025) if kernels.select_plan(m, 520, e, rev)
+            )
+            for d in (9, 520, 1032, 1544, 2056, 4104, 65_536):
+                for m in (9, 16, 65, 128, fit[e, rev]):
+                    want = (kernels.STAGE1_WGMMA if m <= 8 and d <= 1024
+                            and e <= 64 else kernels.STAGE1_SELECT)
+                    assert td2.stage1_route(m, d, e, rev) is want, (m, d, e, rev)
+                # Past D = 256 the streamed layout is the smaller, so the
+                # fit no longer depends on D; one chunk leaves room for more.
+                beyond = td2.stage1_route(fit[e, rev] + 1, d, e, rev)
+                assert beyond is (kernels.STAGE1 if d >= 520 else
+                                  kernels.STAGE1_SELECT), (d, e, rev)
+            assert td2.stage1_route(4, 520, e + 144, rev) is kernels.STAGE1
+    assert fit[0, False] == 369 and fit[128, True] == 209
+    assert min(fit.values()) > 128
+    for e, rev in flags:
+        assert td2.stage1_route(512, 520, e, rev) is kernels.STAGE1
+        assert td2.stage1_route(td2.winners_per_block(256, 1), 520, e, rev) is (
+            kernels.STAGE1
+        )
     # Main path at the default widths: >= 32 selection blocks of 1024;
     # k = 128 there gives m = 8, still the wgmma kernel; k = 256 gives
     # m = 16 at 32 blocks and m = 9 at 63, the selection kernel.
@@ -206,16 +236,95 @@ def test_stage1_routes_m_up_to_4_to_the_hopper_kernel(monkeypatch):
         )
     inp = torch_args(stage1_inputs(2, 4 * BN, False, False))
     meta = {k: torch.empty_like(v, device="meta") for k, v in inp.items()}
-    for m in (2, 4, 5, 8, 9, 32, limit, limit + 1):
+    for m in (2, 4, 5, 8, 9, 32, 64, 65, 369, 370):
         td2.stage1(fn=FN, fs=FS, m=m, bn=BN, emb_scale=256.0, **meta)
     assert called == (
-        ["stage1_wgmma"] * 4 + ["stage1_select"] * 3 + ["stage1"]
+        ["stage1_wgmma"] * 4 + ["stage1_select"] * 5 + ["stage1"]
     )
-    inp = torch_args(stage1_inputs(3, 4 * BN, True, False, e=64))
+    inp = torch_args(stage1_inputs(3, 4 * BN, True, True, e=128))
     meta = {k: torch.empty_like(v, device="meta") for k, v in inp.items()}
-    td2.stage1(fn=FN, fs=FS, m=8, bn=BN, emb_scale=256.0, **meta)
-    td2.stage1(fn=FN, fs=FS, m=16, bn=BN, emb_scale=256.0, **meta)
-    assert called[-2:] == ["stage1_wgmma", "stage1_select"]
+    for m in (8, 209, 210):  # E = 128 under rev: the narrowest fit
+        td2.stage1(fn=FN, fs=FS, m=m, bn=BN, emb_scale=256.0, **meta)
+    assert called[-3:] == ["stage1_select", "stage1_select", "stage1"]
+    inp = torch_args(stage1_inputs(3, 4 * BN, True, False, fn=48, fs=32, e=64))
+    meta = {k: torch.empty_like(v, device="meta") for k, v in inp.items()}
+    td2.stage1(fn=48, fs=32, m=4, bn=BN, emb_scale=256.0, **meta)
+    assert called[-1] == "stage1_select"
+
+
+def _sel_layout_total(rev, emb, ncw, stream, kch, ek, n_stages, m, qcap):
+    """csrc/stage1_select.cu's `sel_layout(...).total`, line for line."""
+    def round_up(x, to):
+        return (x + to - 1) // to * to
+
+    bm = ncw * 64
+    a_chunk = bm * 128
+    a_ops = 2 if rev else 1
+    ue = 0 if stream else kch * a_chunk * a_ops
+    stages = round_up(ue + (ek * bm * 16 * 2 if emb else 0), 1024)
+    sa = 64 * 128 * a_ops
+    ve = sa + (a_chunk * a_ops if stream else 0)
+    stage_bytes = round_up(ve + (ek * 64 * 16 * 2 if emb else 0), 1024)
+    queues = stages + n_stages * stage_bytes
+    bars = round_up(queues + bm * ((2 * m + 4 * (qcap + 1)) | 1) * 4, 8)
+    return bars + (2 * n_stages + 2) * 8 + 1024
+
+
+def test_select_plan_bytes_follow_the_kernel_layout():
+    """The plan's byte count equals stage1_select.cu's layout arithmetic
+    on a grid of shapes and plans, and `select_plans` lists every plan
+    that fits, and `select_plan` takes the first, in the search order (rings of 3+ stages before 2; resident before
+    streamed; two consumer warpgroups, without rev and 3+ stages only,
+    before one; longer queues, then more stages)."""
+    smem = 232_448
+    for rev in (False, True):
+        for e in (0, 16, 64, 80, 128):
+            ek = -(-e // 16)
+            for d in (200, 520, 1032, 1544, 2056, 3080):
+                kch = -(-d // 128)
+                for m in (1, 4, 16, 64, 65, 128, 209, 257, 369):
+                    for ncw in (1,) if rev else (1, 2):
+                        for stream in (False, True):
+                            for st, qcap in ((2, 8), (5, 16), (8, 32)):
+                                want = _sel_layout_total(
+                                    rev, e > 0, ncw, stream, kch, ek, st, m, qcap
+                                )
+                                assert kernels.select_layout_bytes(
+                                    rev, e > 0, ncw, stream, kch, ek, st, m, qcap
+                                ) == want
+                    plan = kernels.select_plan(m, d, e, rev)
+                    order = [
+                        (stream, ncw, qcap, st)
+                        for stages in (range(8, 2, -1), [2])
+                        for stream in (False, True)
+                        for ncw in ((1,) if rev or stages == [2] else (2, 1))
+                        for qcap in (32, 16, 8)
+                        for st in stages
+                    ]
+                    fits = [
+                        o for o in order
+                        if _sel_layout_total(rev, e > 0, o[1], o[0], kch, ek,
+                                             o[3], m, o[2]) <= smem
+                    ]
+                    assert [
+                        (p.streamed, p.ncw, p.qcap, p.stages)
+                        for p in kernels.select_plans(m, d, e, rev)
+                    ] == fits, (m, d, e, rev)
+                    if not fits:
+                        assert plan is None, (m, d, e, rev)
+                        continue
+                    stream, ncw, qcap, st = fits[0]
+                    assert plan == kernels.SelectPlan(
+                        ncw, st, qcap, stream,
+                        _sel_layout_total(rev, e > 0, ncw, stream, kch, ek,
+                                          st, m, qcap),
+                    ), (m, d, e, rev)
+    # Limits outside shared memory: E > 128, m < 1, and the bounds that
+    # keep the C side's int arithmetic exact.
+    assert kernels.select_plan(4, 520, 144, False) is None
+    assert kernels.select_plan(0, 520, 0, False) is None
+    assert kernels.select_plan(4, 4096 * 128 + 1, 0, False) is None
+    assert kernels.select_plan(4, 4096 * 128, 0, False).streamed
 
 
 def test_mix_matches_jax_int32_wraparound():
