@@ -1,27 +1,25 @@
 """HTTP request/response API + the /ws socket on one port.
 
-Parity with the reference ApiServer (reference server/api.go:87-226) for
-the slices of the port so far: the JAX package's `api/http.py` routes
-`/`, `/healthcheck` and `/v2/healthcheck`, `/ws`, the device, email and
-custom `/v2/account/authenticate/*` routes (server-key Basic auth),
-`/v2/account/session/refresh` and `/v2/session/logout`, the account,
-user and device/email/custom link and unlink routes, storage, friends
-(without the social imports), groups, notifications, channel history,
-`/v2/match`, the leaderboard and tournament record routes, and
-`/v2/rpc/{id}` (GET and POST) and `/v2/event` into the runtime, behind
-the same overload middleware (admission classes, exempt paths, 429 +
-Retry-After, 504, the `traceparent` echo) and with the same error
-bodies (`{"error", "message", "code"}`) and status codes (`_map_error`).
-The JAX server's other routes (social authenticate, link and unlink,
-the Facebook and Steam friend imports and IAP) answer as its
-`_h_unimplemented` does (501) until their slices land
-(`_LATER_ROUTES`); a path it does not route is 404, a method it does not
+Parity with the reference ApiServer (reference server/api.go:87-226):
+the JAX package's `api/http.py` routes `/`, `/healthcheck` and
+`/v2/healthcheck`, `/ws`, the nine `/v2/account/authenticate/*`
+providers (server-key Basic auth; the six social ones verified by the
+server's social client), `/v2/account/session/refresh` and
+`/v2/session/logout`, the account, user, link and unlink routes,
+storage, friends with the Facebook and Steam imports, groups,
+notifications, channel history, `/v2/match`, the leaderboard and
+tournament record routes, the IAP purchase and subscription routes
+(`Purchases`), and `/v2/rpc/{id}` (GET and POST) and `/v2/event` into
+the runtime, behind the same overload middleware (admission classes,
+exempt paths, 429 + Retry-After, 504, the `traceparent` echo) and with
+the same error bodies (`{"error", "message", "code"}`) and status codes
+(`_map_error`); a path it does not route is 404, a method it does not
 route on a known path 405. The runtime's before- and after-request
-hooks run where the JAX server runs them (`_hooked`, `_after`): device,
-email and custom authenticate, `updateaccount`, `readstorageobjects`,
-`writestorageobjects`, `addfriends`, `creategroup` and
-`writeleaderboardrecord`; with no hook registered a request passes
-through unchanged.
+hooks run where the JAX server runs them (`_hooked`, `_after`): every
+authenticate, `updateaccount`, `readstorageobjects`,
+`writestorageobjects`, `addfriends`, `importfacebookfriends`,
+`importsteamfriends`, `creategroup` and `writeleaderboardrecord`; with
+no hook registered a request passes through unchanged.
 
 It runs over `wsproto` (the port's standard-library HTTP/1.1 and
 WebSocket transport), not `aiohttp`. The metrics listener serves the
@@ -60,8 +58,10 @@ from ..core.storage import (
     StorageVersionError,
 )
 from ..core.wallet import WalletError
+from ..iap import IAPError
 from ..leaderboard import LeaderboardError
 from ..realtime import StreamMode
+from ..social.client import SocialError
 from . import session_token
 from .wsproto import HttpRequest, HttpResponse, HttpServer, json_response
 
@@ -82,27 +82,9 @@ _AUTH_CODE_TO_HTTP = {
     "permission_denied": (403, GRPC_PERMISSION_DENIED),
 }
 
-_SOCIAL_PROVIDERS = (
-    "apple", "facebook", "facebookinstantgame", "gamecenter", "google",
-    "steam",
-)
-
-# The JAX package's routes that later slices port (method, path
-# pattern): each answers 501 here. Social authenticate, link and unlink
-# and the friend imports wait for `social/`, the IAP routes for `iap/`
-# (ROADMAP.md §A).
-_LATER_ROUTES = (
-    [("POST", f"/v2/account/authenticate/{p}") for p in _SOCIAL_PROVIDERS]
-    + [("POST", f"/v2/account/{kind}/{p}")
-       for kind in ("link", "unlink") for p in _SOCIAL_PROVIDERS]
-    + [
-        ("POST", "/v2/friend/facebook"), ("POST", "/v2/friend/steam"),
-        ("POST", "/v2/iap/purchase/apple"), ("POST", "/v2/iap/purchase/google"),
-        ("POST", "/v2/iap/purchase/huawei"), ("GET", "/v2/iap/subscription"),
-        ("POST", "/v2/iap/subscription/apple"),
-        ("POST", "/v2/iap/subscription/google"),
-        ("GET", "/v2/iap/subscription/{original_transaction_id}"),
-    ]
+_PROVIDERS = (
+    "device", "email", "custom", "apple", "facebook", "facebookinstantgame",
+    "gamecenter", "google", "steam",
 )
 
 
@@ -170,7 +152,7 @@ class ApiServer:
             ("POST", "/v2/account/session/refresh", self._h_session_refresh),
             ("POST", "/v2/session/logout", self._h_session_logout),
         ]
-        for provider in ("device", "email", "custom"):
+        for provider in _PROVIDERS:
             routes += [
                 ("POST", f"/v2/account/authenticate/{provider}",
                  self._make_authenticate(provider)),
@@ -208,6 +190,8 @@ class ApiServer:
             ("POST", "/v2/friend", self._h_friend_add),
             ("DELETE", "/v2/friend", self._h_friend_delete),
             ("POST", "/v2/friend/block", self._h_friend_block),
+            ("POST", "/v2/friend/facebook", self._h_friend_import_facebook),
+            ("POST", "/v2/friend/steam", self._h_friend_import_steam),
             ("GET", "/v2/group", self._h_group_list),
             ("POST", "/v2/group", self._h_group_create),
             ("PUT", "/v2/group/{group_id}", self._h_group_update),
@@ -228,7 +212,18 @@ class ApiServer:
             ("GET", "/v2/rpc/{id}", self._h_rpc),
             ("POST", "/v2/event", self._h_event),
         ]
-        routes += [(m, p, self._h_unimplemented) for m, p in _LATER_ROUTES]
+        routes += [
+            ("POST", f"/v2/iap/purchase/{store}", self._make_iap_validate(store))
+            for store in ("apple", "google", "huawei")
+        ]
+        routes.append(("GET", "/v2/iap/subscription", self._h_subscription_list))
+        routes += [
+            ("POST", f"/v2/iap/subscription/{store}",
+             self._make_subscription_validate(store))
+            for store in ("apple", "google")
+        ]
+        routes.append(("GET", "/v2/iap/subscription/{original_transaction_id}",
+                       self._h_subscription_get))
         # (method, path template) of every route: the console's endpoint
         # list.
         self.routes = [(m, p) for m, p, _ in routes]
@@ -568,11 +563,6 @@ class ApiServer:
             return _error_response(str(e), 500, GRPC_INTERNAL)
         return json_response({})
 
-    async def _h_unimplemented(self, request):
-        return _error_response(
-            "not yet implemented", 501, GRPC_UNIMPLEMENTED
-        )
-
     async def _h_ws(self, request: HttpRequest):
         sc = self.config.socket
         ws = await request.accept_websocket(
@@ -616,11 +606,15 @@ class ApiServer:
                             create,
                         )
                     )
-                else:
+                elif provider == "custom":
                     user_id, uname, created = (
                         await core_auth.authenticate_custom(
                             db, account.get("id", ""), username, create
                         )
+                    )
+                else:
+                    user_id, uname, created = await self._social_auth(
+                        provider, account, username, create
                     )
                 result = {
                     "created": created,
@@ -634,6 +628,66 @@ class ApiServer:
                 return self._map_error(e)
 
         return handler
+
+    async def _social_auth(self, provider, account, username, create):
+        """Per-provider dispatch into the social authenticate cores
+        (each has its own credential shape — reference api_authenticate.go
+        handlers)."""
+        social = self.server.social
+        if social is None:
+            raise ApiError(
+                f"{provider} authentication not configured",
+                501,
+                GRPC_UNIMPLEMENTED,
+            )
+        db = self.server.db
+        sc = self.config.social
+        token = account.get("token", "")
+        if provider == "facebook":
+            return await core_auth.authenticate_facebook(
+                db, social, token, username, create
+            )
+        if provider == "facebookinstantgame":
+            return await core_auth.authenticate_facebook_instant(
+                db,
+                social,
+                sc.facebook_instant_app_secret,
+                account.get("signed_player_info", ""),
+                username,
+                create,
+            )
+        if provider == "google":
+            return await core_auth.authenticate_google(
+                db, social, token, username, create
+            )
+        if provider == "apple":
+            return await core_auth.authenticate_apple(
+                db, social, sc.apple_bundle_id, token, username, create
+            )
+        if provider == "steam":
+            return await core_auth.authenticate_steam(
+                db,
+                social,
+                sc.steam_app_id,
+                sc.steam_publisher_key,
+                token,
+                username,
+                create,
+            )
+        if provider == "gamecenter":
+            return await core_auth.authenticate_gamecenter(
+                db,
+                social,
+                account.get("player_id", ""),
+                account.get("bundle_id", ""),
+                int(account.get("timestamp_seconds", 0)),
+                account.get("salt", ""),
+                account.get("signature", ""),
+                account.get("public_key_url", ""),
+                username,
+                create,
+            )
+        raise ApiError("unknown provider", 400, GRPC_INVALID_ARGUMENT)
 
     async def _h_session_refresh(self, request: HttpRequest):
         try:
@@ -750,8 +804,9 @@ class ApiServer:
     # ------------------------------------------------------- link/unlink
 
     def _make_link(self, provider: str, linking: bool):
-        """Device, email and custom (reference api_link.go); the social
-        providers answer 501 (`_LATER_ROUTES`)."""
+        """Reference api_link.go: device, email and custom; the social
+        providers verify with the server's social client to link and
+        clear their column to unlink."""
         async def handler(request: HttpRequest):
             try:
                 claims = self._session(request)
@@ -775,15 +830,80 @@ class ApiServer:
                         )
                     else:
                         await core_link.unlink_email(db, uid)
-                elif linking:
-                    await core_link.link_custom(db, uid, body.get("id", ""))
+                elif provider == "custom":
+                    if linking:
+                        await core_link.link_custom(db, uid, body.get("id", ""))
+                    else:
+                        await core_link.unlink_custom(db, uid)
+                elif not linking:
+                    core_name = (
+                        "facebook_instant"
+                        if provider == "facebookinstantgame"
+                        else provider
+                    )
+                    fn = getattr(core_link, f"unlink_{core_name}", None)
+                    if fn is None:
+                        raise ApiError(
+                            f"{provider} unlink not available",
+                            501,
+                            GRPC_UNIMPLEMENTED,
+                        )
+                    await fn(db, uid)
                 else:
-                    await core_link.unlink_custom(db, uid)
+                    await self._social_link(provider, uid, body)
                 return json_response({})
             except Exception as e:
                 return self._map_error(e)
 
         return handler
+
+    async def _social_link(self, provider: str, uid: str, body: dict):
+        """Per-provider social link dispatch (reference api_link.go)."""
+        social = self.server.social
+        if social is None:
+            raise ApiError(
+                f"{provider} linking not configured", 501, GRPC_UNIMPLEMENTED
+            )
+        db = self.server.db
+        sc = self.config.social
+        token = body.get("token", "")
+        if provider == "facebook":
+            await core_link.link_facebook(db, social, uid, token)
+        elif provider == "facebookinstantgame":
+            await core_link.link_facebook_instant(
+                db,
+                social,
+                uid,
+                sc.facebook_instant_app_secret,
+                body.get("signed_player_info", ""),
+            )
+        elif provider == "google":
+            await core_link.link_google(db, social, uid, token)
+        elif provider == "apple":
+            await core_link.link_apple(
+                db, social, uid, sc.apple_bundle_id, token
+            )
+        elif provider == "steam":
+            await core_link.link_steam(
+                db, social, uid, sc.steam_app_id, sc.steam_publisher_key,
+                token,
+            )
+        elif provider == "gamecenter":
+            await core_link.link_gamecenter(
+                db,
+                social,
+                uid,
+                body.get("player_id", ""),
+                body.get("bundle_id", ""),
+                int(body.get("timestamp_seconds", 0)),
+                body.get("salt", ""),
+                body.get("signature", ""),
+                body.get("public_key_url", ""),
+            )
+        else:
+            raise ApiError(
+                f"{provider} linking not available", 501, GRPC_UNIMPLEMENTED
+            )
 
     # ------------------------------------------------------------ storage
 
@@ -890,6 +1010,93 @@ class ApiServer:
         except Exception as e:
             return self._map_error(e)
 
+    # ---------------------------------------------------------------- iap
+
+    def _make_iap_validate(self, store: str):
+        async def handler(request: HttpRequest):
+            try:
+                claims = self._session(request)
+                body = await self._json(request)
+                receipt = body.get("receipt", body.get("purchase", ""))
+                if not receipt:
+                    raise ApiError(
+                        "receipt required", 400, GRPC_INVALID_ARGUMENT
+                    )
+                fn = getattr(self.server.purchases, f"validate_{store}")
+                try:
+                    validated = await fn(
+                        claims.user_id,
+                        receipt,
+                        persist=_parse_bool(body.get("persist", True)),
+                    )
+                except IAPError as e:
+                    raise ApiError(str(e), 400, GRPC_INVALID_ARGUMENT)
+                return json_response({"validated_purchases": validated})
+            except Exception as e:
+                return self._map_error(e)
+
+        return handler
+
+    def _make_subscription_validate(self, store: str):
+        """ValidateSubscriptionApple/Google (reference apigrpc.proto:678,
+        :694; iap.go:625-646)."""
+
+        async def handler(request: HttpRequest):
+            try:
+                claims = self._session(request)
+                body = await self._json(request)
+                receipt = body.get("receipt", "")
+                if not receipt:
+                    raise ApiError(
+                        "receipt required", 400, GRPC_INVALID_ARGUMENT
+                    )
+                fn = getattr(
+                    self.server.purchases,
+                    f"validate_subscription_{store}",
+                )
+                try:
+                    sub = await fn(
+                        claims.user_id,
+                        receipt,
+                        persist=_parse_bool(body.get("persist", True)),
+                    )
+                except IAPError as e:
+                    raise ApiError(str(e), 400, GRPC_INVALID_ARGUMENT)
+                return json_response({"validated_subscription": sub})
+            except Exception as e:
+                return self._map_error(e)
+
+        return handler
+
+    async def _h_subscription_get(self, request: HttpRequest):
+        """GetSubscription (reference apigrpc.proto:344): by original
+        transaction id, owner-gated."""
+        try:
+            claims = self._session(request)
+            sub = await self.server.purchases.get_subscription(
+                self._id(request, 3)
+            )
+            if sub is None or sub.get("user_id") != claims.user_id:
+                raise ApiError(
+                    "subscription not found", 404, GRPC_NOT_FOUND
+                )
+            return json_response(sub)
+        except Exception as e:
+            return self._map_error(e)
+
+    async def _h_subscription_list(self, request: HttpRequest):
+        try:
+            claims = self._session(request)
+            q = request.query
+            result = await self.server.purchases.list_subscriptions(
+                claims.user_id,
+                limit=_limit(q),
+                cursor=q.get("cursor", ""),
+            )
+            return json_response(result)
+        except Exception as e:
+            return self._map_error(e)
+
     # ------------------------------------------------------ notifications
 
     async def _h_notification_list(self, request: HttpRequest):
@@ -928,6 +1135,82 @@ class ApiServer:
             )
             ids.extend(u["id"] for u in users)
         return ids
+
+    async def _h_friend_import_facebook(self, request: HttpRequest):
+        """ImportFacebookFriends (reference apigrpc.proto:354): verify the
+        Graph token, fetch its app-friend list, import as direct mutual
+        friends."""
+        try:
+            claims = self._session(request)
+            body = await self._json(request)
+            body = await self._hooked(
+                "importfacebookfriends", claims, body
+            )
+            social = self.server.social
+            if social is None:
+                raise ApiError(
+                    "facebook not configured", 501, GRPC_UNIMPLEMENTED
+                )
+            account = body.get("account", body)
+            token = account.get("token", "")
+            await social.verify_facebook(token)  # token must be live
+            friend_ids = await social.fetch_facebook_friends(token)
+            imported = await self.server.friends.import_by_provider_ids(
+                claims.user_id,
+                claims.username,
+                "facebook_id",
+                friend_ids,
+                reset=_parse_bool(
+                    request.query.get("reset", body.get("reset", False))
+                ),
+            )
+            result = {"imported": imported}
+            await self._after(
+                "importfacebookfriends", claims, body, result
+            )
+            return json_response(result)
+        except Exception as e:
+            return self._map_error(e)
+
+    async def _h_friend_import_steam(self, request: HttpRequest):
+        """ImportSteamFriends (reference apigrpc.proto:362): resolve the
+        caller's linked steam id, fetch the Steam friend list with the
+        publisher key, import as direct mutual friends."""
+        try:
+            claims = self._session(request)
+            body = await self._json(request)
+            body = await self._hooked("importsteamfriends", claims, body)
+            social = self.server.social
+            if social is None:
+                raise ApiError(
+                    "steam not configured", 501, GRPC_UNIMPLEMENTED
+                )
+            row = await self.server.db.fetch_one(
+                "SELECT steam_id FROM users WHERE id = ?",
+                (claims.user_id,),
+            )
+            steam_id = (row or {}).get("steam_id") or ""
+            if not steam_id:
+                raise ApiError(
+                    "no steam account linked", 400, GRPC_INVALID_ARGUMENT
+                )
+            friend_ids = await social.fetch_steam_friends(
+                self.config.social.steam_publisher_key, steam_id
+            )
+            imported = await self.server.friends.import_by_provider_ids(
+                claims.user_id,
+                claims.username,
+                "steam_id",
+                friend_ids,
+                reset=_parse_bool(
+                    request.query.get("reset", body.get("reset", False))
+                ),
+            )
+            result = {"imported": imported}
+            await self._after("importsteamfriends", claims, body, result)
+            return json_response(result)
+        except Exception as e:
+            return self._map_error(e)
 
     async def _h_friend_list(self, request: HttpRequest):
         try:
@@ -1381,6 +1664,10 @@ class ApiServer:
                 str(e), 429, GRPC_RESOURCE_EXHAUSTED,
                 headers={"Retry-After": str(int(e.retry_after_sec))},
             )
+        if isinstance(e, SocialError):
+            # Failed provider verification = unauthenticated (the auth
+            # path maps it via core_auth._verify; link paths raise raw).
+            return _error_response(str(e), 401, GRPC_UNAUTHENTICATED)
         if isinstance(
             e,
             (AuthError, ChannelError, FriendError, GroupError,

@@ -6,8 +6,8 @@ section for section (reference server/config.go:35-1073), for the
 sections the port serves so far: the server's own fields (`name`,
 `data_dir`, `shutdown_grace_sec`), `logger`, `metrics`, `session`,
 `socket`, `database`, `matchmaker`, `match`, `tracker`, `runtime`,
-`console`, `leaderboard`, `overload`, `tracing`, `recovery` and
-`devobs`. The matchmaker section drops the mesh-sharding
+`console`, `leaderboard`, `iap`, `social`, `satori`, `overload`,
+`tracing`, `recovery` and `devobs`. The matchmaker section drops the mesh-sharding
 knobs (the port runs on one card); `socket` has no `grpc_port` and
 `database` no `group_commit` (the port has neither path), and fields no
 port code reads yet are left out until the code that reads them lands
@@ -17,7 +17,7 @@ port code reads yet are left out until the code that reads them lands
 `conn_max_lifetime_ms`), and `leaderboard` drops
 `device_read_budget_ms` (the port's rank engine reads a board on the
 card whatever a request's deadline has left). A section the
-port does not have yet (`cluster`, `iap`, `social`, ...) is an
+port does not have yet (`cluster`, `parallel`, ...) is an
 unknown key to `load_config`, as a typo is. `--config file.yml` imports
 PyYAML only when a file is given; flags alone need nothing outside the
 standard library. `apply_observability` hands the tracing and devobs
@@ -159,6 +159,34 @@ class LeaderboardConfig:
     device_flush_interval_sec: float = 2.0
     device_breaker_threshold: int = 3
     device_breaker_cooldown_ms: int = 30_000
+
+
+@dataclass
+class IAPConfig:
+    apple_shared_password: str = ""
+    google_client_email: str = ""
+    google_private_key: str = ""
+    google_package_name: str = ""
+    google_refund_poll_sec: int = 900
+    huawei_client_id: str = ""
+    huawei_client_secret: str = ""
+    huawei_public_key: str = ""
+
+
+@dataclass
+class SatoriConfig:
+    url: str = ""
+    api_key_name: str = ""
+    api_key: str = ""
+    signing_key: str = ""
+
+
+@dataclass
+class SocialConfig:
+    steam_app_id: int = 0
+    steam_publisher_key: str = ""
+    facebook_instant_app_secret: str = ""
+    apple_bundle_id: str = ""
 
 
 @dataclass
@@ -373,6 +401,9 @@ class Config:
     runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
     console: ConsoleConfig = field(default_factory=ConsoleConfig)
     leaderboard: LeaderboardConfig = field(default_factory=LeaderboardConfig)
+    iap: IAPConfig = field(default_factory=IAPConfig)
+    social: SocialConfig = field(default_factory=SocialConfig)
+    satori: SatoriConfig = field(default_factory=SatoriConfig)
     overload: OverloadConfig = field(default_factory=OverloadConfig)
     tracing: TracingConfig = field(default_factory=TracingConfig)
     recovery: RecoveryConfig = field(default_factory=RecoveryConfig)

@@ -20,10 +20,9 @@ route with the same status codes and bodies, served on the port's own
 `wsproto` HttpServer instead of `aiohttp`. The device view lists the
 `torch` devices (`devobs.describe_devices`, no mesh: the port runs on
 one card) and the capture is a `torch.profiler` trace
-(`Tracing.device_trace`). Routes whose components the port has not
-ported yet answer as follows: purchases and subscriptions (`iap/`)
-501; cluster, fleet and soak `{"enabled": false}`, as the JAX console
-answers with no cluster or soak engine, and the reshard POST its 400.
+(`Tracing.device_trace`). The port has no cluster, fleet or soak engine
+yet: those routes answer `{"enabled": false}`, as the JAX console
+answers with none, and the reshard POST its 400.
 The metrics listener stays on the API server (`api/http.py`).
 """
 
@@ -183,7 +182,7 @@ class ConsoleServer:
              self._h_leaderboard_record_delete),
             ("GET", "/v2/console/group", self._h_group_list),
             ("GET", "/v2/console/group/{id}/member", self._h_group_members),
-            ("GET", "/v2/console/purchase", self._h_later),
+            ("GET", "/v2/console/purchase", self._h_purchase_list),
             ("GET", "/v2/console/user", self._h_console_user_list),
             ("POST", "/v2/console/user", self._h_console_user_create),
             ("DELETE", "/v2/console/user/{username}",
@@ -209,7 +208,7 @@ class ConsoleServer:
             ("GET", "/v2/console/storage/collections", self._h_collections),
             ("DELETE", "/v2/console/storage", self._h_storage_delete_all),
             ("DELETE", "/v2/console/message", self._h_messages_delete),
-            ("GET", "/v2/console/subscription", self._h_later),
+            ("GET", "/v2/console/subscription", self._h_subscription_list),
             ("GET", "/v2/console/group/{id}", self._h_group_get),
             ("POST", "/v2/console/group/{id}", self._h_group_update),
             ("DELETE", "/v2/console/group/{id}", self._h_group_delete),
@@ -781,11 +780,26 @@ class ConsoleServer:
             " cluster.reshard.enabled and the collector role)",
         )
 
-    async def _h_later(self, request: _Request):
-        """Purchases and subscriptions come with `iap/` (a later slice of
-        the port): 501, as the API's later routes answer."""
+    async def _h_purchase_list(self, request: _Request):
         self._auth(request)
-        return _err(501, "not yet implemented")
+        return json_response(
+            await self.server.purchases.list(
+                user_id=request.query.get("user_id") or None,
+                limit=int(request.query.get("limit", 100)),
+            )
+        )
+
+    async def _h_subscription_list(self, request: _Request):
+        """Validated subscriptions, store-wide or per user (reference
+        ListSubscriptions, console.proto:330)."""
+        self._auth(request)
+        q = request.query
+        result = await self.server.purchases.list_subscriptions(
+            q.get("user_id", ""),
+            limit=int(q.get("limit", 100)),
+            cursor=q.get("cursor", ""),
+        )
+        return json_response(result)
 
     async def _h_device(self, request: _Request):
         """Device telemetry dashboard (devobs.py): per-kernel clocks +

@@ -9,10 +9,9 @@ ban/unban/unlink/export/delete), storage (browse by collection,
 read/write/delete objects, import, delete-all), groups (detail, members,
 promote/demote, export), matches with live state, the matchmaker,
 leaderboards (detail, records, record delete), chat message browse +
-delete, purchases/subscriptions (501 until the port has `iap/`), console
-operator users, config + warnings, and the API explorer (list
-endpoints, call any endpoint as any user, rpc). Served at `/` on the
-console listener.
+delete, purchases/subscriptions, console operator users, config +
+warnings, and the API explorer (list endpoints, call any endpoint as any
+user, rpc). Served at `/` on the console listener.
 
 The `R` table below names every (method, path-template) pair the UI
 calls; tests/test_torch_console.py parses it out of this source and

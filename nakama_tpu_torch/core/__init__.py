@@ -3,8 +3,8 @@
 Plain async functions/classes `(db, ...) -> result` mirroring the
 reference's `server/core_*.go` services (SURVEY.md §2.2). The port's
 copy of the JAX package's `core/`: authenticate and link (device, email,
-custom), storage, account, wallet, friend, group, channel and
-notification. `purchase` comes with `iap/` (ROADMAP.md §A.6).
+custom and the six social providers), storage, account, wallet, friend,
+group, channel, notification and purchase.
 """
 
 from .storage import (

@@ -1,14 +1,13 @@
-"""Authentication core: device, email and custom ids.
+"""Authentication core: all 9 auth flows of the reference.
 
 The port's copy of the JAX package's `core/authenticate.py` (reference
-server/core_authenticate.go) for the flows without a social provider:
-`authenticate_device` (:183), `authenticate_email` and
-`authenticate_custom`, each a lookup-or-create against its identity
-column on `users` over the port's storage engine and the shared schema,
-with username-conflict handling and disabled-account rejection.
-Passwords use stdlib scrypt (salted adaptive KDF), so either package
-checks the other's hashes. The social providers come with the social
-slice (ROADMAP.md §A).
+server/core_authenticate.go): device (:183), email, custom, Apple,
+Facebook, Facebook Instant Game, GameCenter, Google, Steam — each a
+lookup-or-create against its identity column on `users` over the
+port's storage engines and the shared schema, with username-conflict
+handling, disabled-account rejection, and profile import for social
+providers. Passwords use stdlib scrypt (salted adaptive KDF), so either
+package checks the other's hashes.
 """
 
 from __future__ import annotations
@@ -21,6 +20,7 @@ import secrets
 import time
 import uuid
 
+from ..social import SocialClient, SocialError, SocialProfile
 from ..storage.db import Database, UniqueViolationError
 
 
@@ -144,6 +144,15 @@ async def _lookup_or_create(
     return user_id, uname, True
 
 
+async def _verify(coro):
+    """Map provider rejection to the Unauthenticated error code the way the
+    reference maps social verification failures (core_authenticate.go)."""
+    try:
+        return await coro
+    except SocialError as e:
+        raise AuthError(str(e), "unauthenticated") from e
+
+
 # ------------------------------------------------------------- the flows
 
 
@@ -215,3 +224,117 @@ async def authenticate_custom(
     if not custom_id or not (6 <= len(custom_id) <= 128):
         raise AuthError("custom id must be 6-128 characters")
     return await _lookup_or_create(db, "custom_id", custom_id, username, create)
+
+
+def _profile_extra(profile: SocialProfile) -> dict:
+    extra: dict = {}
+    if profile.display_name:
+        extra["display_name"] = profile.display_name
+    if profile.avatar_url:
+        extra["avatar_url"] = profile.avatar_url
+    if profile.lang_tag:
+        extra["lang_tag"] = profile.lang_tag
+    return extra
+
+
+async def authenticate_facebook(
+    db: Database,
+    social: SocialClient,
+    token: str,
+    username: str | None,
+    create: bool,
+) -> tuple[str, str, bool]:
+    profile = await _verify(social.verify_facebook(token))
+    return await _lookup_or_create(
+        db,
+        "facebook_id",
+        profile.id,
+        username or profile.username or None,
+        create,
+        _profile_extra(profile),
+    )
+
+
+async def authenticate_facebook_instant(
+    db: Database,
+    social: SocialClient,
+    app_secret: str,
+    signed_player_info: str,
+    username: str | None,
+    create: bool,
+) -> tuple[str, str, bool]:
+    profile = await _verify(
+        social.verify_facebook_instant(app_secret, signed_player_info)
+    )
+    return await _lookup_or_create(
+        db, "facebook_instant_game_id", profile.id, username, create
+    )
+
+
+async def authenticate_google(
+    db: Database,
+    social: SocialClient,
+    token: str,
+    username: str | None,
+    create: bool,
+) -> tuple[str, str, bool]:
+    profile = await _verify(social.verify_google(token))
+    return await _lookup_or_create(
+        db,
+        "google_id",
+        profile.id,
+        username or profile.username or None,
+        create,
+        _profile_extra(profile),
+    )
+
+
+async def authenticate_apple(
+    db: Database,
+    social: SocialClient,
+    bundle_id: str,
+    token: str,
+    username: str | None,
+    create: bool,
+) -> tuple[str, str, bool]:
+    profile = await _verify(social.verify_apple(bundle_id, token))
+    return await _lookup_or_create(
+        db, "apple_id", profile.id, username, create, _profile_extra(profile)
+    )
+
+
+async def authenticate_steam(
+    db: Database,
+    social: SocialClient,
+    app_id: int,
+    publisher_key: str,
+    token: str,
+    username: str | None,
+    create: bool,
+) -> tuple[str, str, bool]:
+    profile = await _verify(social.verify_steam(app_id, publisher_key, token))
+    return await _lookup_or_create(
+        db, "steam_id", profile.id, username, create
+    )
+
+
+async def authenticate_gamecenter(
+    db: Database,
+    social: SocialClient,
+    player_id: str,
+    bundle_id: str,
+    timestamp: int,
+    salt: str,
+    signature: str,
+    public_key_url: str,
+    username: str | None,
+    create: bool,
+) -> tuple[str, str, bool]:
+    profile = await _verify(
+        social.verify_gamecenter(
+            player_id, bundle_id, timestamp, salt, signature, public_key_url
+        )
+    )
+    return await _lookup_or_create(
+        db, "gamecenter_id", profile.id, username, create
+    )

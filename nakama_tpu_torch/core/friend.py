@@ -6,9 +6,10 @@ PAIR of edges (source→dest and dest→source) written in one transaction;
 add on a received invite upgrades both edges to FRIEND; blocking
 overwrites whatever was there one-way and deletes the reverse edge.
 
-The port's copy of the JAX package's `core/friend.py`. The Facebook and
-Steam friend imports (`import_by_provider_ids`) come with the social
-providers (ROADMAP.md §A.6).
+The port's copy of the JAX package's `core/friend.py`, the Facebook and
+Steam friend imports (`import_by_provider_ids`) included; an import of
+more than one friend gives each edge its own position (the JAX import
+fails on the edge key there).
 """
 
 from __future__ import annotations
@@ -50,13 +51,15 @@ class Friends:
             is not None
         )
 
-    async def _set_edge(self, tx, source, dest, state, now):
+    async def _set_edge(self, tx, source, dest, state, now, seq: int = 0):
+        """`seq` tells apart the edges one source gains at one `now` (the
+        position is part of the key)."""
         await tx.execute(
             "INSERT INTO user_edge (source_id, destination_id, state,"
             " position, update_time) VALUES (?, ?, ?, ?, ?)"
             " ON CONFLICT (source_id, destination_id) DO UPDATE SET"
             " state = ?, update_time = ?",
-            (source, dest, state, int(now * 1e9), now, state, now),
+            (source, dest, state, int(now * 1e9) + seq, now, state, now),
         )
 
     async def _del_edge(self, tx, source, dest):
@@ -122,6 +125,76 @@ class Friends:
                     )
             except Exception as e:
                 self.logger.error("friend notification", error=str(e))
+
+    async def import_by_provider_ids(
+        self,
+        user_id: str,
+        username: str,
+        provider_column: str,
+        provider_ids: list[str],
+        reset: bool = False,
+    ) -> int:
+        """Social-graph bootstrap (reference importFriendsByUID,
+        core_friend.go: ImportFacebookFriends / ImportSteamFriends):
+        provider friend ids resolve to users with that id linked, and
+        each becomes a DIRECT mutual friend (no invite round-trip — both
+        sides proved the relationship to the provider). `reset` first
+        deletes existing non-blocked friend edges, matching the
+        reference's reset semantics. Returns the number imported."""
+        assert provider_column in ("facebook_id", "steam_id")
+        now = time.time()
+        imported = 0
+        async with self.db.tx() as tx:
+            if reset:
+                rows = await tx.fetch_all(
+                    "SELECT destination_id, state FROM user_edge"
+                    " WHERE source_id = ?",
+                    (user_id,),
+                )
+                for r in rows:
+                    if r["state"] == BLOCKED:
+                        continue
+                    await self._del_edge(tx, user_id, r["destination_id"])
+                    theirs = await self._edge(
+                        tx, r["destination_id"], user_id
+                    )
+                    if theirs is not None and theirs["state"] != BLOCKED:
+                        await self._del_edge(
+                            tx, r["destination_id"], user_id
+                        )
+            if not provider_ids:
+                return 0
+            placeholders = ",".join("?" for _ in provider_ids)
+            rows = await tx.fetch_all(
+                f"SELECT id FROM users WHERE {provider_column}"
+                f" IN ({placeholders})",
+                tuple(str(p) for p in provider_ids),
+            )
+            for r in rows:
+                fid = r["id"]
+                if fid == user_id:
+                    continue
+                mine = await self._edge(tx, user_id, fid)
+                theirs = await self._edge(tx, fid, user_id)
+                if (mine is not None and mine["state"] == BLOCKED) or (
+                    theirs is not None and theirs["state"] == BLOCKED
+                ):
+                    continue
+                if mine is not None and mine["state"] == FRIEND:
+                    continue
+                # Each imported edge of `user_id` gets a position of its
+                # own (the JAX package's import gives every edge of one
+                # import the same position and fails its key past one
+                # friend).
+                await self._set_edge(tx, user_id, fid, FRIEND, now, imported)
+                await self._set_edge(tx, fid, user_id, FRIEND, now, imported)
+                imported += 1
+        self.logger.info(
+            "friends imported",
+            provider=provider_column,
+            count=imported,
+        )
+        return imported
 
     async def delete(self, user_id: str, friend_id: str):
         """Remove friendship/invite both ways; a block I placed stays

@@ -6,16 +6,15 @@ by another account, and detached only while at least one other auth method
 remains (the reference enforces this with a guarded conditional UPDATE; we
 count methods in the same transaction).
 
-The port's copy of the JAX package's `core/link.py` for device, email
-and custom ids, and the social providers' unlinks (they clear a column
-and need no provider; the runtime's `nk` calls them). The social links,
-which verify with a provider, come with `social/` (ROADMAP.md §A.6);
-the social columns count as auth methods, since the schema is shared."""
+The port's copy of the JAX package's `core/link.py`: device, email and
+custom ids, and the social providers' links (verified with the social
+client) and unlinks."""
 
 from __future__ import annotations
 
 import time
 
+from ..social import SocialClient
 from ..storage.db import Database, UniqueViolationError
 from .authenticate import (
     AuthError,
@@ -187,24 +186,85 @@ async def unlink_custom(db: Database, user_id: str) -> None:
 # ------------------------------------------------------------------ social
 
 
+async def link_facebook(
+    db: Database, social: SocialClient, user_id: str, token: str
+) -> None:
+    profile = await social.verify_facebook(token)
+    await _link_column(db, user_id, "facebook_id", profile.id)
+
+
 async def unlink_facebook(db: Database, user_id: str) -> None:
     await _unlink_column(db, user_id, "facebook_id")
+
+
+async def link_facebook_instant(
+    db: Database,
+    social: SocialClient,
+    user_id: str,
+    app_secret: str,
+    signed_player_info: str,
+) -> None:
+    profile = await social.verify_facebook_instant(app_secret, signed_player_info)
+    await _link_column(db, user_id, "facebook_instant_game_id", profile.id)
 
 
 async def unlink_facebook_instant(db: Database, user_id: str) -> None:
     await _unlink_column(db, user_id, "facebook_instant_game_id")
 
 
+async def link_google(
+    db: Database, social: SocialClient, user_id: str, token: str
+) -> None:
+    profile = await social.verify_google(token)
+    await _link_column(db, user_id, "google_id", profile.id)
+
+
 async def unlink_google(db: Database, user_id: str) -> None:
     await _unlink_column(db, user_id, "google_id")
+
+
+async def link_apple(
+    db: Database, social: SocialClient, user_id: str, bundle_id: str, token: str
+) -> None:
+    profile = await social.verify_apple(bundle_id, token)
+    await _link_column(db, user_id, "apple_id", profile.id)
 
 
 async def unlink_apple(db: Database, user_id: str) -> None:
     await _unlink_column(db, user_id, "apple_id")
 
 
+async def link_steam(
+    db: Database,
+    social: SocialClient,
+    user_id: str,
+    app_id: int,
+    publisher_key: str,
+    token: str,
+) -> None:
+    profile = await social.verify_steam(app_id, publisher_key, token)
+    await _link_column(db, user_id, "steam_id", profile.id)
+
+
 async def unlink_steam(db: Database, user_id: str) -> None:
     await _unlink_column(db, user_id, "steam_id")
+
+
+async def link_gamecenter(
+    db: Database,
+    social: SocialClient,
+    user_id: str,
+    player_id: str,
+    bundle_id: str,
+    timestamp: int,
+    salt: str,
+    signature: str,
+    public_key_url: str,
+) -> None:
+    profile = await social.verify_gamecenter(
+        player_id, bundle_id, timestamp, salt, signature, public_key_url
+    )
+    await _link_column(db, user_id, "gamecenter_id", profile.id)
 
 
 async def unlink_gamecenter(db: Database, user_id: str) -> None:

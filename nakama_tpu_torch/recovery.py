@@ -75,6 +75,17 @@ OP_REMOVE = "remove"
 OP_MATCHED = "matched"
 OP_UNPUBLISHED = "unpublished"
 
+# One journal row, written or rewritten on its (node, lsn) key. An
+# explicit upsert rather than INSERT OR REPLACE: the Postgres engine's
+# dialect shim turns INSERT OR REPLACE into an upsert on the first
+# column, and no constraint of this table is on `lsn` alone.
+JOURNAL_UPSERT = (
+    "INSERT INTO matchmaker_journal (lsn, op, payload, node, created_at)"
+    " VALUES (?, ?, ?, ?, ?) ON CONFLICT (node, lsn) DO UPDATE SET"
+    " op = EXCLUDED.op, payload = EXCLUDED.payload,"
+    " created_at = EXCLUDED.created_at"
+)
+
 SNAPSHOT_VERSION = 1
 # The checkpoint section of the leaderboard device boards.
 LEADERBOARD_SECTION = "leaderboard_device"
@@ -341,15 +352,10 @@ class TicketJournal:
                     records=len(batch),
                 )
                 return True
-            # INSERT OR REPLACE: a degraded retry whose earlier commit
-            # actually landed (drain crashed post-commit) re-runs
-            # idempotently instead of erroring on the LSN key.
-            await self._db.execute_many(
-                "INSERT OR REPLACE INTO matchmaker_journal"
-                " (lsn, op, payload, node, created_at)"
-                " VALUES (?, ?, ?, ?, ?)",
-                rows,
-            )
+            # An upsert on the (node, lsn) key: a degraded retry whose
+            # earlier commit actually landed (drain crashed post-commit)
+            # re-runs idempotently instead of erroring on the key.
+            await self._db.execute_many(JOURNAL_UPSERT, rows)
         except asyncio.CancelledError:
             raise
         except Exception as e:
@@ -1161,9 +1167,7 @@ class RecoveryPlane:
             top_lsn = self.journal.reserve_lsn()
             stmts.append(
                 (
-                    "INSERT OR REPLACE INTO matchmaker_journal"
-                    " (lsn, op, payload, node, created_at)"
-                    " VALUES (?, ?, ?, ?, ?)",
+                    JOURNAL_UPSERT,
                     (
                         top_lsn,
                         OP_ADD,

@@ -9,13 +9,7 @@ are async (user modules run on the server's event loop).
 
 The port's copy of the JAX package's `runtime/nk.py`, with the same
 public methods over the port's `core/`, `realtime/`, `match/`,
-`leaderboard/` and matchmaker. The port has no social client, no
-purchases and no Satori client yet (ROADMAP.md §A): a method that needs
-one fails as the JAX one does when that component is not configured
-("social client not configured", "purchases not configured"), and
-`get_satori` raises "satori not configured" (the JAX one returns a
-client that raises on first use). The social unlinks need no client
-and work.
+`leaderboard/`, `social/`, `iap/` and matchmaker.
 """
 
 from __future__ import annotations
@@ -56,6 +50,7 @@ class NakamaModule:
         match_registry=None,
         party_registry=None,
         metrics=None,
+        social=None,
         notifications=None,
         wallet=None,
         friends=None,
@@ -63,6 +58,7 @@ class NakamaModule:
         channels=None,
         leaderboards=None,
         tournaments=None,
+        purchases=None,
         runtime=None,
     ):
         self.logger = logger.with_fields(subsystem="nk")
@@ -79,8 +75,7 @@ class NakamaModule:
         self.match_registry = match_registry
         self.party_registry = party_registry
         self.metrics = metrics
-        # Components of later slices (ROADMAP.md §A): never configured.
-        self.social = None
+        self.social = social
         self.notifications = notifications
         self.wallet = wallet
         self.friends = friends
@@ -88,7 +83,7 @@ class NakamaModule:
         self.channels = channels
         self.leaderboards = leaderboards
         self.tournaments = tournaments
-        self.purchases = None
+        self.purchases = purchases
         self.runtime = runtime
 
     # ------------------------------------------------------------- helpers
@@ -158,46 +153,57 @@ class NakamaModule:
             raise RuntimeError("social client not configured")
         return self.social
 
-    def _needs_social(self):
-        """A social authenticate or link: the database checked, then the
-        social client, as the JAX method's arguments are evaluated; the
-        port has no social client, so this raises."""
-        self._db()
-        self._social()
-
     async def authenticate_apple(
         self, token: str, username: str = "", create: bool = True
     ):
-        self._needs_social()
+        return await core_auth.authenticate_apple(
+            self._db(), self._social(), self.config.social.apple_bundle_id,
+            token, username or None, create,
+        )
 
     async def authenticate_facebook(
         self, token: str, username: str = "", create: bool = True,
         import_friends: bool = False,
     ):
-        self._needs_social()
+        return await core_auth.authenticate_facebook(
+            self._db(), self._social(), token, username or None, create
+        )
 
     async def authenticate_facebook_instant_game(
         self, signed_player_info: str, username: str = "",
         create: bool = True,
     ):
-        self._needs_social()
+        return await core_auth.authenticate_facebook_instant(
+            self._db(), self._social(),
+            self.config.social.facebook_instant_app_secret,
+            signed_player_info, username or None, create,
+        )
 
     async def authenticate_game_center(
         self, player_id: str, bundle_id: str, timestamp: int, salt: str,
         signature: str, public_key_url: str, username: str = "",
         create: bool = True,
     ):
-        self._needs_social()
+        return await core_auth.authenticate_gamecenter(
+            self._db(), self._social(), player_id, bundle_id, timestamp,
+            salt, signature, public_key_url, username or None, create,
+        )
 
     async def authenticate_google(
         self, token: str, username: str = "", create: bool = True
     ):
-        self._needs_social()
+        return await core_auth.authenticate_google(
+            self._db(), self._social(), token, username or None, create
+        )
 
     async def authenticate_steam(
         self, token: str, username: str = "", create: bool = True
     ):
-        self._needs_social()
+        sc = self.config.social
+        return await core_auth.authenticate_steam(
+            self._db(), self._social(), sc.steam_app_id,
+            sc.steam_publisher_key, token, username or None, create,
+        )
 
     def session_logout(
         self, user_id: str, token: str = "", refresh_token: str = ""
@@ -303,7 +309,10 @@ class NakamaModule:
         await core_link.unlink_custom(self._db(), user_id)
 
     async def link_apple(self, user_id: str, token: str):
-        self._needs_social()
+        await core_link.link_apple(
+            self._db(), self._social(), user_id,
+            self.config.social.apple_bundle_id, token,
+        )
 
     async def unlink_apple(self, user_id: str):
         await core_link.unlink_apple(self._db(), user_id)
@@ -312,7 +321,9 @@ class NakamaModule:
         self, user_id: str, username: str, token: str,
         import_friends: bool = False,
     ):
-        self._needs_social()
+        await core_link.link_facebook(
+            self._db(), self._social(), user_id, token
+        )
 
     async def unlink_facebook(self, user_id: str):
         await core_link.unlink_facebook(self._db(), user_id)
@@ -320,7 +331,11 @@ class NakamaModule:
     async def link_facebook_instant_game(
         self, user_id: str, signed_player_info: str
     ):
-        self._needs_social()
+        await core_link.link_facebook_instant(
+            self._db(), self._social(), user_id,
+            self.config.social.facebook_instant_app_secret,
+            signed_player_info,
+        )
 
     async def unlink_facebook_instant_game(self, user_id: str):
         await core_link.unlink_facebook_instant(self._db(), user_id)
@@ -329,19 +344,28 @@ class NakamaModule:
         self, user_id: str, player_id: str, bundle_id: str, timestamp: int,
         salt: str, signature: str, public_key_url: str,
     ):
-        self._needs_social()
+        await core_link.link_gamecenter(
+            self._db(), self._social(), user_id, player_id, bundle_id,
+            timestamp, salt, signature, public_key_url,
+        )
 
     async def unlink_game_center(self, user_id: str):
         await core_link.unlink_gamecenter(self._db(), user_id)
 
     async def link_google(self, user_id: str, token: str):
-        self._needs_social()
+        await core_link.link_google(
+            self._db(), self._social(), user_id, token
+        )
 
     async def unlink_google(self, user_id: str):
         await core_link.unlink_google(self._db(), user_id)
 
     async def link_steam(self, user_id: str, username: str, token: str):
-        self._needs_social()
+        sc = self.config.social
+        await core_link.link_steam(
+            self._db(), self._social(), user_id, sc.steam_app_id,
+            sc.steam_publisher_key, token,
+        )
 
     async def unlink_steam(self, user_id: str):
         await core_link.unlink_steam(self._db(), user_id)
@@ -1034,10 +1058,19 @@ class NakamaModule:
 
     def get_satori(self):
         """The LiveOps client (reference nk.GetSatori,
-        runtime_go_nakama.go). The port has no Satori client or `satori`
-        config section yet, so modules that feature-gate on it see it
-        unconfigured here."""
-        raise RuntimeError("satori not configured")
+        runtime_go_nakama.go); unconfigured clients raise on use so
+        modules can feature-gate."""
+        from ..social.satori import SatoriClient
+
+        sc = getattr(self.config, "satori", None)
+        if getattr(self, "_satori", None) is None:
+            self._satori = SatoriClient(
+                url=getattr(sc, "url", ""),
+                api_key_name=getattr(sc, "api_key_name", ""),
+                api_key=getattr(sc, "api_key", ""),
+                signing_key=getattr(sc, "signing_key", ""),
+            )
+        return self._satori
 
     # ----------------------------------------------------------- utilities
     # (reference nk crypto/codec helpers, runtime_go_nakama.go)

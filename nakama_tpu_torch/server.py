@@ -5,16 +5,19 @@ components the port has: metrics → session registry/caches → tracker →
 router → match registry → matchmaker (`CudaBackend` on the card) →
 recovery plane → tracing and device telemetry → overload plane → party
 registry → channels, notifications, wallets, friends and groups →
-leaderboards (the `DeviceRankEngine` on the matchmaker's device) →
-pipeline → socket acceptor → API server → console, the runtime's Python, Lua and
-JS modules loaded at `start()` (`runtime.path`, or `runtime_modules`)
-and attached to the pipeline, the API, the matched handler, the match
-registry, the socket's session events and the leaderboard scheduler —
-and graceful shutdown in reverse, ending with drain-to-durable. The
-port's copy of the JAX package's `server.py`; the cluster, purchases,
-social, IAP and gRPC of the JAX server come with their own slices
-(ROADMAP.md §A). The console is the second listener, on `console.port`
-(0 when `socket.port` is 0), as in the JAX server.
+purchases and the Google refund scheduler → pipeline → socket acceptor
+→ the social client → leaderboards (the `DeviceRankEngine` on the
+matchmaker's device) → API server → console, the runtime's Python, Lua
+and JS modules loaded at `start()` (`runtime.path`, or
+`runtime_modules`) and attached to the pipeline, the API, the matched
+handler, the match registry, the socket's session events, the
+leaderboard and refund schedulers — and graceful shutdown in reverse,
+ending with drain-to-durable. The database is the engine that
+`database.address` names: SQLite (a file or `:memory:`) or Postgres (a
+`postgres://` DSN, `storage/pg.py`). The port's copy of the JAX
+package's `server.py`; the cluster and gRPC of the JAX server come with
+their own slices (ROADMAP.md §A). The console is the second listener,
+on `console.port` (0 when `socket.port` is 0), as in the JAX server.
 """
 
 from __future__ import annotations
@@ -30,7 +33,9 @@ from .core.channel import Channels
 from .core.friend import Friends
 from .core.group import Groups
 from .core.notification import Notifications
+from .core.purchase import Purchases
 from .core.wallet import Wallets
+from .iap.refund import GoogleRefundScheduler
 from .logger import Logger, set_node_name, setup_logging
 from .match import LocalMatchRegistry, LocalPartyRegistry
 from .matchmaker import LocalMatchmaker
@@ -219,6 +224,19 @@ class NakamaServer:
         self.wallets = Wallets(log, self.db)
         self.friends = Friends(log, self.db, self.notifications)
         self.groups = Groups(log, self.db)
+        self.purchases = Purchases(log, self.db, config)
+        self.google_refund_scheduler = GoogleRefundScheduler(
+            log,
+            self.db,
+            config,
+            poll_interval_sec=config.iap.google_refund_poll_sec,
+        )
+        # Production social verifier (reference social.NewClient,
+        # main.go:136); per-provider config rides each call. Tests may
+        # substitute a StubSocialClient.
+        from .social.client import HttpSocialClient
+
+        self.social = HttpSocialClient()
         self._build_leaderboards(config, log)
         self.pipeline = Pipeline(
             log,
@@ -355,6 +373,8 @@ class NakamaServer:
             groups=self.groups,
             notifications=self.notifications,
             wallet=self.wallets,
+            purchases=self.purchases,
+            social=self.social,
         )
 
     # ------------------------------------------------------------ lifecycle
@@ -399,6 +419,8 @@ class NakamaServer:
             self.runtime.start_events()
         await self.leaderboards.load()
         self.leaderboard_scheduler.start()
+        self.google_refund_scheduler.runtime = self.runtime
+        self.google_refund_scheduler.start()
         self.tracker.start()
         self.matchmaker.start()
         if self.recovery is not None and len(self.recovery.held):
@@ -537,6 +559,7 @@ class NakamaServer:
         await self.api.stop()
         await self.match_registry.stop_all(grace)
         self.leaderboard_scheduler.stop()
+        self.google_refund_scheduler.stop()
         # In-flight cohorts publish inside the grace window: the
         # delivery loop is still live, so poll the pipeline until it
         # empties or the deadline passes. (The journal's

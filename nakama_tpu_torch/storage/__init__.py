@@ -5,11 +5,9 @@ the embedded SQLite engine — durable file or `:memory:`, WAL read pool,
 group-commit write pipeline — over the same schema (migrations.py), so
 either package opens a database file the other wrote.
 
-`make_database()` picks the engine by address, as the JAX package's
-does. The JAX package also has a Postgres engine over a stdlib wire
-client (`storage/pg.py`); the port does not have it yet (ROADMAP.md §A,
-"storage/pg.py"), so a `postgres://` address raises instead of quietly
-opening a SQLite file of that name.
+`PostgresDatabase` (pg.py) is the Postgres engine over a stdlib wire
+client, the port's copy of the JAX package's. `make_database()` picks
+the engine by address, as the JAX package's does.
 """
 
 from .db import (
@@ -29,23 +27,23 @@ def make_database(
     write_drain_deadline_ms: int = 0,
     db_drain_restart_max: int = 8,
 ):
-    """Engine factory over an address and the group-commit knobs: the
-    embedded SQLite engine. A postgres:// DSN raises
-    NotImplementedError (the Postgres engine is a later slice)."""
+    """Engine factory: postgres:// DSNs get the wire-protocol engine,
+    everything else the embedded SQLite engine. Both take the same
+    group-commit knobs (config.database.*) so the write-pipeline
+    semantics are engine-independent."""
     addrs = [addresses] if isinstance(addresses, str) else list(addresses)
-    if addrs and addrs[0].startswith(("postgres://", "postgresql://")):
-        raise NotImplementedError(
-            "the port has no Postgres engine yet (ROADMAP.md §A:"
-            " storage/pg.py); use a SQLite file path or ':memory:'"
-        )
-    return Database(
-        addrs,
+    knobs = dict(
         read_pool_size=read_pool_size,
         write_batch_max=write_batch_max,
         write_queue_depth=write_queue_depth,
         write_drain_deadline_ms=write_drain_deadline_ms,
         db_drain_restart_max=db_drain_restart_max,
     )
+    if addrs and addrs[0].startswith(("postgres://", "postgresql://")):
+        from .pg import PostgresDatabase
+
+        return PostgresDatabase(addrs, **knobs)
+    return Database(addrs, **knobs)
 
 
 __all__ = [

@@ -8,10 +8,11 @@ must be equal once random ids, times and tokens are normalised, group
 by group: auth, lockout and roles; status, config redaction and
 runtime; accounts; storage and its import; groups and members; channel
 browse and deletes; leaderboards and records (ranks from the rank
-engines); the matchmaker view; the endpoint list and call; the routes
-of components the port has not ported yet (purchases and subscriptions
-501 on the port, cluster, fleet and soak `{"enabled": false}` on
-both); the bulk wipes. The config view compares the sections and fields
+engines); the matchmaker view; the endpoint list and call; purchases
+and subscriptions (validated through one store fetcher,
+`provider_fakes`) and the routes of components the port has not ported
+yet (cluster, fleet and soak `{"enabled": false}` on both); the bulk
+wipes. The config view compares the sections and fields
 the port has. On the port alone: the device view lists the `torch`
 devices, a capture on the CPU writes a `torch.profiler` trace (one at a
 time, clamped, refused to read-only users), and the static page names
@@ -28,6 +29,7 @@ import re
 
 import pytest
 
+import provider_fakes as F
 from fixtures import quiet_logger
 
 from nakama_tpu import config as jax_config
@@ -81,6 +83,10 @@ class Ids:
                 if k in ("token", "refresh_token") and isinstance(v, str):
                     out[k] = "<token>"
                 elif k in TIME_KEYS and v:
+                    out[k] = "<time>"
+                elif k == "purchase_time" and isinstance(v, float) and v > 1.75e9:
+                    # A subscription row's: the clock's (a store's own
+                    # purchase times stay).
                     out[k] = "<time>"
                 elif k in ("next_cursor", "prev_cursor") and "|" in v:
                     out[k] = "<time>|" + self(v.split("|", 1)[1])
@@ -498,8 +504,23 @@ async def run_script(server) -> dict:
     await call("reshard", "POST", "/v2/console/fleet/reshard", {"plan": 1})
     await call("reshard_viewer", "POST", "/v2/console/fleet/reshard",
                {"plan": 1}, token=viewer)
+    # Purchases and subscriptions validated through the stores' fetcher
+    # (`provider_fakes`), then the console's listings.
+    purchases = s.server.purchases
+    await purchases.validate_apple("buyer-1", F.apple_receipt(["c1", "c2"]))
+    await purchases.validate_google("buyer-2", F.google_receipt("gems", "c3"))
+    await purchases.validate_huawei("buyer-1", F.huawei_receipt("coins", "c4"))
+    await purchases.validate_subscription_apple(
+        "buyer-1", F.apple_receipt(["cs1"]))
+    await purchases.validate_subscription_google(
+        "buyer-2", F.google_receipt("vip", "cs2"))
     await call("/v2/console/purchase", "GET", "/v2/console/purchase")
+    await call("purchase_user", "GET",
+               "/v2/console/purchase?user_id=buyer-1&limit=1")
     await call("/v2/console/subscription", "GET", "/v2/console/subscription")
+    await call("subscription_user", "GET",
+               "/v2/console/subscription?user_id=buyer-2")
+    await call("purchase_viewer", "GET", "/v2/console/purchase", token=viewer)
 
     # ------------------------------------------------------------- wipes
     s.group = "wipe"
@@ -511,9 +532,20 @@ async def run_script(server) -> dict:
     return s.out
 
 
+def with_stores(server):
+    """The IAP section the stores' fetcher answers to, and that fetcher
+    (the refund scheduler stays off: no package name)."""
+    F.configure(server.config)
+    server.config.iap.google_package_name = ""
+    server.purchases._fetch = F.store_fetch()
+    server.google_refund_scheduler._fetch = F.store_fetch()
+    return server
+
+
 async def _jax(tmp):
     cfg = jax_config.parse_args(FLAGS + ["--data_dir", str(tmp)])
-    server = JaxServer(cfg, quiet_logger(), runtime_modules=[init_module])
+    server = with_stores(
+        JaxServer(cfg, quiet_logger(), runtime_modules=[init_module]))
     backend = TpuBackend(cfg.matchmaker, quiet_logger())
     server.matchmaker.backend = backend
     backend.attach(server.matchmaker.store)
@@ -526,8 +558,8 @@ async def _port(tmp):
     log = port_logger()
     backend = CudaBackend(cfg.matchmaker, log, device="cpu", row_block=8,
                           col_block=64, big_row_block=8, big_col_block=64)
-    server = NakamaServer(cfg, log, matchmaker_backend=backend,
-                          runtime_modules=[init_module])
+    server = with_stores(NakamaServer(cfg, log, matchmaker_backend=backend,
+                                      runtime_modules=[init_module]))
     await server.start()
     return server
 
@@ -635,19 +667,18 @@ def test_the_same_console_script_gives_the_same_answers(answers, group):
         assert set(config) == {
             "name", "data_dir", "shutdown_grace_sec", "logger", "metrics",
             "session", "socket", "database", "matchmaker", "match",
-            "tracker", "runtime", "console", "leaderboard", "overload",
-            "tracing", "recovery", "devobs"}
+            "tracker", "runtime", "console", "leaderboard", "iap", "social",
+            "satori", "overload", "tracing", "recovery", "devobs"}
         for section, key in (("session", "encryption_key"),
                              ("socket", "server_key"),
                              ("console", "password"),
                              ("console", "signing_key")):
             assert config[section][key] == "<redacted>"
     if group == "later":
-        # The purchases and subscriptions of `iap/` answer 501 until the
-        # port has them; the JAX console lists them.
-        for path in ("/v2/console/purchase", "/v2/console/subscription"):
-            assert got.pop(path) == [501, {"error": "not yet implemented"}]
-            assert want.pop(path)[0] == 200
+        # The purchases and subscriptions, listed alike.
+        status, body = got["/v2/console/purchase"]
+        assert status == 200 and len(body["validated_purchases"]) == 4
+        assert len(got["/v2/console/subscription"][1]["subscriptions"]) == 2
     assert got == want
 
 

@@ -6,8 +6,10 @@ the same error class with the same message and run out of fuel at the
 same step; the loader, over one directory holding a `.py`, a `.lua` and
 a `.js` module (each package loads its own copy), gives the same
 modules, rpc ids, match names, hook keys, rpc answers, matched-hook
-answers and load errors; `nk` has the same public methods and fails the
-same way without a social client or purchases; a Python matchmaker
+answers and load errors; `nk` has the same public methods, fails the
+same way without a social client or purchases, and gives the same
+answers with them (a `StubSocialClient`, `Purchases` over one injected
+store fetcher, a Satori client over one injected fetcher); a Python matchmaker
 override picks the same groups from the same seeded pool in the JAX
 `LocalMatchmaker` and the port's over `CudaBackend(device="cpu")`; and
 the leaderboard scheduler hands the reset and end hooks the same
@@ -17,11 +19,13 @@ Stated tolerance: none — every compared value must be equal."""
 
 import importlib
 import inspect
+import json
 import time
 
 import numpy as np
 import pytest
 
+import provider_fakes as F
 from fixtures import quiet_logger
 
 from nakama_tpu.config import Config as JaxConfig
@@ -607,11 +611,16 @@ async def test_nk_fails_as_the_jax_one_without_a_component(with_db):
     assert errors[0] == errors[1]
     assert ("authenticate_apple", ("RuntimeError", "social client not configured"
             if with_db else "database not configured")) in errors[1]
-    # Difference by design (ROADMAP.md §C): the port has no Satori
-    # client; the JAX one hands out an unconfigured client.
-    with pytest.raises(RuntimeError, match="satori not configured"):
-        NakamaModule(port_logger(), Config()).get_satori()
-    assert not JaxNakamaModule(quiet_logger(), JaxConfig()).get_satori().configured
+    # Both hand out an unconfigured Satori client that raises on use.
+    satori = [NakamaModule(port_logger(), Config()).get_satori(),
+              JaxNakamaModule(quiet_logger(), JaxConfig()).get_satori()]
+    assert [c.configured for c in satori] == [False, False]
+    refused = []
+    for client in satori:
+        with pytest.raises(Exception) as e:
+            await client.flags_list("identity-1")
+        refused.append(_error(e.value))
+    assert refused[0] == refused[1] == ("SatoriError", "satori is not configured")
 
 
 async def test_nk_social_unlinks_work_without_a_social_client():
@@ -639,6 +648,126 @@ async def test_nk_social_unlinks_work_without_a_social_client():
         finally:
             await db.close()
     assert got[0] == got[1]
+
+
+async def nk_with_providers(pkg: str) -> list:
+    """One package's `nk` over its SQLite engine with a `StubSocialClient`,
+    `Purchases` over the stores' fetcher and a Satori client over an
+    injected fetcher: what each social, purchase, subscription and Satori
+    method answers (user ids and generated usernames named, the clock's
+    times masked)."""
+    if pkg == "jax":
+        from nakama_tpu.core.purchase import Purchases as P
+        from nakama_tpu.social import client as social_mod
+
+        db, config, log, cls = JaxDatabase(":memory:"), JaxConfig(), quiet_logger(), JaxNakamaModule
+    else:
+        from nakama_tpu_torch.core.purchase import Purchases as P
+        from nakama_tpu_torch.social import client as social_mod
+
+        db, config, log, cls = Database(":memory:"), Config(), port_logger(), NakamaModule
+    F.configure(config)
+    config.satori.url = "https://satori.test"
+    config.satori.api_key_name = "key-name"
+    config.satori.signing_key = "signing-key"
+    await db.connect()
+    nk = cls(log, config, db=db, social=F.stub_social(social_mod),
+             purchases=P(log, db, config, fetch=F.store_fetch()))
+    names: dict = {}
+    out = []
+
+    def name(v):
+        if isinstance(v, dict):
+            return {k: "<time>" if k in ("purchase_time", "create_time",
+                                         "update_time")
+                    and isinstance(x, float) and x > 1.75e9 else name(x)
+                    for k, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return [name(x) for x in v]
+        return names.get(v, v) if isinstance(v, str) else v
+
+    async def step(label, coro):
+        try:
+            value = await coro
+            if label.startswith("auth") and isinstance(value, tuple):
+                names.setdefault(value[0], f"user{len(names)}")
+                names.setdefault(value[1], f"name{len(names)}")
+        except Exception as e:
+            value = _error(e)
+        out.append((label, name(value)))
+        return value
+
+    try:
+        uid, _, _ = await step("auth google", nk.authenticate_google("google-token-0"))
+        await step("auth google refused", nk.authenticate_google("bogus"))
+        await step("auth apple", nk.authenticate_apple("apple-token-0", "appler"))
+        await step("auth facebook", nk.authenticate_facebook("facebook-token-0"))
+        await step("auth instant", nk.authenticate_facebook_instant_game(
+            F.instant_info("ig-5")))
+        gc = F.gamecenter_account("gc-player-0")
+        await step("auth game center", nk.authenticate_game_center(
+            gc["player_id"], gc["bundle_id"], gc["timestamp_seconds"], gc["salt"],
+            gc["signature"], gc["public_key_url"]))
+        await step("auth steam", nk.authenticate_steam("steam-token-0"))
+        await step("auth steam no create", nk.authenticate_steam(
+            "steam-token-3", create=False))
+        await step("link apple", nk.link_apple(uid, "apple-token-1"))
+        await step("link apple taken", nk.link_apple(uid, "apple-token-0"))
+        await step("link facebook", nk.link_facebook(uid, "u", "facebook-token-1"))
+        await step("link instant", nk.link_facebook_instant_game(
+            uid, F.instant_info("ig-6")))
+        await step("link game center", nk.link_game_center(
+            uid, "gc-player-1", gc["bundle_id"], 1, "c2FsdA==", "c2ln",
+            gc["public_key_url"]))
+        await step("link google", nk.link_google(uid, "google-token-1"))
+        await step("link steam", nk.link_steam(uid, "u", "steam-token-1"))
+        await step("unlink steam", nk.unlink_steam(uid))
+        await step("account", nk.account_get_id(uid))
+        await step("buy apple", nk.purchase_validate_apple(
+            uid, F.apple_receipt(["n1", "n2"])))
+        await step("buy apple again", nk.purchase_validate_apple(
+            uid, F.apple_receipt(["n1"])))
+        await step("buy google", nk.purchase_validate_google(
+            uid, F.google_receipt("gems", "n3")))
+        await step("buy huawei", nk.purchase_validate_huawei(
+            uid, F.huawei_receipt("coins", "n4")))
+        await step("buy huawei refused", nk.purchase_validate_huawei(
+            uid, F.huawei_receipt("coins", "hw-bad")))
+        await step("by txn", nk.purchase_get_by_transaction_id("GPA.n3"))
+        await step("purchases", nk.purchases_list(uid, 2))
+        await step("sub apple", nk.subscription_validate_apple(
+            uid, F.apple_receipt(["ns1"])))
+        await step("sub google", nk.subscription_validate_google(
+            uid, F.google_receipt("vip", "ns2"), persist=False))
+        await step("sub by product", nk.subscription_get_by_product_id(
+            uid, "product.ns1"))
+        await step("subs", nk.subscriptions_list(uid))
+        satori = nk.get_satori()
+        satori_calls = []
+
+        async def satori_fetch(url, method="GET", headers=None, body=None):
+            satori_calls.append((method, url.split("?")[0]))
+            return 200, json.dumps({"url": url}).encode()
+
+        satori._fetch = satori_fetch
+        await step("satori flags", satori.flags_list("identity-1", ["a"]))
+        await step("satori events", satori.events_publish("identity-1", []))
+        out.append(("satori", (satori.configured, satori_calls,
+                               nk.get_satori() is satori)))
+    finally:
+        await db.close()
+    return out
+
+
+async def test_nk_social_purchase_and_satori_methods_agree():
+    want = await nk_with_providers("jax")
+    got = await nk_with_providers("torch")
+    assert got == want
+    steps = dict(got)
+    assert steps["auth google"][2] is True
+    assert steps["auth google refused"] == ["AuthError", "invalid google token"]
+    assert [p["seen_before"] for p in steps["buy apple again"]] == [True]
+    assert steps["satori"][0] is True and steps["satori"][2] is True
 
 
 # ------------------------------------------------------------- override

@@ -19,9 +19,12 @@ answers to rpcs over the socket and over HTTP (by session and by
 realtime messages and requests, to `/v2/event`, and to a
 `matchmaker_matched` hook that sends a pair into a JS match that echoes
 their data; the modules' own counts (events, session events, after
-hooks, the shutdown hook) must agree after the stop. On the port alone
-the 27 routes of later slices, each 501; with no runtime loaded, `rpc`
-answers as the JAX server's. Also: parsed
+hooks, the shutdown hook) must agree after the stop. Then the 27
+social and IAP routes, each server with its package's
+`StubSocialClient` and one store fetcher (`provider_fakes`): social
+sign-in, link and unlink for the six providers, the friend imports,
+purchases and subscriptions of the three stores. With no runtime
+loaded, `rpc` answers as the JAX server's. Also: parsed
 `/metrics` scrapes, `Config.check()` and
 `parse_args`, and `python -m nakama_tpu_torch` in a subprocess (JAX
 never imported, also after it loads the modules and serves an rpc;
@@ -46,6 +49,7 @@ import urllib.parse
 import numpy as np
 import pytest
 
+import provider_fakes as F
 from fixtures import quiet_logger
 from test_torch_metrics import parse
 
@@ -88,11 +92,24 @@ def runtime_flags(runtime_dir) -> list:
     return [] if runtime_dir is None else ["--runtime.path", str(runtime_dir)]
 
 
+def with_providers(server, key: str):
+    """The social and IAP sections the fakes answer to, the package's
+    `StubSocialClient` and the stores' fetcher (no request leaves the
+    process; the refund scheduler stays off: no package name)."""
+    F.configure(server.config)
+    server.config.iap.google_package_name = ""
+    server.social = F.stub_social(importlib.import_module(
+        ("nakama_tpu" if key == "jax" else "nakama_tpu_torch") + ".social.client"))
+    server.purchases._fetch = F.store_fetch()
+    server.google_refund_scheduler._fetch = F.store_fetch()
+    return server
+
+
 async def jax_server(data_dir, runtime_dir=None):
     cfg = jax_config.parse_args(
         FLAGS + ["--matchmaker.backend", "cpu", "--data_dir", str(data_dir)]
         + runtime_flags(runtime_dir))
-    server = JaxServer(cfg, quiet_logger())
+    server = with_providers(JaxServer(cfg, quiet_logger()), "jax")
     await server.start()
     return server
 
@@ -105,7 +122,8 @@ async def torch_server(data_dir, runtime_dir=None):
         cfg.matchmaker, log, device="cpu", row_block=8, col_block=64,
         big_row_block=8, big_col_block=64,
     )
-    server = NakamaServer(cfg, log, matchmaker_backend=backend)
+    server = with_providers(
+        NakamaServer(cfg, log, matchmaker_backend=backend), "torch")
     await server.start()
     return server
 
@@ -176,6 +194,10 @@ class Normaliser:
                 if k in ("token", "refresh_token") and isinstance(v, str):
                     out[k] = "<token>"
                 elif k in ("create_time", "update_time", "receive_time_ms"):
+                    out[k] = "<time>"
+                elif k == "purchase_time" and isinstance(v, float) and v > 1.75e9:
+                    # A subscription row's: the clock's (a store's own
+                    # purchase times stay).
                     out[k] = "<time>"
                 elif k in CURSOR_KEYS and isinstance(v, str) and v:
                     out[k] = self.cursor(v)
@@ -421,8 +443,7 @@ async def run_script(server, key: str) -> dict:
     await play(server, norm, out, clients, tokens, call)
     await social(server, key, norm, clients, tokens, call)
     await runtime_leg(server, norm, out, clients, tokens, call)
-    if key == "torch":
-        out["later"] = await later_routes(server, tokens)
+    out["providers"] = await providers_leg(server, norm, tokens, call)
     out["http"] = [(method, shown or norm.text(path), status, norm(payload))
                    for method, path, shown, status, payload in out["http"]]
     for device, (ws, log, _, _) in clients.items():
@@ -1131,30 +1152,121 @@ async def runtime_leg(server, norm, out, clients, tokens, call):
     rt.append(norm(counts))
 
 
-# The routes that stay 501 on the port until their slices land.
-LATER_ROUTES = (
+# The social and IAP routes (27), answered by the server's social client
+# and `Purchases` (501 on the port before these slices).
+PROVIDER_ROUTES = (
     [("POST", f"/v2/account/authenticate/{p}") for p in SOCIAL]
     + [("POST", f"/v2/account/{kind}/{p}") for kind in ("link", "unlink")
        for p in SOCIAL]
     + [("POST", "/v2/friend/facebook"), ("POST", "/v2/friend/steam")]
     + [("POST", f"/v2/iap/purchase/{s}") for s in ("apple", "google", "huawei")]
     + [("GET", "/v2/iap/subscription"), ("POST", "/v2/iap/subscription/apple"),
-       ("POST", "/v2/iap/subscription/google"), ("GET", "/v2/iap/subscription/x")]
+       ("POST", "/v2/iap/subscription/google"),
+       ("GET", "/v2/iap/subscription/{original_transaction_id}")]
 )
 
 
-async def later_routes(server, tokens) -> dict:
-    """What the port answers on each route that a later slice ports, and
-    how many of its routes answer 501 at all."""
-    token = bearer(tokens[sorted(tokens)[0]][0])
-    answers = {}
-    for method, path in LATER_ROUTES:
-        r = await wsproto.request(HOST, server.port, method, path,
-                                  headers=token, body={})
-        answers[(method, path)] = (r.status, r.json())
-    unimplemented = [h for _, _, h in server.api._routes
-                     if h == server.api._h_unimplemented]
-    return {"answers": answers, "n_unimplemented": len(unimplemented)}
+def social_account(provider: str, i: int) -> dict:
+    """The credentials of player `i` for `provider` that the fakes
+    accept (`provider_fakes.stub_social`)."""
+    if provider == "facebookinstantgame":
+        return {"signed_player_info": F.instant_info(f"ig-{i}")}
+    if provider == "gamecenter":
+        return {**F.gamecenter_account(f"gc-player-{i}"),
+                "public_key_url": F.GAMECENTER_URL}
+    return {"token": f"{provider}-token-{i}"}
+
+
+async def providers_leg(server, norm, tokens, call) -> list:
+    """Every social and IAP route through the same script on both
+    servers: social sign-in (created, again, refused), link (taken,
+    refused) and unlink for each provider, the friend imports, the
+    purchases and subscriptions of the three stores (validated, seen
+    before, refused, listed, read by owner), and the routes' answers
+    with no receipt or session. Returns the status of each route the
+    script reached."""
+    devs = sorted(tokens)
+    a, b = devs[:2]
+    auth = {dv: bearer(tokens[dv][0]) for dv in devs}
+    hit = []
+
+    async def req(method, path, headers=None, body=None, route=None):
+        status, payload = await call(method, path, headers, body)
+        hit.append((route or path, status))
+        if isinstance(payload, dict) and payload.get("token"):
+            # A sign-in: name its user and a generated username.
+            claims = port_token.parse("defaultencryptionkey", payload["token"])
+            name = f"user:{path.rsplit('/', 1)[-1]}:{len(norm.names)}"
+            if claims.user_id not in norm.names:
+                norm.learn(claims.user_id, name)
+                norm.learn(claims.username, name + ":username")
+        return status, payload
+
+    for p in SOCIAL:
+        route = f"/v2/account/authenticate/{p}"
+        await req("POST", route + "?username=", basic(),
+                  {"account": social_account(p, 0)}, route)
+        await req("POST", route, basic(), {"account": social_account(p, 0)})
+        await req("POST", route + "?create=false", basic(),
+                  {"account": social_account(p, 3)}, route)
+        await req("POST", route, basic(), {"account": {"token": "bogus"}})
+        await req("POST", route, basic("wrong"), {"account": social_account(p, 0)})
+        link = f"/v2/account/link/{p}"
+        await req("POST", link, auth[a], social_account(p, 1))
+        await req("POST", link, auth[b], social_account(p, 1))
+        await req("POST", link, auth[b], social_account(p, 0))
+        await req("POST", link, auth[b], {"token": "bogus", "player_id": "x"})
+        await req("POST", link, None, social_account(p, 2))
+    await call("GET", "/v2/account", auth[a])
+    for p in SOCIAL:
+        await req("POST", f"/v2/account/unlink/{p}", auth[a], {})
+    await call("GET", "/v2/account", auth[a])
+    # Friend imports: the Facebook player's app friends (one of them
+    # linked above), then Steam's (a steam account linked first).
+    status, fb = await call("POST", "/v2/account/authenticate/facebook", basic(),
+                            {"account": {"token": "facebook-token-0"}})
+    fb_auth = bearer(fb["token"])
+    await req("POST", "/v2/account/link/facebook", auth[b],
+              {"token": "facebook-token-1"})
+    await req("POST", "/v2/friend/facebook", fb_auth,
+              {"account": {"token": "facebook-token-0"}})
+    await req("POST", "/v2/friend/facebook", fb_auth, {"token": "bogus"})
+    await req("POST", "/v2/friend/steam", auth[a], {})
+    await req("POST", "/v2/account/link/steam", auth[b], {"token": "steam-token-1"})
+    _, st = await call("POST", "/v2/account/authenticate/steam", basic(),
+                       {"account": {"token": "steam-token-0"}})
+    await req("POST", "/v2/friend/steam?reset=true", bearer(st["token"]), {},
+              "/v2/friend/steam")
+    await call("GET", "/v2/friend", fb_auth)
+    await call("GET", "/v2/friend", bearer(st["token"]))
+    # Purchases and subscriptions.
+    for store, receipt, bad in (
+        ("apple", F.apple_receipt(["t1", "t2"]), F.apple_receipt(["t3"], status=21003)),
+        ("google", F.google_receipt("gems", "tok-1"), F.google_receipt("g", "bad-token")),
+        ("huawei", F.huawei_receipt("coins", "hw-1"), F.huawei_receipt("c", "hw-bad")),
+    ):
+        path = f"/v2/iap/purchase/{store}"
+        await req("POST", path, auth[a], {"receipt": receipt})
+        await req("POST", path, auth[a], {"receipt": receipt})
+        await req("POST", path, auth[b], {"purchase": receipt, "persist": False})
+        await req("POST", path, auth[a], {"receipt": bad})
+        await req("POST", path, auth[a], {})
+        await req("POST", path, None, {"receipt": receipt})
+    for store, receipt in (("apple", F.apple_receipt(["s1", "s2"])),
+                           ("google", F.google_receipt("vip", "sub-tok"))):
+        path = f"/v2/iap/subscription/{store}"
+        await req("POST", path, auth[a], {"receipt": receipt})
+        await req("POST", path, auth[b], {"receipt": receipt})
+        await req("POST", path, auth[b], {"receipt": receipt, "persist": "false"})
+        await req("POST", path, auth[a], {"receipt": ""})
+    route = "/v2/iap/subscription/{original_transaction_id}"
+    await req("GET", "/v2/iap/subscription/orig-s2", auth[a], None, route)
+    await req("GET", "/v2/iap/subscription/sub-tok", auth[b], None, route)
+    await req("GET", "/v2/iap/subscription/missing", auth[a], None, route)
+    await req("GET", "/v2/iap/subscription?limit=1", auth[a], None,
+              "/v2/iap/subscription")
+    await req("GET", "/v2/iap/subscription", None)
+    return hit
 
 
 async def test_same_script_same_answers_as_the_jax_server(tmp_path):
@@ -1211,11 +1323,14 @@ async def test_same_script_same_answers_as_the_jax_server(tmp_path):
     # stay until the process exits: ROADMAP.md §C).
     assert not [t for t in threading.enumerate() if t not in jax_threads
                 and t.name.startswith(("lua-", "js-"))]
-    # The routes of later slices: exactly these 27 answer 501.
-    assert len(LATER_ROUTES) == got["later"]["n_unimplemented"] == 27
-    assert all(answer == (501, {"error": "not yet implemented",
-                                "message": "not yet implemented", "code": 12})
-               for answer in got["later"]["answers"].values())
+    # The social and IAP routes: all 27 reached, none answered 501, the
+    # same statuses (the bodies are in `http`).
+    assert got["providers"] == want["providers"]
+    reached = {(m, p) for m, p in PROVIDER_ROUTES
+               if any(r == p for r, _ in got["providers"])}
+    assert len(PROVIDER_ROUTES) == len(reached) == 27
+    assert not [r for r in got["providers"] if r[1] == 501]
+    assert {200, 400, 401, 404, 409} <= {st for _, st in got["providers"]}
     # The scrapes: the same families and the same unlabeled series
     # (values differ with each server's own components and timings, and
     # labeled series appear with the backend's activity: the JAX
@@ -1230,7 +1345,7 @@ def test_check_and_parse_args_agree_on_the_shared_sections():
     shared = [
         "logger", "metrics", "session", "socket", "database", "matchmaker",
         "match", "tracker", "runtime", "console", "leaderboard", "overload",
-        "tracing", "recovery", "devobs",
+        "tracing", "recovery", "devobs", "iap", "social", "satori",
     ]
     argv = [
         "--name", "node-7", "--data_dir", "/tmp/x", "--shutdown_grace_sec", "5",
@@ -1249,6 +1364,8 @@ def test_check_and_parse_args_agree_on_the_shared_sections():
         "--runtime.http_key", "k2", "--runtime.event_queue_workers", "2",
         "--console.port", "7400", "--console.username", "ops",
         "--devobs.capture_max_ms", "2500",
+        "--iap.google_refund_poll_sec", "60", "--iap.apple_shared_password", "pw",
+        "--social.steam_app_id", "480", "--satori.url", "https://s.test",
     ]
     port = port_config.parse_args(argv)
     jax = jax_config.parse_args(argv)
@@ -1370,7 +1487,7 @@ def _stop(proc) -> tuple[int, str]:
 # libraries the JAX server needs that the card's machine lacks (PyYAML
 # only when a --config file is given).
 _FOREIGN = ("jax", "nakama_tpu", "aiohttp", "websockets", "google.protobuf",
-            "prometheus_client", "grpc", "yaml")
+            "prometheus_client", "grpc", "yaml", "cryptography")
 
 
 def _foreign_imports(importtime: str) -> list[str]:

@@ -325,6 +325,11 @@ async def test_bound_observability_records_every_drain(tmp_path):
 
 
 def test_postgres_address_raises_instead_of_opening_sqlite():
-    with pytest.raises(NotImplementedError, match="pg.py"):
-        make_database(["postgres://u@h/db"])
+    """A postgres:// address opens the Postgres engine, never a SQLite
+    file of that name (`test_torch_pg.py` holds the engine itself)."""
+    from nakama_tpu_torch.storage.pg import PostgresDatabase
+
+    db = make_database(["postgres://u@h/db"])
+    assert isinstance(db, PostgresDatabase) and not isinstance(db, tdb.Database)
+    assert db.addresses == ["postgres://u@h/db"]
     assert isinstance(make_database(":memory:"), tdb.Database)
