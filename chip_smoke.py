@@ -2710,6 +2710,506 @@ async def haystack_ranks(port: int, token: str, owner: str) -> tuple[float, list
     return ms, [(x["owner_id"], x["rank"]) for x in r.json()["records"]]
 
 
+# ----------------------------------------------------------------- gRPC
+#
+# The server phase's gRPC clients: no grpcio on the card's host, so the
+# client is the port's own HPACK (`api/hpack.py`) and codec (`proto/`)
+# under a small client-side HTTP/2 framer. Its request headers are what
+# grpcio's C core sends (pseudo-headers, `te`, `content-type`,
+# `user-agent`, `grpc-accept-encoding`, `grpc-timeout`, then the
+# metadata), Huffman-coded and indexed into the dynamic table as that
+# encoder codes them, so the server's decoder sees on the card what it
+# sees from grpcio on the CPU.
+
+GRPC_SERVICE = "/nakama_tpu.api.NakamaApi/"
+
+
+class GrpcReply:
+    """One call's answer: `status` (the gRPC code), `message` (its
+    percent-decoded `grpc-message`), `body` (the response message as a
+    dict, or None), the response's `headers` and `trailers` (one list
+    where the answer was Trailers-Only)."""
+
+    def __init__(self, headers: list, trailers: list, data: bytes,
+                 response_type: str):
+        from nakama_tpu_torch.proto import decode_message
+
+        self.headers = headers
+        self.trailers = trailers
+        meta = dict(trailers)
+        self.status = int(meta.get("grpc-status", 2))
+        self.message = urllib.parse.unquote(meta.get("grpc-message", ""))
+        self.traceparent = meta.get("traceparent", "")
+        self.body = None
+        if self.status == 0:
+            if len(data) < 5 or data[0] or int.from_bytes(data[1:5], "big") != len(data) - 5:
+                raise AssertionError(f"a malformed gRPC response: {data[:16]!r}")
+            self.body = decode_message(response_type, data[5:])
+
+
+class GrpcClient:
+    """gRPC over one HTTP/2 connection (h2c, prior knowledge), many
+    concurrent calls on it. `hold_window` keeps back every WINDOW_UPDATE
+    until `release_window()` (the client's receive window stays at
+    RFC 9113's 65,535 bytes). `frames_*` and `bytes_*` count what went
+    each way; `goaway` is the last GOAWAY's (last stream id, code)."""
+
+    def __init__(self, host: str, port: int, hold_window: bool = False):
+        from nakama_tpu_torch.api import hpack
+
+        self.host, self.port = host, port
+        self.hold_window = hold_window
+        self.encoder = hpack.Encoder()
+        self.decoder = hpack.Decoder()
+        self.next_id = 1
+        self.streams: dict = {}
+        self.goaway = None
+        self.resets: dict = {}
+        self.frames_in = self.frames_out = self.bytes_in = self.bytes_out = 0
+        self.held = 0  # bytes consumed and not yet granted back
+        # The server's windows for what this client sends (RFC 9113's
+        # defaults until its SETTINGS and WINDOW_UPDATEs arrive).
+        self.send_window = 65_535
+        self.initial_window = 65_535
+        self.max_frame = 16_384
+        self.window_open = asyncio.Event()
+        self.reader = self.writer = self.task = None
+
+    async def connect(self) -> "GrpcClient":
+        from nakama_tpu_torch.api import h2
+
+        self.reader, self.writer = await asyncio.open_connection(self.host, self.port)
+        self._send(h2.PREFACE + h2.frame(h2.SETTINGS, 0, 0, h2.settings_payload(
+            {h2.SETTINGS_ENABLE_PUSH: 0, h2.SETTINGS_MAX_HEADER_LIST_SIZE: 16384})),
+            frames=1)
+        self.task = asyncio.get_running_loop().create_task(self._read())
+        return self
+
+    def _send(self, data: bytes, frames: int = 1) -> None:
+        self.frames_out += frames
+        self.bytes_out += len(data)
+        self.writer.write(data)
+
+    async def _read(self) -> None:
+        from nakama_tpu_torch.api import h2
+
+        block = bytearray()
+        try:
+            while True:
+                head = await self.reader.readexactly(9)
+                n = int.from_bytes(head[:3], "big")
+                ftype, flags = head[3], head[4]
+                sid = int.from_bytes(head[5:9], "big") & h2.MAX_WINDOW
+                payload = await self.reader.readexactly(n) if n else b""
+                self.frames_in += 1
+                self.bytes_in += 9 + n
+                st = self.streams.get(sid)
+                if ftype in (h2.HEADERS, h2.CONTINUATION):
+                    if ftype == h2.HEADERS:
+                        if flags & h2.FLAG_PADDED:
+                            payload = payload[1:len(payload) - payload[0]]
+                        if flags & h2.FLAG_PRIORITY:
+                            payload = payload[5:]
+                        block = bytearray()
+                        if st is not None:
+                            st["end"] = bool(flags & h2.FLAG_END_STREAM)
+                    block += payload
+                    if flags & h2.FLAG_END_HEADERS:
+                        headers = self.decoder.decode(bytes(block))
+                        if st is not None:
+                            st["blocks"].append(headers)
+                            if st["end"]:
+                                self._finish(sid)
+                elif ftype == h2.DATA:
+                    if flags & h2.FLAG_PADDED:
+                        payload = payload[1:len(payload) - payload[0]]
+                    if st is not None:
+                        st["data"] += payload
+                        if flags & h2.FLAG_END_STREAM:
+                            self._finish(sid)
+                    self.held += n
+                    if not self.hold_window:
+                        self.release_window(sid if st is not None and not
+                                            flags & h2.FLAG_END_STREAM else 0)
+                elif ftype == h2.SETTINGS and not flags & h2.FLAG_ACK:
+                    for off in range(0, len(payload), 6):
+                        key = int.from_bytes(payload[off:off + 2], "big")
+                        value = int.from_bytes(payload[off + 2:off + 6], "big")
+                        if key == h2.SETTINGS_INITIAL_WINDOW_SIZE:
+                            for other in self.streams.values():
+                                other["window"] += value - self.initial_window
+                            self.initial_window = value
+                        elif key == h2.SETTINGS_MAX_FRAME_SIZE:
+                            self.max_frame = value
+                    self._send(h2.frame(h2.SETTINGS, h2.FLAG_ACK, 0))
+                    self.window_open.set()
+                elif ftype == h2.WINDOW_UPDATE:
+                    inc = int.from_bytes(payload, "big") & h2.MAX_WINDOW
+                    if sid == 0:
+                        self.send_window += inc
+                    elif st is not None:
+                        st["window"] += inc
+                    self.window_open.set()
+                elif ftype == h2.PING and not flags & h2.FLAG_ACK:
+                    self._send(h2.frame(h2.PING, h2.FLAG_ACK, 0, payload))
+                elif ftype == h2.RST_STREAM:
+                    self.resets[sid] = int.from_bytes(payload, "big")
+                    if st is not None and not st["done"].done():
+                        st["done"].set_exception(ConnectionError(
+                            f"stream {sid} reset ({self.resets[sid]})"))
+                elif ftype == h2.GOAWAY:
+                    self.goaway = (int.from_bytes(payload[:4], "big") & h2.MAX_WINDOW,
+                                   int.from_bytes(payload[4:8], "big"))
+        except (asyncio.IncompleteReadError, ConnectionError):
+            pass
+        finally:
+            for st in self.streams.values():
+                if not st["done"].done():
+                    st["done"].set_exception(ConnectionError("connection closed"))
+
+    def release_window(self, sid: int = 0) -> None:
+        """Grant back what was consumed: the connection's window, and
+        `sid`'s where it is still open."""
+        from nakama_tpu_torch.api import h2
+
+        if not self.held:
+            return
+        inc = self.held.to_bytes(4, "big")
+        out = h2.frame(h2.WINDOW_UPDATE, 0, 0, inc)
+        frames = 1
+        if sid:
+            out += h2.frame(h2.WINDOW_UPDATE, 0, sid, inc)
+            frames = 2
+        self.held = 0
+        self._send(out, frames)
+
+    def _finish(self, sid: int) -> None:
+        st = self.streams[sid]
+        if not st["done"].done():
+            st["done"].set_result(None)
+
+    def start_call(self, method: str, request: dict, request_type: str,
+                   metadata=(), timeout_ms: int | None = None) -> int:
+        """Send one call's HEADERS and DATA; its stream id."""
+        from nakama_tpu_torch.api import h2
+        from nakama_tpu_torch.proto import encode_message
+
+        sid = self.next_id
+        self.next_id += 2
+        msg = encode_message(request_type, request)
+        headers = [
+            (":method", "POST"), (":scheme", "http"),
+            (":path", GRPC_SERVICE + method),
+            (":authority", f"{self.host}:{self.port}"),
+            ("te", "trailers"), ("content-type", "application/grpc"),
+            ("user-agent", "grpc-python-smoke/1.0 grpc-c/0 (linux; chttp2)"),
+            ("grpc-accept-encoding", "identity,deflate,gzip"),
+        ]
+        if timeout_ms is not None:
+            headers.append(("grpc-timeout", f"{timeout_ms}m"))
+        headers += list(metadata)
+        st = self.streams[sid] = {
+            "blocks": [], "data": bytearray(), "end": False,
+            "window": self.initial_window,
+            "done": asyncio.get_running_loop().create_future()}
+        block = self.encoder.encode(headers)
+        body = b"\x00" + len(msg).to_bytes(4, "big") + msg
+        if len(body) <= min(self.send_window, st["window"], self.max_frame):
+            self.send_window -= len(body)
+            st["window"] -= len(body)
+            self._send(h2.frame(h2.HEADERS, h2.FLAG_END_HEADERS, sid, block)
+                       + h2.frame(h2.DATA, h2.FLAG_END_STREAM, sid, body), 2)
+        else:
+            self._send(h2.frame(h2.HEADERS, h2.FLAG_END_HEADERS, sid, block))
+            st["sender"] = asyncio.get_running_loop().create_task(
+                self._send_body(sid, st, body))
+        return sid
+
+    async def _send_body(self, sid: int, st: dict, body: bytes) -> None:
+        """DATA frames within the server's windows and frame size."""
+        from nakama_tpu_torch.api import h2
+
+        view = memoryview(body)
+        while len(view):
+            room = min(self.send_window, st["window"], self.max_frame)
+            if room <= 0:
+                self.window_open.clear()
+                await self.window_open.wait()
+                continue
+            chunk, view = view[:room], view[room:]
+            self.send_window -= len(chunk)
+            st["window"] -= len(chunk)
+            self._send(h2.frame(h2.DATA, 0 if len(view) else h2.FLAG_END_STREAM,
+                                sid, bytes(chunk)))
+            await self.writer.drain()
+
+    async def reply(self, sid: int, response_type: str) -> GrpcReply:
+        st = self.streams[sid]
+        try:
+            await st["done"]
+        finally:
+            self.streams.pop(sid, None)
+        blocks = st["blocks"]
+        return GrpcReply(blocks[0], blocks[-1], bytes(st["data"]), response_type)
+
+    async def call(self, method: str, request: dict, request_type: str,
+                   response_type: str, metadata=(), timeout_ms=None) -> GrpcReply:
+        sid = self.start_call(method, request, request_type, metadata, timeout_ms)
+        return await self.reply(sid, response_type)
+
+    def reset(self, sid: int) -> None:
+        """RST_STREAM (CANCEL) from the client."""
+        from nakama_tpu_torch.api import h2
+
+        self._send(h2.frame(h2.RST_STREAM, 0, sid, h2.CANCEL.to_bytes(4, "big")))
+        st = self.streams.pop(sid, None)
+        if st is not None and not st["done"].done():
+            st["done"].cancel()
+
+    async def close(self) -> None:
+        if self.writer is not None:
+            self.writer.close()
+        if self.task is not None:
+            await asyncio.gather(self.task, return_exceptions=True)
+
+
+# The server phase's gRPC leg: clients, connections, streams at a time
+# on each (each client's calls in turn), and the rpcs each client makes.
+GRPC_CLIENTS = 64
+GRPC_CONNECTIONS = 8
+GRPC_COLLECTION = "smoke-grpc"
+GRPC_RPCS = ("AuthenticateDevice", "GetAccount", "WriteStorageObjects",
+             "ReadStorageObjects", "WriteLeaderboardRecord",
+             "ListLeaderboardRecordsAroundOwner")
+
+
+def grpc_requests(i: int, kind: str, rpc: str, uid: str = "") -> tuple:
+    """Client `i`'s request for `rpc` as gRPC (request dict, its message,
+    the response message) and as REST (method, path, JSON body):
+    `kind` names the device ("grpc" or its REST twin, "rest")."""
+    device = f"smoke-{kind}-{i:04d}"
+    score = int(np.random.default_rng(9000 + i).integers(0, 20_000))
+    value = json.dumps({"i": i, "kind": kind, "pad": "x" * 200})
+    obj = {"collection": GRPC_COLLECTION, "key": f"k{i}"}
+    return {
+        "AuthenticateDevice": (
+            {"account": {"id": device}, "username": device},
+            "AuthenticateRequest", "Session",
+            "POST", "/v2/account/authenticate/device",
+            {"account": {"id": device}, "username": device}),
+        "GetAccount": ({}, "Empty", "Account", "GET", "/v2/account", None),
+        "WriteStorageObjects": (
+            {"objects": [{**obj, "value": value, "permission_read": 1,
+                          "permission_write": 1}]},
+            "WriteStorageObjectsRequest", "StorageObjectAcks",
+            "PUT", "/v2/storage",
+            {"objects": [{**obj, "value": value, "permission_read": 1,
+                          "permission_write": 1}]}),
+        "ReadStorageObjects": (
+            {"object_ids": [{**obj, "user_id": uid}]},
+            "ReadStorageObjectsRequest", "StorageObjects",
+            "POST", "/v2/storage", {"object_ids": [{**obj, "user_id": uid}]}),
+        "WriteLeaderboardRecord": (
+            {"leaderboard_id": SERVER_BOARD, "score": str(score),
+             "subscore": str(i)},
+            "WriteLeaderboardRecordRequest", "LeaderboardRecord",
+            "POST", f"/v2/leaderboard/{SERVER_BOARD}",
+            {"score": score, "subscore": i}),
+        "ListLeaderboardRecordsAroundOwner": (
+            {"leaderboard_id": SERVER_BOARD, "owner_id": uid, "limit": 10},
+            "ListLeaderboardRecordsAroundOwnerRequest", "LeaderboardRecordList",
+            "GET", f"/v2/leaderboard/{SERVER_BOARD}/owner/{uid}?limit=10", None),
+    }[rpc]
+
+
+async def grpc_leg(server, shared: dict) -> dict:
+    """64 gRPC clients on 8 HTTP/2 connections (8 streams at a time on
+    each) through the server's gateway, each beside a REST twin making
+    the same calls at the same time: device sign-in (Basic server key),
+    account, a storage write and read, a record on the smoke's board (on
+    the card), then, once every record is in and past the flush
+    interval, each client's haystack
+    (`ListLeaderboardRecordsAroundOwner`): every rank
+    the oracle's, every gRPC window equal to the same request over REST
+    mapped through `LeaderboardRecordList`. Also: a bad bearer token
+    answers UNAUTHENTICATED, every answer carries a `traceparent`
+    trailer, a stream the client resets leaves its connection serving.
+    The connections stay open for the phase's stop (`grpc_stop`).
+    Returns each rpc's p50/p99 over gRPC and p50 over REST, frames and
+    bytes a call, and the leg's `lex_ranks` and `stage1_wgmma`
+    launches."""
+    from nakama_tpu_torch import kernels
+    from nakama_tpu_torch.api import wsproto
+    from nakama_tpu_torch.proto import decode_message, encode_message
+
+    t_leg = time.perf_counter()
+    basic = "Basic " + base64.b64encode(f"{SERVER_KEY}:".encode()).decode()
+    conns = [await GrpcClient("127.0.0.1", server.grpc_port).connect()
+             for _ in range(GRPC_CONNECTIONS)]
+    shared["grpc_conns"] = conns
+    lat = {kind: {rpc: [] for rpc in GRPC_RPCS} for kind in ("grpc", "rest")}
+    users = {"grpc": {}, "rest": {}}
+    tokens = {"grpc": {}, "rest": {}}
+    no_trace: list = []
+    wgmma0 = kernels.STAGE1_WGMMA.launches
+    stats0 = server.grpc.stats()
+    c_frames0 = [(c.frames_in, c.frames_out, c.bytes_in, c.bytes_out) for c in conns]
+
+    async def grpc_call(i: int, rpc: str, auth: str):
+        req, req_type, resp_type, *_ = grpc_requests(i, "grpc", rpc,
+                                                     users["grpc"].get(i, ""))
+        t0 = time.perf_counter()
+        r = await conns[i % GRPC_CONNECTIONS].call(
+            rpc, req, req_type, resp_type, [("authorization", auth)])
+        lat["grpc"][rpc].append((time.perf_counter() - t0) * 1e3)
+        if r.status != 0:
+            raise AssertionError(f"grpc client {i}: {rpc} {r.status} {r.message}")
+        if not r.traceparent:
+            no_trace.append(rpc)
+        return r.body
+
+    async def rest_call(i: int, rpc: str, auth: str):
+        *_, method, path, body = grpc_requests(i, "rest", rpc,
+                                               users["rest"].get(i, ""))
+        t0 = time.perf_counter()
+        r = await wsproto.request("127.0.0.1", server.port, method, path,
+                                  headers={"Authorization": auth}, body=body)
+        lat["rest"][rpc].append((time.perf_counter() - t0) * 1e3)
+        if r.status != 200:
+            raise AssertionError(f"rest twin {i}: {rpc} {r.status} {r.body[:200]!r}")
+        return r.json()
+
+    async def client(i: int, kind: str):
+        call = grpc_call if kind == "grpc" else rest_call
+        tokens[kind][i] = (await call(i, "AuthenticateDevice", basic))["token"]
+        bearer = f"Bearer {tokens[kind][i]}"
+        users[kind][i] = (await call(i, "GetAccount", bearer))["user"]["id"]
+        await call(i, "WriteStorageObjects", bearer)
+        got = await call(i, "ReadStorageObjects", bearer)
+        if json.loads(got["objects"][0]["value"])["i"] != i:
+            raise AssertionError(f"{kind} client {i}: read {got}")
+        rec = await call(i, "WriteLeaderboardRecord", bearer)
+        if rec["owner_id"] != users[kind][i]:
+            raise AssertionError(f"{kind} client {i}: record {rec}")
+
+    # Each gRPC client beside its REST twin: the same calls under the
+    # same load.
+    await asyncio.gather(*(client(i, kind) for i in range(GRPC_CLIENTS)
+                           for kind in ("grpc", "rest")))
+    # Past the flush interval, one untimed read flushes the board (the
+    # staleness contract); then the haystacks, both kinds at once.
+    await asyncio.sleep(server.config.leaderboard.device_flush_interval_sec)
+    await wsproto.request(
+        "127.0.0.1", server.port, "GET",
+        f"/v2/leaderboard/{SERVER_BOARD}/owner/{users['rest'][0]}?limit=10",
+        headers={"Authorization": f"Bearer {tokens['rest'][0]}"})
+    lex0 = kernels.LEX_RANKS.launches
+    hay, _ = await asyncio.gather(
+        asyncio.gather(*(grpc_call(i, "ListLeaderboardRecordsAroundOwner",
+                                   f"Bearer {tokens['grpc'][i]}")
+                         for i in range(GRPC_CLIENTS))),
+        asyncio.gather(*(rest_call(i, "ListLeaderboardRecordsAroundOwner",
+                                   f"Bearer {tokens['rest'][i]}")
+                         for i in range(GRPC_CLIENTS))))
+    lex_leg = kernels.LEX_RANKS.launches - lex0
+    check_ranks(server, [[(r["owner_id"], r["rank"]) for r in w["records"]]
+                         for w in hay])
+    # The same requests over REST, read back through the response
+    # message: the same windows.
+    for i, window in enumerate(hay):
+        uid = users["grpc"][i]
+        r = await wsproto.request(
+            "127.0.0.1", server.port, "GET",
+            f"/v2/leaderboard/{SERVER_BOARD}/owner/{uid}?limit=10",
+            headers={"Authorization": f"Bearer {tokens['grpc'][i]}"})
+        mapped = decode_message("LeaderboardRecordList", encode_message(
+            "LeaderboardRecordList", r.json()))
+        if r.status != 200 or mapped != window:
+            raise AssertionError(f"grpc client {i}: haystack differs from REST")
+    calls = sum(len(v) for v in lat["grpc"].values())
+    stats1 = server.grpc.stats()
+    client_frames = [sum(c.frames_in - f[0] for c, f in zip(conns, c_frames0)),
+                     sum(c.frames_out - f[1] for c, f in zip(conns, c_frames0)),
+                     sum(c.bytes_in - f[2] for c, f in zip(conns, c_frames0)),
+                     sum(c.bytes_out - f[3] for c, f in zip(conns, c_frames0))]
+    # A bad bearer token; a stream the client resets.
+    bad = await conns[0].call("GetAccount", {}, "Empty", "Account",
+                              [("authorization", "Bearer not-a-token")])
+    if bad.status != 16 or not bad.traceparent:
+        raise AssertionError(f"bad token: {bad.status} {bad.message}")
+    sid = conns[1].start_call("GetAccount", {}, "Empty",
+                              [("authorization", f"Bearer {tokens['grpc'][1]}")])
+    conns[1].reset(sid)
+    after = await conns[1].call("GetAccount", {}, "Empty", "Account",
+                                [("authorization", f"Bearer {tokens['grpc'][1]}")])
+    if after.status != 0 or conns[1].goaway is not None:
+        raise AssertionError(f"after a reset: {after.status}, {conns[1].goaway}")
+    if no_trace:
+        raise AssertionError(f"answers without a traceparent: {no_trace[:8]}")
+    if lex_leg <= 0:
+        raise AssertionError("the haystacks launched no lex_ranks")
+    return {
+        "clients": GRPC_CLIENTS, "connections": GRPC_CONNECTIONS,
+        "calls": calls,
+        "ms": {rpc: {"grpc": pcts(lat["grpc"][rpc]),
+                     "rest_median_ms": pcts(lat["rest"][rpc])["median_ms"]}
+               for rpc in GRPC_RPCS},
+        # At the server's transport and at the clients, a call.
+        "per_call": {
+            "server_frames_in": (stats1["frames_in"] - stats0["frames_in"]) / calls,
+            "server_frames_out": (stats1["frames_out"] - stats0["frames_out"]) / calls,
+            "server_bytes_in": (stats1["bytes_in"] - stats0["bytes_in"]) / calls,
+            "server_bytes_out": (stats1["bytes_out"] - stats0["bytes_out"]) / calls,
+            "client_frames_in": client_frames[0] / calls,
+            "client_frames_out": client_frames[1] / calls,
+        },
+        "statuses": server.grpc.stats()["statuses"],
+        "unauthenticated": bad.status,
+        "reset_then_served": after.status == 0,
+        # The haystacks' (gRPC and REST) launches.
+        "lex_ranks_launches": lex_leg,
+        "stage1_wgmma_launches": kernels.STAGE1_WGMMA.launches - wgmma0,
+        "seconds": time.perf_counter() - t_leg,
+    }
+
+
+async def grpc_stop(server, shared: dict, stop) -> dict:
+    """The phase's stop with the gRPC clients still connected: one call
+    (a sign-in) in flight, held 0.3 s inside the server once admitted,
+    across `stop()`, which must complete; every connection receives
+    GOAWAY."""
+    conns = shared["grpc_conns"]
+    admit = server.overload.admission.admit
+    inside = asyncio.Event()
+
+    async def held_admit(cls, deadline=None):
+        await admit(cls, deadline)
+        if not inside.is_set():
+            inside.set()
+            await asyncio.sleep(0.3)
+
+    server.overload.admission.admit = held_admit
+    # A sign-in (the leg's session tokens have expired by now): the RPC
+    # class, which the stop's drain still admits.
+    basic = "Basic " + base64.b64encode(f"{SERVER_KEY}:".encode()).decode()
+    req, req_type, resp_type, *_ = grpc_requests(0, "grpc", "AuthenticateDevice")
+    sid = conns[0].start_call("AuthenticateDevice", req, req_type,
+                              [("authorization", basic)])
+    await asyncio.wait_for(inside.wait(), 10)
+    t0 = time.perf_counter()
+    await stop()
+    stop_s = time.perf_counter() - t0
+    reply = await asyncio.wait_for(conns[0].reply(sid, resp_type), 10)
+    goaways = [c.goaway for c in conns]
+    for c in conns:
+        await c.close()
+    if (reply.status != 0 or not reply.body.get("token")
+            or any(g is None or g[1] != 0 for g in goaways)):
+        raise AssertionError(f"stop: in flight {reply.status}, GOAWAYs {goaways}")
+    return {"in_flight_status": reply.status, "goaways": len(goaways),
+            "stop_s": stop_s}
+
+
 def check_ranks(server, windows: list) -> None:
     """Every rank of every window is the host oracle's (1-based)."""
     oracle = server.leaderboards.ranks
@@ -3266,7 +3766,8 @@ async def console_leg(server, results: list, capture) -> dict:
     board = [b for b in engine["boards"] if b["board_id"] == SERVER_BOARD]
     out["rank_engine"] = {"device": engine["device"], "board": board}
     if (engine["device"] != str(DEVICE) or len(board) != 1 or board[0]["host_only"]
-            or board[0]["entries"] != SERVER_BOARD_RECORDS + SERVER_CLIENTS):
+            or board[0]["entries"] != SERVER_BOARD_RECORDS + SERVER_CLIENTS
+            + 2 * GRPC_CLIENTS):
         raise AssertionError(f"console rank engine {out['rank_engine']}")
     lex0 = kernels.LEX_RANKS.launches
     records = (await call("GET", f"/v2/console/leaderboard/{SERVER_BOARD}?limit=100"))
@@ -3459,6 +3960,13 @@ def phase_server(pickled: bytes) -> dict:
         finally:
             res["protobuf_encodes"] = encodes.close()
         res["client_leg_s"] = time.perf_counter() - t0
+        # The gRPC front door on the same server: its clients' records
+        # join the board before the socket clients read their haystacks.
+        await asyncio.sleep(cfg.leaderboard.device_flush_interval_sec)
+        grpc_res = await grpc_leg(server, shared)
+        emit({"phase": "server_grpc", "card": card(), **grpc_res})
+        res["grpc"] = {k: grpc_res[k] for k in (
+            "calls", "lex_ranks_launches", "stage1_wgmma_launches", "seconds")}
         # Haystack reads once every write is in: past the flush interval
         # (the staleness contract), the first read flushes the board.
         await asyncio.sleep(cfg.leaderboard.device_flush_interval_sec)
@@ -3543,7 +4051,7 @@ def phase_server(pickled: bytes) -> dict:
                 or res["leaderboard"]["rank_device_calls"] <= 0
                 or res["leaderboard"]["lex_ranks_launches"] <= 0
                 or board is None
-                or board.count != SERVER_BOARD_RECORDS + SERVER_CLIENTS
+                or board.count != SERVER_BOARD_RECORDS + SERVER_CLIENTS + 2 * GRPC_CLIENTS
                 or lb_device.device != DEVICE or lb_device.fallbacks
                 or lb_device.breaker.failures):
             raise AssertionError(f"the server's matches and board: {res['leaderboard']}")
@@ -3647,7 +4155,7 @@ def phase_server(pickled: bytes) -> dict:
 
         ckpt.checkpoint = timed_checkpoint
         t0 = time.perf_counter()
-        await server.stop()
+        res["grpc"]["stop"] = await grpc_stop(server, shared, server.stop)
         res["stop_s"] = time.perf_counter() - t0
         res["final_checkpoint"] = final
         held = live_ticket_ids(mm)

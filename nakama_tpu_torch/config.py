@@ -8,8 +8,8 @@ sections the port serves so far: the server's own fields (`name`,
 `socket`, `database`, `matchmaker`, `match`, `tracker`, `runtime`,
 `console`, `leaderboard`, `iap`, `social`, `satori`, `overload`,
 `tracing`, `recovery` and `devobs`. The matchmaker section drops the mesh-sharding
-knobs (the port runs on one card); `socket` has no `grpc_port` and
-`database` no `group_commit` (the port has neither path), and fields no
+knobs (the port runs on one card); `database` has no `group_commit`
+(the port has no such path), and fields no
 port code reads yet are left out until the code that reads them lands
 (the metrics section's `reporting_freq_sec`,
 `session.single_session`, `socket.read_buffer_size_bytes`,
@@ -78,6 +78,10 @@ class SocketConfig:
     ping_period_ms: int = 15_000
     pong_wait_ms: int = 25_000
     outgoing_queue_size: int = 64
+    # gRPC front door port (reference convention: gRPC on port-1 = 7349,
+    # HTTP on 7350, console on 7351 — server/config.go). 0 = main port - 1
+    # (ephemeral when port is 0); -1 disables the gRPC listener.
+    grpc_port: int = 0
 
 
 @dataclass

@@ -1,12 +1,16 @@
-"""The port's own rtapi codec: `format=protobuf` without `google.protobuf`.
+"""The port's own protobuf codec: `format=protobuf` sockets and the gRPC
+front door without `google.protobuf`.
 
-`rtapi.proto` is the port's copy of the JAX package's schema;
-`schema.py` reads it, `wire.py` is the protobuf wire format over the
-plain dict messages it describes, and `json_map.py` the proto3 JSON
-mapping between those dicts and the JSON envelope. `encode_envelope`
-and `decode_envelope` are what the JAX package's `protocol.py` does
-with `json_format` and `rtapi_pb2.Envelope`: the same bytes (wherever
-the upb runtime's map order does not decide them) and the same dicts.
+`rtapi.proto` and `api.proto` are the port's copies of the JAX
+package's schemas; `schema.py` reads them, `wire.py` is the protobuf
+wire format over the plain dict messages they describe, and
+`json_map.py` the proto3 JSON mapping between those dicts and JSON.
+`encode_envelope` and `decode_envelope` are what the JAX package's
+`protocol.py` does with `json_format` and `rtapi_pb2.Envelope`;
+`encode_message` and `decode_message` the same for any message of
+`api.proto` by name, as the JAX gRPC gateway does with `api_pb2`: the
+same bytes (wherever the upb runtime's map order does not decide them)
+and the same dicts.
 """
 
 from __future__ import annotations
@@ -19,7 +23,9 @@ __all__ = [
     "EncodeError",
     "ProtocolError",
     "decode_envelope",
+    "decode_message",
     "encode_envelope",
+    "encode_message",
     "envelope_schema",
 ]
 
@@ -42,3 +48,20 @@ def decode_envelope(raw: bytes) -> dict:
     frame that is not an Envelope."""
     env = envelope_schema()
     return json_map.to_json(wire.decode(raw, env), env)
+
+
+def encode_message(name: str, message: dict) -> bytes:
+    """`ParseDict(message, api_pb2.<name>(), ignore_unknown_fields=True)
+    .SerializeToString()` for a message of `api.proto` (by its name in
+    the package or its full name); raises `EncodeError` where
+    `ParseDict` raises."""
+    msg = schema.api().message(name)
+    return wire.encode(json_map.from_json(message, msg), msg)
+
+
+def decode_message(name: str, raw: bytes) -> dict:
+    """`MessageToDict(api_pb2.<name>.FromString(raw),
+    preserving_proto_field_name=True)`; raises `ProtocolError` for bytes
+    that are not such a message."""
+    msg = schema.api().message(name)
+    return json_map.to_json(wire.decode(raw, msg), msg)

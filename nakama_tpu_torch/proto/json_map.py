@@ -9,19 +9,22 @@ dict messages of `wire.py`. What each keeps of `json_format`:
   repeated and map fields; a sub-message or oneof member that is set
   comes out even when empty (`"ping": {}`). `bytes` come out as
   standard base64 with padding; a double that is not finite as "NaN",
-  "Infinity" or "-Infinity".
+  "Infinity" or "-Infinity"; an `int64` as a decimal string.
 - Input takes a field by its proto name or its lowerCamelCase JSON
   name, and skips unknown keys at every depth. `bytes` accept both
   base64 alphabets and missing padding, and take characters outside
   the alphabet as `json_format` does (dropped: `"!!"` is empty bytes).
-  `int32` accepts numeric strings and integral floats and refuses 1.5,
-  booleans and values outside 32 bits; a double accepts numbers,
+  `int32` and `int64` accept numeric strings and integral floats and
+  refuse 1.5, booleans and values outside their width; a double accepts numbers,
   numeric strings and "NaN"/"Infinity"/"-Infinity"; a bool only a
   boolean; a string only a string without unpaired surrogates. `null`
   clears a field (or sets `null_value` in a `Value`).
 - `google.protobuf.Struct`, `Value` and `ListValue` map to plain JSON; a
   Struct number comes back as a float, and a number that is not finite
-  cannot go out (`json_format` raises for it too).
+  cannot go out (`json_format` raises for it too). A wrapper
+  (`google.protobuf.Int32Value`, `BoolValue`, ...) maps to its bare
+  value, and a wrapper that is set comes out even at zero (`"state": 0`
+  is a filter, an absent `state` none).
 - Two members of one oneof in one object, a key given twice under its
   two names, a `[name]` extension key, a list where an object belongs
   or the reverse: refused, as `ParseDict` refuses them.
@@ -41,8 +44,10 @@ from .schema import (
     TYPE_DOUBLE,
     TYPE_ENUM,
     TYPE_INT32,
+    TYPE_INT64,
     TYPE_MESSAGE,
     TYPE_STRING,
+    WRAPPERS,
     Message,
 )
 from .wire import ProtocolError
@@ -58,7 +63,11 @@ _EXTENSION_NAME = re.compile(r"\[[a-zA-Z0-9\._]*\]$")
 _UNPAIRED_SURROGATE = re.compile(
     "[\ud800-\udbff](?![\udc00-\udfff])|(?<![\ud800-\udbff])[\udc00-\udfff]"
 )
-_INT32_MIN, _INT32_MAX = -(1 << 31), (1 << 31) - 1
+_INT_RANGE = {
+    TYPE_INT32: (-(1 << 31), (1 << 31) - 1),
+    TYPE_ENUM: (-(1 << 31), (1 << 31) - 1),
+    TYPE_INT64: (-(1 << 63), (1 << 63) - 1),
+}
 
 
 class EncodeError(ValueError):
@@ -81,6 +90,8 @@ def _scalar_out(ftype: int, value):
         return base64.b64encode(value).decode("utf-8")
     if ftype == TYPE_DOUBLE:
         return _double_out(value)
+    if ftype == TYPE_INT64:
+        return str(value)
     return value
 
 
@@ -123,6 +134,9 @@ def _message_out(msg: dict, schema: Message):
         return _value_out(msg)
     if name == LIST_VALUE:
         return [_value_out(x) for x in msg.get("values", [])]
+    if name in WRAPPERS:
+        f = schema.by_name["value"]
+        return _scalar_out(f.type, msg.get("value", _ZERO[f.type]))
     out: dict = {}
     for f in schema.ordered:
         if f.name not in msg:
@@ -154,7 +168,11 @@ def to_json(msg: dict, schema: Message) -> dict:
 # ------------------------------------------------------------------- input
 
 
-def _int32_in(value) -> int:
+_ZERO = {TYPE_DOUBLE: 0.0, TYPE_INT32: 0, TYPE_INT64: 0, TYPE_BOOL: False,
+         TYPE_STRING: "", TYPE_BYTES: b""}
+
+
+def _int_in(value, ftype: int) -> int:
     if isinstance(value, float) and not value.is_integer():
         raise EncodeError(f"Couldn't parse integer: {value}")
     if isinstance(value, str) and " " in value:
@@ -172,7 +190,8 @@ def _int32_in(value) -> int:
                 f'Couldn\'t parse non-integer string: "{value}"'
             ) from None
         n = int(f)
-    if not _INT32_MIN <= n <= _INT32_MAX:
+    lo, hi = _INT_RANGE[ftype]
+    if not lo <= n <= hi:
         raise EncodeError(f"Value out of range: {n}")
     return n
 
@@ -193,8 +212,8 @@ def _double_in(value) -> float:
 
 
 def _scalar_in(ftype: int, value, key: bool = False):
-    if ftype == TYPE_INT32 or ftype == TYPE_ENUM:
-        return _int32_in(value)
+    if ftype in _INT_RANGE:
+        return _int_in(value, ftype)
     if ftype == TYPE_DOUBLE:
         return _double_in(value)
     if ftype == TYPE_BOOL:
@@ -232,6 +251,8 @@ class _Parser:
             out = self.value(js)
         elif name == LIST_VALUE:
             out = self.list_value(js)
+        elif name in WRAPPERS:
+            out = {"value": _scalar_in(schema.by_name["value"].type, js)}
         else:
             out = self.fields(js, schema)
         self.depth -= 1

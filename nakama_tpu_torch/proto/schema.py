@@ -1,12 +1,15 @@
-"""A small proto3 reader: the rtapi schema without `protoc`.
+"""A small proto3 reader: the rtapi and api schemas without `protoc`.
 
-Reads the subset of proto3 that `rtapi.proto` uses: `syntax`,
-`package`, `import` (of `google/protobuf/struct.proto`, whose text is
-kept here), `option` (ignored), messages and nested messages, enums,
-`repeated` fields, `map<,>` fields (read as nested `...Entry` messages,
-as `protoc` synthesizes them), `oneof` groups, `reserved` (ignored) and
-the scalar types `string`, `bytes`, `bool`, `int32` and `double`. Type
-names resolve by proto scoping, innermost scope first.
+Reads the subset of proto3 that `rtapi.proto` and `api.proto` use:
+`syntax`, `package`, `import` (of `google/protobuf/struct.proto` and
+`google/protobuf/wrappers.proto`, whose texts are kept here), `option`
+(ignored), messages and nested messages, enums, `repeated` fields,
+`map<,>` fields (read as nested `...Entry` messages, as `protoc`
+synthesizes them), `oneof` groups, `reserved` (ignored), the scalar
+types `string`, `bytes`, `bool`, `int32`, `int64` and `double`, and
+`service` blocks (each rpc's name and its input and output messages,
+kept in `Schema.services`). Type names resolve by proto scoping,
+innermost scope first.
 
 Every field yields its name, number, type and label, numbered as
 `descriptor.proto` numbers them (`TYPE_*`, `LABEL_*`), so the schema
@@ -20,6 +23,7 @@ import re
 from dataclasses import dataclass, field
 
 TYPE_DOUBLE = 1
+TYPE_INT64 = 3
 TYPE_INT32 = 5
 TYPE_BOOL = 8
 TYPE_STRING = 9
@@ -33,6 +37,7 @@ LABEL_REPEATED = 3
 SCALAR_TYPES = {
     "double": TYPE_DOUBLE,
     "int32": TYPE_INT32,
+    "int64": TYPE_INT64,
     "bool": TYPE_BOOL,
     "string": TYPE_STRING,
     "bytes": TYPE_BYTES,
@@ -64,7 +69,41 @@ message ListValue {
 }
 """
 
-KNOWN_IMPORTS = {"google/protobuf/struct.proto": STRUCT_PROTO}
+# The wrappers api.proto uses, as google/protobuf/wrappers.proto
+# declares them (comments and options left out, and the wrappers of the
+# types this reader does not read: float, uint32, uint64).
+WRAPPERS_PROTO = """
+syntax = "proto3";
+package google.protobuf;
+message DoubleValue {
+  double value = 1;
+}
+message Int64Value {
+  int64 value = 1;
+}
+message Int32Value {
+  int32 value = 1;
+}
+message BoolValue {
+  bool value = 1;
+}
+message StringValue {
+  string value = 1;
+}
+message BytesValue {
+  bytes value = 1;
+}
+"""
+
+KNOWN_IMPORTS = {
+    "google/protobuf/struct.proto": STRUCT_PROTO,
+    "google/protobuf/wrappers.proto": WRAPPERS_PROTO,
+}
+# Messages the JSON mapping writes as their bare `value`.
+WRAPPERS = frozenset(
+    f"google.protobuf.{n}Value"
+    for n in ("Double", "Int64", "Int32", "Bool", "String", "Bytes")
+)
 
 
 class SchemaError(ValueError):
@@ -122,10 +161,26 @@ class Message:
 
 
 @dataclass
+class Method:
+    name: str
+    input: Message
+    output: Message
+
+
+@dataclass
+class Service:
+    full_name: str
+    # rpc name -> method, in declaration order.
+    methods: dict[str, Method] = field(default_factory=dict)
+
+
+@dataclass
 class Schema:
     package: str
     messages: dict[str, Message]  # full name -> message
     enums: dict[str, dict[str, int]]  # full name -> value name -> number
+    # full name -> service
+    services: dict[str, Service] = field(default_factory=dict)
 
     def message(self, name: str) -> Message:
         """A message by full name, or by its name within the package."""
@@ -168,6 +223,8 @@ class _Reader:
         self.package = ""
         # (message, scope) pairs whose field types resolve at the end.
         self.pending: list[tuple[Message, str]] = []
+        # (service, rpc name, input type, output type), resolved at the end.
+        self.rpcs: list[tuple[Service, str, str, str]] = []
 
     def peek(self) -> str:
         return self.toks[self.i] if self.i < len(self.toks) else ""
@@ -217,6 +274,8 @@ class _Reader:
                 self.message(self.package)
             elif tok == "enum":
                 self.enum(self.package)
+            elif tok == "service":
+                self.service()
             elif tok == ";":
                 continue
             else:
@@ -225,6 +284,44 @@ class _Reader:
             for f in msg.fields:
                 self.resolve(f, scope)
             msg._index()
+        for svc, name, req, resp in self.rpcs:
+            svc.methods[name] = Method(
+                name, self.resolve_message(req, self.package),
+                self.resolve_message(resp, self.package))
+
+    def service(self) -> None:
+        svc = Service(f"{self.package}.{self.next()}".lstrip("."))
+        self.schema.services[svc.full_name] = svc
+        self.expect("{")
+        while (tok := self.next()) != "}":
+            if tok == "option":
+                self.skip_statement()
+                continue
+            if tok == ";":
+                continue
+            if tok != "rpc":
+                raise SchemaError(f"unexpected {tok!r} in a service")
+            name = self.next()
+            self.expect("(")
+            req = self.next()
+            if req == "stream":
+                raise SchemaError("streaming rpcs are not read")
+            self.expect(")")
+            self.expect("returns")
+            self.expect("(")
+            resp = self.next()
+            if resp == "stream":
+                raise SchemaError("streaming rpcs are not read")
+            self.expect(")")
+            if self.peek() == "{":  # a body of options
+                self.next()
+                depth = 1
+                while depth:
+                    t = self.next()
+                    depth += (t == "{") - (t == "}")
+            else:
+                self.expect(";")
+            self.rpcs.append((svc, name, req, resp))
 
     def enum(self, scope: str) -> None:
         full = f"{scope}.{self.next()}".lstrip(".")
@@ -312,18 +409,24 @@ class _Reader:
         return Field(name, number, TYPE_MESSAGE, LABEL_REPEATED,
                      type_name=entry.full_name)
 
+    @staticmethod
+    def candidates(name: str, scope: str) -> list[str]:
+        if name.startswith("."):
+            return [name[1:]]
+        parts = scope.split(".") if scope else []
+        return [".".join(parts[:k] + [name]) for k in range(len(parts), -1, -1)]
+
+    def resolve_message(self, name: str, scope: str) -> Message:
+        for cand in self.candidates(name, scope):
+            if cand in self.schema.messages:
+                return self.schema.messages[cand]
+        raise SchemaError(f"unknown message {name!r} in {scope}")
+
     def resolve(self, f: Field, scope: str) -> None:
         if f.type and f.type != TYPE_MESSAGE:
             return
         name = f.type_name
-        if name.startswith("."):
-            candidates = [name[1:]]
-        else:
-            parts = scope.split(".") if scope else []
-            candidates = [
-                ".".join(parts[:k] + [name]) for k in range(len(parts), -1, -1)
-            ]
-        for cand in candidates:
+        for cand in self.candidates(name, scope):
             if cand in self.schema.messages:
                 f.type = TYPE_MESSAGE
                 f.type_name = cand
@@ -345,14 +448,23 @@ def parse(text: str) -> Schema:
     return schema
 
 
-_RTAPI: Schema | None = None
+_READ: dict[str, Schema] = {}
+
+
+def _read(name: str) -> Schema:
+    if name not in _READ:
+        path = os.path.join(os.path.dirname(__file__), name)
+        with open(path, encoding="utf-8") as f:
+            _READ[name] = parse(f.read())
+    return _READ[name]
 
 
 def rtapi() -> Schema:
     """The schema of the port's `rtapi.proto`, read once."""
-    global _RTAPI
-    if _RTAPI is None:
-        path = os.path.join(os.path.dirname(__file__), "rtapi.proto")
-        with open(path, encoding="utf-8") as f:
-            _RTAPI = parse(f.read())
-    return _RTAPI
+    return _read("rtapi.proto")
+
+
+def api() -> Schema:
+    """The schema of the port's `api.proto` (the `NakamaApi` service and
+    its messages), read once."""
+    return _read("api.proto")

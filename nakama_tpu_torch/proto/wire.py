@@ -11,7 +11,7 @@ sub-message always written, map entries with both key and value, and
 repeated numbers packed. `decode` reads what `FromString` reads:
 
 - varints of up to ten bytes (an `int32` keeps the low 32 bits, so a
-  negative one is ten bytes on the wire), 64-bit little-endian doubles,
+  negative one is ten bytes on the wire, as is a negative `int64`), 64-bit little-endian doubles,
   length-delimited strings (UTF-8 checked), bytes and sub-messages;
 - a sub-message seen twice merges, a later oneof member clears the
   earlier one, a map entry's key repeats to the last value, and a map
@@ -35,6 +35,7 @@ from .schema import (
     TYPE_DOUBLE,
     TYPE_ENUM,
     TYPE_INT32,
+    TYPE_INT64,
     TYPE_MESSAGE,
     TYPE_STRING,
     Message,
@@ -52,13 +53,14 @@ MAX_DEPTH = 100
 _WIRE_OF = {
     TYPE_DOUBLE: WIRE_FIXED64,
     TYPE_INT32: WIRE_VARINT,
+    TYPE_INT64: WIRE_VARINT,
     TYPE_BOOL: WIRE_VARINT,
     TYPE_ENUM: WIRE_VARINT,
     TYPE_STRING: WIRE_LEN,
     TYPE_BYTES: WIRE_LEN,
     TYPE_MESSAGE: WIRE_LEN,
 }
-_PACKABLE = (TYPE_DOUBLE, TYPE_INT32, TYPE_BOOL, TYPE_ENUM)
+_PACKABLE = (TYPE_DOUBLE, TYPE_INT32, TYPE_INT64, TYPE_BOOL, TYPE_ENUM)
 _DOUBLE = struct.Struct("<d")
 _ZERO_DOUBLE = _DOUBLE.pack(0.0)
 
@@ -71,7 +73,7 @@ class ProtocolError(ValueError):
 
 
 def _varint(n: int, out: bytearray) -> None:
-    n &= 0xFFFF_FFFF_FFFF_FFFF  # a negative int32 sign-extends to 64 bits
+    n &= 0xFFFF_FFFF_FFFF_FFFF  # a negative int32/int64: 64-bit two's complement
     while n > 0x7F:
         out.append((n & 0x7F) | 0x80)
         n >>= 7
@@ -87,7 +89,7 @@ def _is_default(ftype: int, value) -> bool:
 def _scalar(ftype: int, value, out: bytearray) -> None:
     if ftype == TYPE_DOUBLE:
         out += _DOUBLE.pack(value)
-    elif ftype in (TYPE_INT32, TYPE_ENUM, TYPE_BOOL):
+    elif ftype in (TYPE_INT32, TYPE_INT64, TYPE_ENUM, TYPE_BOOL):
         _varint(int(value), out)
     else:
         data = value.encode("utf-8") if ftype == TYPE_STRING else value
@@ -228,6 +230,9 @@ def _read_scalar(buf: _Buf, ftype: int):
         return buf.varint() != 0
     if ftype in (TYPE_INT32, TYPE_ENUM):
         return _int32(buf.varint())
+    if ftype == TYPE_INT64:
+        n = buf.varint()
+        return n - (1 << 64) if n >> 63 else n
     n = buf.length()
     start = buf.take(n)
     raw = bytes(buf.data[start:start + n])

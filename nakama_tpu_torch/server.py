@@ -15,9 +15,11 @@ leaderboard and refund schedulers — and graceful shutdown in reverse,
 ending with drain-to-durable. The database is the engine that
 `database.address` names: SQLite (a file or `:memory:`) or Postgres (a
 `postgres://` DSN, `storage/pg.py`). The port's copy of the JAX
-package's `server.py`; the cluster and gRPC of the JAX server come with
-their own slices (ROADMAP.md §A). The console is the second listener,
-on `console.port` (0 when `socket.port` is 0), as in the JAX server.
+package's `server.py`; the cluster of the JAX server comes with its own
+slice (ROADMAP.md §A). The console is the second listener, on
+`console.port` (0 when `socket.port` is 0), and the gRPC front door
+(`api/grpc_server.py`) the third, on `socket.grpc_port`, as in the JAX
+server.
 """
 
 from __future__ import annotations
@@ -275,6 +277,10 @@ class NakamaServer:
         self.console = ConsoleServer(self)
         self.port: int | None = None
         self.console_port: int | None = None
+        # The gRPC front door (api/grpc_server.py), started after the
+        # console unless `socket.grpc_port` is -1.
+        self.grpc = None
+        self.grpc_port: int | None = None
         self.metrics_port: int | None = None
         self.recovered: dict | None = None
         self._release_held: asyncio.TimerHandle | None = None
@@ -528,10 +534,28 @@ class NakamaServer:
             self.config.console.address or "127.0.0.1",
             0 if self.config.socket.port == 0 else self.config.console.port,
         )
+        # gRPC front door: the NakamaApi service transcoding onto the REST
+        # listener (api/grpc_server.py; reference convention puts gRPC on
+        # port-1 = 7349 next to HTTP 7350 — port 0 when the API's is).
+        if self.config.socket.grpc_port >= 0:
+            from .api.grpc_server import GrpcGateway
+
+            # The loopback targets the address the REST listener bound.
+            self.grpc = GrpcGateway(
+                self.logger,
+                self.config.socket.address or "127.0.0.1",
+                self.port,
+            )
+            self.grpc_port = await self.grpc.start(
+                self.config.socket.address or "127.0.0.1",
+                0 if self.config.socket.port == 0
+                else self.config.socket.grpc_port or self.port - 1,
+            )
         self.logger.info(
             "server listening",
             port=self.port,
             console=self.console_port,
+            grpc=self.grpc_port,
             metrics=self.metrics_port,
             backend=type(self.matchmaker.backend).__name__,
             device=str(getattr(self.matchmaker.backend, "device", "cpu")),
@@ -555,6 +579,9 @@ class NakamaServer:
             # Retry-After while the front doors finish in-flight
             # requests — the crash-only-software front half.
             self.overload.enter_drain()
+        if self.grpc is not None:
+            await self.grpc.stop()
+            self.grpc = None
         await self.console.stop()
         await self.api.stop()
         await self.match_registry.stop_all(grace)

@@ -1,4 +1,5 @@
-"""Shared outbound HTTP(S) helper for the social, Satori and IAP clients.
+"""Shared outbound HTTP(S) helper for the social, Satori and IAP clients
+and the gRPC gateway's loopback calls.
 
 The port's copy of the JAX package's `utils/httpfetch.py`, with the same
 contract — ``fetch(url, method, headers, body) -> (status, bytes)`` —
@@ -11,7 +12,10 @@ followed as `aiohttp`'s `session.request` follows them by default
 10th redirect in a row raises). Connections are kept alive in one pool
 per event loop (the JAX helper keeps one session per loop, the
 reference one http.Client per client, social/social.go NewClient);
-pools of closed loops are dropped.
+pools of closed loops are dropped. `fetch_response` is `fetch` with the
+response's headers (names lower-cased) beside its status and body, over
+the same pool; `close_idle` closes this loop's idle connections to one
+origin.
 """
 
 from __future__ import annotations
@@ -57,7 +61,12 @@ def _pool() -> dict:
                 _pools.pop(k, None)
                 for idle in conns.values():
                     for _, writer in idle:
-                        writer.transport.abort()
+                        try:
+                            writer.transport.abort()
+                        except RuntimeError:
+                            # Its loop is closed and can schedule nothing:
+                            # the socket closes with the dropped transport.
+                            pass
         entry = _pools[key] = (loop, {})
     return entry[1]
 
@@ -68,18 +77,37 @@ async def fetch(
     headers: dict | None = None,
     body: bytes | None = None,
 ) -> tuple[int, bytes]:
+    status, _, data = await fetch_response(url, method, headers, body)
+    return status, data
+
+
+async def fetch_response(
+    url: str,
+    method: str = "GET",
+    headers: dict | None = None,
+    body: bytes | None = None,
+) -> tuple[int, dict, bytes]:
+    """`fetch`, with the response's headers: (status, headers, body)."""
     # The 10th redirect is an error, not followed (as aiohttp's is).
     for _ in range(MAX_REDIRECTS):
         status, resp_headers, data = await _request(url, method, headers, body)
         location = resp_headers.get("location")
         if status not in _REDIRECTS or not location:
-            return status, data
+            return status, resp_headers, data
         url = urllib.parse.urljoin(url, location)
         if status == 303 or (status in (301, 302) and method == "POST"):
             if method != "HEAD":
                 method = "GET"
             body = None
     raise FetchError(f"too many redirects ({MAX_REDIRECTS}): {url}")
+
+
+def close_idle(scheme: str, host: str, port: int) -> int:
+    """Close this loop's idle connections to one origin; how many."""
+    idle = _pool().pop((scheme, host, port), [])
+    for _, writer in idle:
+        writer.close()
+    return len(idle)
 
 
 async def _request(url, method, headers, body):

@@ -1351,6 +1351,7 @@ def test_check_and_parse_args_agree_on_the_shared_sections():
         "--name", "node-7", "--data_dir", "/tmp/x", "--shutdown_grace_sec", "5",
         "--logger.format", "logfmt", "--metrics.prometheus_port", "-1",
         "--session.token_expiry_sec", "120", "--socket.port", "0",
+        "--socket.grpc_port", "7349",
         "--socket.max_message_size_bytes", "8192",
         "--database.address", "a.db,b.db", "--matchmaker.interval_sec", "1",
         "--matchmaker.backend", "cpu", "--tracker.event_queue_size", "64", "--overload.rate_limit_rps", "2.5",
@@ -1371,6 +1372,7 @@ def test_check_and_parse_args_agree_on_the_shared_sections():
     jax = jax_config.parse_args(argv)
     pd = port_config.config_to_dict(port)
     jd = jax_config.config_to_dict(jax)
+    assert pd["socket"]["grpc_port"] == jd["socket"]["grpc_port"] == 7349
     for name in ("name", "data_dir", "shutdown_grace_sec"):
         assert pd[name] == jd[name]
     for section in shared:

@@ -465,6 +465,33 @@ HYGIENE = textwrap.dedent(
             await server.stop()
 
     asyncio.run(pg())
+    # The gRPC front door: one call through the port's server and its
+    # gateway, from the smoke's raw HTTP/2 client on the port's own HPACK
+    # and codec (no grpcio).
+    from chip_smoke import GrpcClient
+    from nakama_tpu_torch.config import parse_args
+    from nakama_tpu_torch.server import NakamaServer
+
+    async def grpc_call():
+        d = tempfile.mkdtemp()
+        cfg = parse_args(["--socket.port", "0", "--metrics.prometheus_port",
+                          "-1", "--data_dir", d, "--matchmaker.interval_sec",
+                          "100", "--matchmaker.pool_capacity", "2048"])
+        server = NakamaServer(cfg, test_logger(), matchmaker_backend=backend(
+            cfg.matchmaker))
+        await server.start()
+        try:
+            c = await GrpcClient("127.0.0.1", server.grpc_port).connect()
+            basic = "Basic " + base64.b64encode(b"defaultkey:").decode()
+            r = await c.call("AuthenticateDevice", {"account": {"id": "dev-hygiene"}},
+                             "AuthenticateRequest", "Session",
+                             [("authorization", basic)])
+            assert r.status == 0 and r.body["token"] and r.traceparent, vars(r)
+            await c.close()
+        finally:
+            await server.stop()
+
+    asyncio.run(grpc_call())
     bad = sorted(
         m for m in sys.modules
         if m == "jax" or m.startswith("jax.")
@@ -473,6 +500,7 @@ HYGIENE = textwrap.dedent(
         or m == "google.protobuf" or m.startswith("google.protobuf.")
         or m == "aiohttp" or m.startswith("aiohttp.")
         or m == "cryptography" or m.startswith("cryptography.")
+        or m == "grpc" or m.startswith("grpc.")
     )
     assert not bad, bad
     print("ok")
